@@ -1,0 +1,112 @@
+#!/usr/bin/env python3
+"""Where the port's fleet step spends its time on one NVIDIA card.
+
+    python3 profile_fleet_step.py
+
+Builds the fleet of ``chip_smoke.py`` (4 groups x 5 cameras at the
+paper's camera sizes, RoI density 0.35, default detector), runs a cold
+step and two warm-up warm steps, then profiles with ``torch.profiler``
+each of: a cold step, three warm threshold-0 steps (5 cameras get a fresh
+64x64 patch each) and an all-static step.  For each it prints the step's
+wall time (host clock around work that ends in a synchronize), the
+device busy time (the sum of the kernel, copy and fill durations the
+profiler traced), the device idle share, the device time by kernel and
+the host time by operator.  Then ``cProfile`` times the Python side of a
+warm and an all-static step, which ``torch.profiler`` does not see (numpy
+planning, frame staging calls).
+"""
+import collections
+import cProfile
+import io
+import pstats
+import sys
+import time
+
+import chip_smoke as cs
+
+
+def profile_step(torch, step_fn, label):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_kernel = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.name] += e.time_range.elapsed_us()
+    busy_us = sum(by_kernel.values())
+    cs.say(f"[{label}] wall_ms={wall_us / 1e3:.3f} "
+           f"device_busy_ms={busy_us / 1e3:.3f} "
+           f"idle_share={1 - busy_us / wall_us:.3f}")
+    for name, us in by_kernel.most_common(8):
+        cs.say(f"[{label}]   device {us / 1e3:8.3f} ms  {name[:90]}")
+    host = sorted(prof.key_averages(), key=lambda k: -k.self_cpu_time_total)
+    for k in host[:8]:
+        cs.say(f"[{label}]   host   {k.self_cpu_time_total / 1e3:8.3f} ms  "
+               f"{k.key[:60]} x{k.count}")
+
+
+def python_profile(torch, step_fn, label, top=14):
+    """Wall time of one step and its Python functions by own time."""
+    torch.cuda.synchronize()
+    pr = cProfile.Profile()
+    t0 = time.perf_counter()
+    pr.enable()
+    step_fn()
+    torch.cuda.synchronize()
+    pr.disable()
+    cs.say(f"[{label}] wall_ms={(time.perf_counter() - t0) * 1e3:.3f} "
+           f"(under cProfile)")
+    out = io.StringIO()
+    pstats.Stats(pr, stream=out).sort_stats("tottime").print_stats(top)
+    for line in out.getvalue().splitlines():
+        if line.strip() and line.lstrip()[0].isdigit():
+            cs.say(f"[{label}]   {line.strip()[:150]}")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_fleet_step: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(cs.SRC))
+    from repro_torch.fleet.runtime import fleet_reuse_step
+    from repro_torch.kernels import _build
+    from repro_torch.serving.detector import PackedActivationCache
+
+    _build.library()
+    dev = torch.device("cuda")
+    rng, gen, grids, frames = cs.build_fleet(torch, dev)
+    det = cs.build_detector(dev)
+    cs.say(f"[card] {torch.cuda.get_device_name(0)}; nvidia-smi: "
+           f"{' | '.join(cs.nvidia_smi())}")
+    cache = PackedActivationCache()
+    state = {"frames": frames}
+
+    def step(patch=True):
+        if patch:
+            state["frames"] = cs.with_patches(torch, state["frames"], grids,
+                                              rng, gen, 0.0)
+        return fleet_reuse_step(det, state["frames"], grids, cache)
+
+    step(False)                                   # cold: seeds the cache
+    step()
+    step()
+    cache.invalidate()
+    profile_step(torch, lambda: step(False), "cold")
+    for k in range(3):
+        profile_step(torch, step, f"warm{k}")
+    profile_step(torch, lambda: step(False), "static")
+    python_profile(torch, step, "py-warm")
+    python_profile(torch, lambda: step(False), "py-static")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,38 @@
+"""CrossRoI's online fleet step in PyTorch, with hand-written CUDA kernels
+for the NVIDIA H100 (``sm_90a``).
+
+The package runs the delta-gated fleet step: the cold super-launch
+(``fleet.runtime.fleet_inference_step``) and the warm, changed-tiles-only
+step (``fleet.runtime.fleet_reuse_step``).  Four CUDA kernels carry it,
+built from ``kernels/csrc`` with ``nvcc`` at first use:
+
+* ``tile_delta_gate_canvas`` -- per-tile delta stats against the
+  reference canvas (the reuse gate);
+* ``roi_conv_entry`` -- gather + 3x3 conv + ReLU straight off the frames;
+* ``roi_conv_stack`` -- every later 3x3 conv + ReLU layer in one launch;
+* ``sbnet_scatter`` -- packed head tiles into the (C, H, W, A) canvas.
+
+Entry points run on ``torch.device("cuda")`` unless the caller passes
+``device="cpu"``; on a CPU tensor every kernel wrapper takes its plain
+PyTorch version (``kernels/ref.py``).  Public layouts follow the JAX
+package ``repro``: frames NHWC, weights HWIO, head (C_last, A), index
+tables (n, 3) and (n, 8) int32.  This package imports neither ``jax`` nor
+anything of ``repro``.
+"""
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the
+    CUDA card.  Raises when no device is given and there is no card --
+    the port never drops to the CPU on its own."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain versions")
+    return torch.device("cuda")
+
+
+__all__ = ["resolve_device"]

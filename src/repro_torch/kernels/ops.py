@@ -1,0 +1,268 @@
+"""Counting wrappers around the fleet step's kernels, and the host tables.
+
+Host side (numpy, static per mask): mask -> index-list conversion, the
+(n, 8) neighbour table of the packed conv chain, the fleet-flat super-launch
+tables, and the delta gate's changed-set dilation and compaction.
+
+Every public kernel wrapper counts its dispatch under a name from
+``KERNEL_NAMES`` before it launches, so tests and runs can assert the
+dispatch structure of the hot path (see ``fleet.runtime``).  An empty tile
+set is not a dispatch: it returns with no launch and no count.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import contextvars
+import threading
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import roi_conv as _roi_conv
+from repro_torch.kernels import sbnet as _sbnet
+from repro_torch.kernels import tile_delta as _tile_delta
+from repro_torch.kernels.roi_conv import NEIGHBOR_OFFSETS
+from repro_torch.kernels.tile_delta import (COEF_BITS, GATE_BODY_BYTES,
+                                            GATE_BODY_NNZ, GATE_BODY_RUNS,
+                                            GATE_BODY_SABS, GATE_WIN_BYTES,
+                                            GATE_WIN_EXACT, RUN_BITS,
+                                            STATS_WIDTH)
+
+# the canonical dispatch-counter names, the same set as the JAX package's
+KERNEL_NAMES = frozenset({
+    "sbnet_gather", "sbnet_scatter", "sbnet_scatter_fleet",
+    "sbnet_scatter_changed",
+    "roi_conv", "roi_conv_packed", "roi_conv_fleet",
+    "roi_conv_entry", "roi_conv_stack",
+    "tile_delta", "tile_delta_gate", "tile_delta_halo",
+    "roi_attention",
+})
+
+# kernel-dispatch counter: wrapper name -> number of dispatches issued from
+# Python, process-lifetime.  ``count_kernels()`` regions live on a
+# contextvar stack, so a dispatch issued from another thread or async task
+# never leaks into a region it is not lexically inside.
+KERNEL_COUNTS: collections.Counter = collections.Counter()
+
+_COUNT_LOCK = threading.Lock()
+_COUNT_STACK: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_kernel_count_stack", default=())
+
+
+def record_dispatch(name: str, n: int = 1) -> None:
+    """Count ``n`` dispatches under ``name``: bumps ``KERNEL_COUNTS`` and
+    every ``count_kernels()`` region open in THIS context.  ``name`` must
+    come from ``KERNEL_NAMES`` -- a misspelt name raises instead of
+    counting zero forever."""
+    if name not in KERNEL_NAMES:
+        raise ValueError(
+            f"unknown kernel counter {name!r}: dispatch names must come "
+            f"from KERNEL_NAMES")
+    with _COUNT_LOCK:
+        KERNEL_COUNTS[name] += n
+        for region in _COUNT_STACK.get():
+            region[name] += n
+
+
+@contextlib.contextmanager
+def count_kernels():
+    """Isolated dispatch-count region: ``with count_kernels() as c: ...``.
+
+    ``c`` accumulates exactly the dispatches issued inside the region in
+    this thread or async context; an enclosing region still sees every
+    inner dispatch, so regions nest.  ``KERNEL_COUNTS`` keeps counting
+    independently."""
+    region: collections.Counter = collections.Counter()
+    token = _COUNT_STACK.set(_COUNT_STACK.get() + (region,))
+    try:
+        yield region
+    finally:
+        _COUNT_STACK.reset(token)
+
+
+# ---------------------------------------------------------------------------
+# host tables (numpy, static per mask)
+# ---------------------------------------------------------------------------
+
+def mask_to_indices(grid: np.ndarray) -> np.ndarray:
+    """Bool (ty, tx) RoI grid -> (n, 2) int32 active-tile coords."""
+    ys, xs = np.nonzero(grid)
+    return np.stack([ys, xs], axis=1).astype(np.int32)
+
+
+def neighbor_table(idx: np.ndarray, grid_shape) -> np.ndarray:
+    """(n, 2) active-tile coords -> (n, 8) int32 packed-slot neighbour
+    table: column j is the slot of the neighbour at NEIGHBOR_OFFSETS[j], or
+    -1 when that neighbour is inactive or off the frame (zero halo)."""
+    idx = np.asarray(idx)
+    ty_max, tx_max = grid_shape
+    slot = {(int(y), int(x)): i for i, (y, x) in enumerate(idx)}
+    nbr = np.full((idx.shape[0], 8), -1, np.int32)
+    for i, (y, x) in enumerate(idx):
+        for j, (dy, dx) in enumerate(NEIGHBOR_OFFSETS):
+            ny, nx = int(y) + dy, int(x) + dx
+            if 0 <= ny < ty_max and 0 <= nx < tx_max:
+                nbr[i, j] = slot.get((ny, nx), -1)
+    return nbr
+
+
+def fleet_indices(grids) -> "tuple[np.ndarray, np.ndarray]":
+    """Per-camera bool grids -> (idx (n, 3) int32 rows of (cam, ty, tx),
+    offsets (C+1,) int64): camera c's tiles occupy packed slots
+    [offsets[c], offsets[c+1]) in row-major order."""
+    rows = []
+    offsets = np.zeros(len(grids) + 1, np.int64)
+    for c, grid in enumerate(grids):
+        ys, xs = np.nonzero(np.asarray(grid, bool))
+        offsets[c + 1] = offsets[c] + ys.size
+        rows.append(np.stack([np.full(ys.size, c), ys, xs], axis=1))
+    idx = (np.concatenate(rows, axis=0) if rows
+           else np.zeros((0, 3))).astype(np.int32)
+    return idx, offsets
+
+
+def fleet_neighbor_table(grids) -> np.ndarray:
+    """(n, 8) neighbour table of the concatenated fleet packing: each
+    camera's table is built on its own grid and shifted by its packed
+    offset, so a halo never references another camera's slots."""
+    tables = []
+    off = 0
+    for grid in grids:
+        grid = np.asarray(grid, bool)
+        idx = mask_to_indices(grid)
+        nbr = neighbor_table(idx, grid.shape)
+        nbr[nbr >= 0] += off
+        off += idx.shape[0]
+        tables.append(nbr)
+    if not tables:
+        return np.zeros((0, 8), np.int32)
+    return np.concatenate(tables, axis=0).astype(np.int32)
+
+
+def superlaunch_tables(grids_per_group):
+    """Fleet-flat tables over all groups' cameras: returns (idx (n, 3),
+    nbr (n, 8), tile_offsets (F+1,), cam_starts (K+1,)); group g's cameras
+    are flat cams [cam_starts[g], cam_starts[g+1])."""
+    flat = [g for gs in grids_per_group for g in gs]
+    idx, tile_offsets = fleet_indices(flat)
+    nbr = fleet_neighbor_table(flat)
+    cam_starts = np.cumsum([0] + [len(gs) for gs in grids_per_group]) \
+        .astype(np.int64)
+    return idx, nbr, tile_offsets, cam_starts
+
+
+def dilate_changed(changed: np.ndarray, nbr: np.ndarray) -> np.ndarray:
+    """One dilation of a per-tile bool set through the (n, 8) neighbour
+    table (which never crosses cameras)."""
+    changed = np.asarray(changed, bool)
+    if changed.size == 0:
+        return changed
+    nbr = np.asarray(nbr)
+    safe = np.clip(nbr, 0, changed.size - 1)
+    return changed | (changed[safe] & (nbr >= 0)).any(axis=1)
+
+
+def reuse_sets(raw_changed: np.ndarray, nbr: np.ndarray,
+               n_layers: int) -> "tuple[np.ndarray, np.ndarray]":
+    """The gate's receptive-field bookkeeping: ``raw_changed`` (tiles
+    whose haloed entry window changed) dilated once per later layer gives
+    ``changed_out`` (tiles whose final output may differ); dilated as many
+    times again gives ``compute``, the compact launch's set, whose margin
+    absorbs the zero halo of the compacted neighbour table."""
+    changed = np.asarray(raw_changed, bool)
+    for _ in range(max(n_layers - 1, 0)):
+        changed = dilate_changed(changed, nbr)
+    compute = changed
+    for _ in range(max(n_layers - 1, 0)):
+        compute = dilate_changed(compute, nbr)
+    return changed, compute
+
+
+def compact_tables(idx: np.ndarray, nbr: np.ndarray, keep: np.ndarray
+                   ) -> "tuple[np.ndarray, np.ndarray]":
+    """(idx[keep], the (k, 8) neighbour table renumbered to compact slots;
+    dropped or inactive neighbours become -1)."""
+    idx = np.asarray(idx)
+    nbr = np.asarray(nbr)
+    keep = np.asarray(keep, bool)
+    n = idx.shape[0]
+    pos = np.full(n, -1, np.int64)
+    pos[keep] = np.arange(int(keep.sum()))
+    cnbr = np.where(nbr >= 0, pos[np.clip(nbr, 0, max(n - 1, 0))],
+                    -1).astype(np.int32)
+    return idx[keep].astype(np.int32), cnbr[keep]
+
+
+# ---------------------------------------------------------------------------
+# counting kernel wrappers
+# ---------------------------------------------------------------------------
+
+def roi_conv_entry(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
+                   th: int, tw: int) -> torch.Tensor:
+    """Fleet-flat gather + 3x3 conv + ReLU: (C, H, W, Cin) stacked frames +
+    (n, 3) (flat_cam, ty, tx) rows -> ReLU'd packed (n, th, tw, Cout), the
+    input of ``roi_conv_stack``."""
+    if idx.shape[0] == 0:
+        return x.new_zeros((0, th, tw, w.shape[-1]))
+    record_dispatch("roi_conv_entry")
+    return _roi_conv.roi_conv_entry(x, w, idx, th, tw)
+
+
+def roi_conv_stack(packed: torch.Tensor, ws: Sequence[torch.Tensor],
+                   nbr: torch.Tensor) -> torch.Tensor:
+    """The whole packed conv chain after the entry (conv + ReLU per
+    layer) in ONE dispatch."""
+    if packed.shape[0] == 0:
+        return packed.new_zeros(packed.shape[:3] + (ws[-1].shape[-1],))
+    record_dispatch("roi_conv_stack")
+    return _roi_conv.roi_conv_stack(packed, ws, nbr)
+
+
+def sbnet_scatter_fleet(packed: torch.Tensor, idx: torch.Tensor,
+                        base: torch.Tensor) -> torch.Tensor:
+    """Cross-camera scatter: packed tiles -> (C, H, W, A) ``base``, in
+    place, in ONE launch; returns ``base``."""
+    if packed.shape[0] == 0:
+        return base
+    record_dispatch("sbnet_scatter_fleet")
+    return _sbnet.sbnet_scatter_fleet(packed, idx, base)
+
+
+def sbnet_scatter_changed(packed: torch.Tensor, idx: torch.Tensor,
+                          base: torch.Tensor) -> torch.Tensor:
+    """Changed-only scatter into the PERSISTENT head-map canvas ``base``
+    (updated in place): ``packed``/``idx`` carry only this step's
+    refreshed tiles; unchanged tiles keep the bytes the step that last
+    computed them wrote."""
+    if packed.shape[0] == 0:
+        return base
+    record_dispatch("sbnet_scatter_changed")
+    return _sbnet.sbnet_scatter_fleet(packed, idx, base)
+
+
+def tile_delta_gate_canvas(cur_p: torch.Tensor, ref_c: torch.Tensor,
+                           idx: torch.Tensor, th: int, tw: int,
+                           qstep: float = 8.0, coef_bits: int = COEF_BITS,
+                           run_bits: int = RUN_BITS) -> torch.Tensor:
+    """The reuse gate against a canvas-resident reference: (C, H+2, W+2,
+    Cin) padded frames and reference canvas + (n, 3) rows -> (n,
+    STATS_WIDTH) int32 stats rows.  Counted as ``tile_delta_gate``."""
+    if idx.shape[0] == 0:
+        return torch.zeros((0, STATS_WIDTH), dtype=torch.int32,
+                           device=cur_p.device)
+    record_dispatch("tile_delta_gate")
+    return _tile_delta.tile_delta_gate_canvas(cur_p, ref_c, idx, th, tw,
+                                              qstep, coef_bits, run_bits)
+
+
+__all__ = ["KERNEL_NAMES", "KERNEL_COUNTS", "record_dispatch",
+           "count_kernels", "NEIGHBOR_OFFSETS", "COEF_BITS", "RUN_BITS",
+           "STATS_WIDTH", "GATE_BODY_BYTES", "GATE_BODY_NNZ",
+           "GATE_BODY_RUNS", "GATE_BODY_SABS", "GATE_WIN_EXACT",
+           "GATE_WIN_BYTES", "mask_to_indices", "neighbor_table",
+           "fleet_indices", "fleet_neighbor_table", "superlaunch_tables",
+           "dilate_changed", "reuse_sets", "compact_tables",
+           "roi_conv_entry", "roi_conv_stack", "sbnet_scatter_fleet",
+           "sbnet_scatter_changed", "tile_delta_gate_canvas"]

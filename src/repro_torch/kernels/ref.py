@@ -1,0 +1,147 @@
+"""Plain PyTorch versions of the four CUDA kernels of the fleet step.
+
+Each function computes what its kernel computes, in float32, from
+elementwise tensor operations only: no cuDNN convolution and no cuBLAS
+product, so ``torch.backends.cudnn.allow_tf32`` and
+``torch.backends.cuda.matmul.allow_tf32`` cannot change a bit of them on
+the card.  The kernel wrappers use these for CPU tensors; ``chip_smoke.py``
+holds every kernel against them on the card.
+
+The 3x3 convolutions accumulate their taps in the kernels' fixed order
+(``dy``, then ``dx``, then input channel ``ci``), one multiply and one add
+per step.  Each output element is therefore a function of its own inputs
+alone, whatever the number of tiles in the call -- the property the
+threshold-0 reuse identity (a compact launch equals a full launch on the
+tiles they share) rests on.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+
+def tile_index(idx: torch.Tensor, th: int, tw: int, h: int, w: int):
+    """(n, 3) (cam, ty, tx) rows -> broadcastable (cam, row, col) index
+    tensors of shape (n, 1, 1), (n, h, 1), (n, 1, w) addressing the h x w
+    block at (ty*th, tx*tw) of each row's camera plane."""
+    idx = idx.long()
+    rows = idx[:, 1:2] * th + torch.arange(h, device=idx.device)
+    cols = idx[:, 2:3] * tw + torch.arange(w, device=idx.device)
+    return idx[:, 0, None, None], rows[:, :, None], cols[:, None, :]
+
+
+def _windows(xp: torch.Tensor, idx: torch.Tensor, th: int,
+             tw: int) -> torch.Tensor:
+    """(C, H+2, W+2, Cin) padded planes + (n, 3) (cam, ty, tx) rows ->
+    the (n, th+2, tw+2, Cin) haloed windows starting at (ty*th, tx*tw)."""
+    return xp[tile_index(idx, th, tw, th + 2, tw + 2)]
+
+
+def _scan_stats(q: torch.Tensor):
+    """(n, rows, lanes) int32 quantized deltas -> per-tile (nnz, runs,
+    sum|q|) int64; a zero run never joins across scan rows."""
+    z = q == 0
+    nnz = (~z).sum(dim=(1, 2))
+    left = torch.zeros_like(z)
+    left[:, :, 1:] = z[:, :, :-1]
+    runs = (z & ~left).sum(dim=(1, 2))
+    return nnz, runs, q.abs().sum(dim=(1, 2), dtype=torch.int64)
+
+
+def tile_delta_gate_canvas(cur_p: torch.Tensor, ref_c: torch.Tensor,
+                           idx: torch.Tensor, th: int, tw: int,
+                           qstep: float = 8.0, coef_bits: int = 6,
+                           run_bits: int = 10) -> torch.Tensor:
+    """The reuse gate against a reference canvas.  cur_p, ref_c: (C, H+2,
+    W+2, Cin) zero-padded planes; idx: (n, 3) int32 (cam, ty, tx).
+    Returns (n, 8) int32 rows ``[body bytes, body nnz, body runs, body
+    sum|q|, window exact-change count, window bytes, 0, 0]`` with
+    ``q = round_half_even((cur - prev) / qstep)`` in float32.  Body scan
+    rows are the th inner pixel rows (tw*Cin lanes), window scan rows the
+    th+2 window rows ((tw+2)*Cin lanes)."""
+    n = idx.shape[0]
+    cw = _windows(cur_p, idx, th, tw)
+    pw = _windows(ref_c, idx, th, tw)
+    # a 0-dim tensor on the same device, not a Python scalar: CUDA turns
+    # division by a host scalar into a multiply by its reciprocal, which
+    # is not correctly rounded
+    step = torch.tensor(qstep, dtype=torch.float32, device=cur_p.device)
+    q = torch.round((cw - pw) / step).to(torch.int32)
+    b_nnz, b_runs, b_sabs = _scan_stats(
+        q[:, 1:1 + th, 1:1 + tw].reshape(n, th, -1))
+    w_nnz, w_runs, _ = _scan_stats(q.reshape(n, th + 2, -1))
+    out = torch.zeros((n, 8), dtype=torch.int64, device=cur_p.device)
+    out[:, 0] = (b_nnz * coef_bits + b_runs * run_bits + 7) // 8
+    out[:, 1] = b_nnz
+    out[:, 2] = b_runs
+    out[:, 3] = b_sabs
+    out[:, 4] = (cw != pw).sum(dim=(1, 2, 3))
+    out[:, 5] = (w_nnz * coef_bits + w_runs * run_bits + 7) // 8
+    return out.to(torch.int32)
+
+
+def conv3x3_taps(win: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(n, h+2, w+2, Cin) haloed windows + (3, 3, Cin, Cout) HWIO weights
+    -> (n, h, w, Cout) VALID 3x3 conv, taps accumulated in the fixed
+    order dy, dx, ci (one rounded multiply, one rounded add each)."""
+    n, hp, wp, cin = win.shape
+    h, wd = hp - 2, wp - 2
+    acc = torch.zeros((n, h, wd, w.shape[-1]), dtype=torch.float32,
+                      device=win.device)
+    for dy in range(3):
+        for dx in range(3):
+            patch = win[:, dy:dy + h, dx:dx + wd, :]
+            for ci in range(cin):
+                acc += patch[..., ci:ci + 1] * w[dy, dx, ci]
+    return acc
+
+
+def roi_conv_entry(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
+                   th: int, tw: int) -> torch.Tensor:
+    """Gather + 3x3 SAME conv + ReLU on active tiles: x (C, H, W, Cin)
+    stacked frames, w (3, 3, Cin, Cout), idx (n, 3) -> (n, th, tw, Cout).
+    Pixels outside a camera's plane read as zero."""
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    return torch.relu(conv3x3_taps(_windows(xp, idx, th, tw), w))
+
+
+def assemble_halo(packed: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """(n, th, tw, C) packed tiles + (n, 8) neighbour slots -> (n, th+2,
+    tw+2, C) windows whose 1-pixel ring comes from the neighbours' edges,
+    zero where the slot is -1.  Columns follow NEIGHBOR_OFFSETS: NW, N,
+    NE, W, E, SW, S, SE."""
+    n, th, tw, c = packed.shape
+    ext = torch.cat([packed, packed.new_zeros((1, th, tw, c))])
+    slot = torch.where(nbr >= 0, nbr, n).long()          # n = the zero tile
+    win = packed.new_zeros((n, th + 2, tw + 2, c))
+    win[:, 1:1 + th, 1:1 + tw] = packed
+    win[:, 0, 0] = ext[slot[:, 0], th - 1, tw - 1]
+    win[:, 0, 1:1 + tw] = ext[slot[:, 1], th - 1]
+    win[:, 0, tw + 1] = ext[slot[:, 2], th - 1, 0]
+    win[:, 1:1 + th, 0] = ext[slot[:, 3], :, tw - 1]
+    win[:, 1:1 + th, tw + 1] = ext[slot[:, 4], :, 0]
+    win[:, th + 1, 0] = ext[slot[:, 5], 0, tw - 1]
+    win[:, th + 1, 1:1 + tw] = ext[slot[:, 6], 0]
+    win[:, th + 1, tw + 1] = ext[slot[:, 7], 0, 0]
+    return win
+
+
+def roi_conv_stack(packed: torch.Tensor, ws: Sequence[torch.Tensor],
+                   nbr: torch.Tensor) -> torch.Tensor:
+    """Every later layer over the packed tensor: per layer, each tile's
+    halo from its neighbours (zero at -1 slots), 3x3 conv, ReLU -- equal
+    to scattering onto zeros, a SAME conv and a gather, at every layer."""
+    for w in ws:
+        packed = torch.relu(conv3x3_taps(assemble_halo(packed, nbr), w))
+    return packed
+
+
+def sbnet_scatter_fleet(packed: torch.Tensor, idx: torch.Tensor,
+                        base: torch.Tensor) -> torch.Tensor:
+    """Write (n, th, tw, A) tiles into ``base`` (C, H, W, A) at (cam,
+    ty*th, tx*tw), in place; returns ``base``.  Repeated rows carry the
+    same tile and rewrite the same bytes."""
+    _, th, tw, _ = packed.shape
+    base[tile_index(idx, th, tw, th, tw)] = packed
+    return base

@@ -1,0 +1,98 @@
+"""RoI-sparse 3x3 convolution: the fused backbone's two kernels.
+
+``roi_conv_entry`` (``csrc/roi_conv_entry.cu``) is the entry layer: gather
++ 3x3 SAME conv + ReLU evaluated on the active tiles only, reading each
+haloed window straight off the stacked frames.  ``roi_conv_stack``
+(``csrc/roi_conv_stack.cu``) runs every later layer over the packed tiles
+in one launch, each tile's halo coming from its neighbours through the
+(n, 8) neighbour table.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+# neighbour-table column order: (dy, dx) offsets of the 8 surrounding tiles
+NEIGHBOR_OFFSETS = ((-1, -1), (-1, 0), (-1, 1), (0, -1),
+                    (0, 1), (1, -1), (1, 0), (1, 1))
+
+_SMEM_LIMIT = 227 * 1024          # shared memory one H100 CTA may hold
+
+
+def roi_conv_entry(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
+                   th: int, tw: int) -> torch.Tensor:
+    """x: (C, H, W, Cin) float32 stacked frames; w: (3, 3, Cin, Cout);
+    idx: (n, 3) int32 (cam, ty, tx).  Returns the ReLU'd packed SAME-conv
+    outputs (n, th, tw, Cout).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return ref.roi_conv_entry(x, w, idx, th, tw)
+    name = "roi_conv_entry"
+    dev = _build.cuda_device(name, x, w, idx)
+    _build.expect(name, "x", x, torch.float32, (None,) * 4)
+    C, H, W, Cin = x.shape
+    _build.expect(name, "w", w, torch.float32, (3, 3, Cin, None))
+    _build.expect(name, "idx", idx, torch.int32, (None, 3))
+    Cout = w.shape[-1]
+    n = idx.shape[0]
+    if 4 * (9 * Cin * Cout + (th + 2) * (tw + 2) * Cin) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: weights and window exceed shared memory")
+    out = torch.empty((n, th, tw, Cout), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.roi_conv_entry_launch(
+            x.data_ptr(), w.data_ptr(), idx.data_ptr(), out.data_ptr(), n, C,
+            H, W, Cin, Cout, th, tw, _build.stream_handle(dev))
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def roi_conv_stack(packed: torch.Tensor, ws: Sequence[torch.Tensor],
+                   nbr: torch.Tensor) -> torch.Tensor:
+    """packed: (n, th, tw, C0) float32 entry output; ws: the later layers'
+    (3, 3, C_l, C_{l+1}) weights; nbr: (n, 8) int32 neighbour slots (-1 =
+    zero halo).  Returns the last layer's (n, th, tw, C_L), each layer
+    conv + ReLU.  The kernel recomputes an L-pixel ring per tile, so it
+    takes at most ``min(th, tw)`` layers and raises beyond.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
+    if packed.device.type == "cpu":
+        return ref.roi_conv_stack(packed, ws, nbr)
+    name = "roi_conv_stack"
+    dev = _build.cuda_device(name, packed, nbr, *ws)
+    _build.expect(name, "packed", packed, torch.float32, (None,) * 4)
+    n, th, tw, c0 = packed.shape
+    _build.expect(name, "nbr", nbr, torch.int32, (n, 8))
+    L = len(ws)
+    if not 1 <= L <= min(th, tw, 8):
+        raise ValueError(f"{name}: {L} layers; the kernel takes 1 to "
+                         f"min(tile, 8) = {min(th, tw, 8)}")
+    chans = [c0]
+    for i, w in enumerate(ws):
+        _build.expect(name, f"ws[{i}]", w, torch.float32,
+                      (3, 3, chans[-1], None))
+        chans.append(w.shape[-1])
+    c_chans = (ctypes.c_int * (L + 1))(*chans)
+    lib = _build.library()
+    smem = lib.roi_conv_stack_smem_bytes(c_chans, L, th, tw)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{name}: needs {smem} bytes of shared memory per "
+                         f"tile, more than {_SMEM_LIMIT}")
+    out = torch.empty((n, th, tw, chans[-1]), dtype=torch.float32,
+                      device=dev)
+    if n == 0:
+        return out
+    wcat = torch.cat([w.reshape(-1) for w in ws])
+    with torch.cuda.device(dev):
+        err = lib.roi_conv_stack_launch(
+            packed.data_ptr(), wcat.data_ptr(), c_chans, nbr.data_ptr(),
+            out.data_ptr(), n, th, tw, L, _build.stream_handle(dev))
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return out

@@ -1,0 +1,142 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is false.
+This file imports no JAX, so it runs on a machine with a card and PyTorch
+alone:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.fleet import runtime as trt
+from repro_torch.kernels import _build, ops as tops, ref as tref
+from repro_torch.kernels import roi_conv, sbnet, tile_delta
+from repro_torch.serving import detector as tdet
+
+SHAPES = [(4, 5), (3, 4), (5, 3)]          # per-camera tile grids
+
+
+def _fleet(seed, tile, density=0.55):
+    rng = np.random.default_rng(seed)
+    grids = [rng.random(s) < density for s in SHAPES]
+    for g in grids:
+        g[1, 1] = True
+    idx, _ = tops.fleet_indices(grids)
+    nbr = tops.fleet_neighbor_table(grids)
+    H = max(s[0] for s in SHAPES) * tile
+    W = max(s[1] for s in SHAPES) * tile
+    return rng, grids, idx, nbr, H, W
+
+
+def _t(a):
+    return torch.as_tensor(np.ascontiguousarray(a))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU run covers the plain "
+                    "versions")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# odd widths and channel counts that are not multiples of the kernels'
+# 8-channel chunk, one to three stack layers, tiles of 8 and 16
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,channels", [
+    (8, (8, 16, 16)), (16, (8, 16, 16)), (8, (8, 16)), (8, (6, 12, 10, 5))])
+def test_cuda_kernels_match_plain_versions(cuda, tile, channels):
+    rng, _, idx, nbr, H, W = _fleet(6, tile)
+    C = len(SHAPES)
+    chans = (3,) + channels
+    x = rng.normal(size=(C, H, W, 3)).astype(np.float32)
+    ws = [(rng.normal(size=(3, 3, ci, co)) / np.sqrt(9 * ci))
+          .astype(np.float32) for ci, co in zip(chans[:-1], chans[1:])]
+    d = {k: _t(v).to(cuda) for k, v in dict(x=x, idx=idx, nbr=nbr).items()}
+    w0, *dws = [_t(w).to(cuda) for w in ws]
+    before = dict(_build.LAUNCHES)
+    p = roi_conv.roi_conv_entry(d["x"], w0, d["idx"], tile, tile)
+    p_ref = tref.roi_conv_entry(d["x"], w0, d["idx"], tile, tile)
+    assert (p - p_ref).abs().max().item() <= 1e-4
+    s = roi_conv.roi_conv_stack(p_ref, dws, d["nbr"])
+    s_ref = tref.roi_conv_stack(p_ref, dws, d["nbr"])
+    assert (s - s_ref).abs().max().item() <= 1e-4
+    base = torch.zeros((C, H, W, channels[-1]), device=cuda)
+    out = sbnet.sbnet_scatter_fleet(s_ref, d["idx"], base.clone())
+    assert torch.equal(out, tref.sbnet_scatter_fleet(s_ref, d["idx"], base))
+    xp = torch.nn.functional.pad(d["x"], (0, 0, 1, 1, 1, 1))
+    prev = xp + (torch.rand_like(xp) < 0.2) * 20.0
+    for q in (1.0, 8.0, 13.0):
+        assert torch.equal(
+            tile_delta.tile_delta_gate_canvas(xp, prev, d["idx"], tile, tile,
+                                              q),
+            tref.tile_delta_gate_canvas(xp, prev, d["idx"], tile, tile, q))
+    torch.cuda.synchronize()
+    for k in ("roi_conv_entry", "roi_conv_stack", "sbnet_scatter",
+              "tile_delta_gate_canvas"):
+        assert _build.LAUNCHES[k] > before.get(k, 0)
+
+
+def _trace(seed, n_steps=6):
+    """Ragged frames, static except a moving patch; step 3 is static."""
+    rng = np.random.default_rng(seed)
+    frames = {0: [rng.normal(size=(30, 40, 3)), rng.normal(size=(24, 29, 3))],
+              1: [rng.normal(size=(40, 24, 3))]}
+    frames = {g: [f.astype(np.float32) for f in fs]
+              for g, fs in frames.items()}
+    steps = [frames]
+    for k in range(1, n_steps):
+        cur = {g: [f.copy() for f in fs] for g, fs in steps[-1].items()}
+        if k != 3:
+            f = cur[k % 2][0]
+            y = int(rng.integers(0, f.shape[0] - 6))
+            x = int(rng.integers(0, f.shape[1] - 6))
+            f[y:y + 6, x:x + 6] = rng.normal(size=(6, 6, 3))
+        steps.append(cur)
+    return steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [0.0, 0.5])
+def test_cuda_fleet_steps_match_cpu(cuda, threshold):
+    """The fleet step on the card against the same step on the CPU: equal
+    dispatches and ReuseStats (gate stats included), head maps within
+    1e-4, and on the card the threshold-0 reuse identity bitwise."""
+    _, grids, _, _, _, _ = _fleet(7, 8)
+    grids = {0: grids[:2], 1: grids[2:]}
+    cfg = tdet.DetectorConfig(tile=8)
+    cpu = tdet.RoIDetector(cfg, seed=3, device="cpu")
+    gpu = tdet.RoIDetector.from_numpy(cfg, [w.numpy() for w in cpu.weights],
+                                      cpu.head.numpy(), device=cuda)
+    c_cache, g_cache = tdet.PackedActivationCache(), \
+        tdet.PackedActivationCache()
+    for frames in _trace(8):
+        g_frames = {g: [_t(f).to(cuda) for f in fs]
+                    for g, fs in frames.items()}
+        c_out, c_counts, c_stats = trt.fleet_reuse_step(
+            cpu, frames, grids, c_cache, threshold, 0.125)
+        g_out, g_counts, g_stats = trt.fleet_reuse_step(
+            gpu, g_frames, grids, g_cache, threshold, 0.125)
+        assert g_counts == c_counts
+        for f in dataclasses.fields(c_stats):
+            a, b = getattr(g_stats, f.name), getattr(c_stats, f.name)
+            if f.name == "gate_stats":
+                assert (a is None) == (b is None)
+                if a is not None:
+                    np.testing.assert_array_equal(a, b)
+            else:
+                assert a == b, f.name
+        for g in c_out:
+            for a, b in zip(g_out[g], c_out[g]):
+                assert (a.cpu() - b).abs().max().item() <= 1e-4
+        if threshold == 0.0:
+            kept = {g: [h.clone() for h in hs] for g, hs in g_out.items()}
+            full, _ = trt.fleet_inference_step(gpu, g_frames, grids)
+            assert all(torch.equal(a, b) for g in full
+                       for a, b in zip(kept[g], full[g]))

@@ -1,0 +1,267 @@
+"""The whole slice: the port's fleet steps against the JAX package's.
+
+The JAX package's Pallas kernels do not trace on this jax, so its own
+``fleet_inference_step`` and ``fleet_reuse_step`` run here with the five
+kernel wrappers the detector calls swapped (``monkeypatch``) for
+compositions of ``repro.kernels.ref`` and pure jnp that also count their
+dispatches.  Both sides get the same numpy frames and weights; ReuseStats
+and dispatch counters must match exactly, head maps within atol 1e-5 (the
+f32 bar of ``tests/test_fleet.py``).  The port's own invariants (threshold-0
+reuse bit-identical to a full recompute, gate-only all-static steps,
+canvas-byte accounting) are checked inside the port."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.fleet import runtime as jrt
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.roi_conv import assemble_rims
+from repro.serving import detector as jdet
+from repro_torch.fleet import runtime as trt
+from repro_torch.serving import detector as tdet
+
+T = 8
+QSTEP = 0.125        # the gate's quantizer step at unit-scale frames
+GRID_SHAPES = {0: [(4, 5), (3, 4), (5, 3)], 1: [(4, 4), (2, 6)]}
+# ragged frames: a few pixels short of or past their grid extent
+FRAME_SHAPES = {0: [(30, 40), (24, 29), (40, 24)], 1: [(32, 32), (13, 50)]}
+
+
+# ---------------------------------------------------------------------------
+# the JAX oracle: the five detector-facing wrappers as ref compositions
+# ---------------------------------------------------------------------------
+
+def _by_camera(idx):
+    idx = np.asarray(idx)
+    for c in np.unique(idx[:, 0]):
+        rows = np.nonzero(idx[:, 0] == c)[0]
+        yield int(c), rows, jnp.asarray(idx[rows, 1:])
+
+
+def _entry(x, w, idx, th, tw, block=1, interpret=True):
+    if idx.shape[0] == 0:
+        return jnp.zeros((0, th, tw, w.shape[-1]), x.dtype)
+    jops.record_dispatch("roi_conv_entry")
+    out = jnp.zeros((idx.shape[0], th, tw, w.shape[-1]), x.dtype)
+    for c, rows, cidx in _by_camera(idx):
+        out = out.at[rows].set(jref.roi_conv(x[c], w, cidx, th, tw))
+    return jax.nn.relu(out)
+
+
+def _stack(packed, ws, nbr, block=128, interpret=True):
+    jops.record_dispatch("roi_conv_stack")
+    nbr = jnp.asarray(nbr)
+    for w in ws:
+        rt, rb, rl, rr = assemble_rims(packed, nbr)    # zero at -1 slots
+        mid = jnp.concatenate([rl[:, :, None], packed, rr[:, :, None]],
+                              axis=2)
+        win = jnp.concatenate([rt[:, None], mid, rb[:, None]], axis=1)
+        packed = jax.nn.relu(jax.lax.conv_general_dilated(
+            win, w, (1, 1), "VALID",
+            dimension_numbers=("NHWC", "HWIO", "NHWC")))
+    return packed
+
+
+def _scatter(name):
+    def scatter(packed, idx, base, block=1, interpret=True, donate=False):
+        if packed.shape[0] == 0:
+            return base
+        jops.record_dispatch(name)
+        th, tw = packed.shape[1:3]
+        for c, rows, cidx in _by_camera(idx):
+            base = base.at[c].set(jref.sbnet_scatter(
+                packed[jnp.asarray(rows)], cidx, base[c], th, tw))
+        return base
+    return scatter
+
+
+def _gate(cur_p, ref_c, idx, th, tw, qstep=8.0, coef_bits=6, run_bits=10,
+          block=1, interpret=True):
+    jops.record_dispatch("tile_delta_gate")
+    return jnp.asarray(jref.tile_delta_gate(
+        np.asarray(cur_p)[:, 1:-1, 1:-1], np.asarray(ref_c)[:, 1:-1, 1:-1],
+        np.asarray(idx), th, tw, qstep, coef_bits, run_bits))
+
+
+@pytest.fixture
+def jax_oracle(monkeypatch):
+    monkeypatch.setattr(jops, "roi_conv_entry", _entry)
+    monkeypatch.setattr(jops, "roi_conv_stack", _stack)
+    monkeypatch.setattr(jops, "sbnet_scatter_fleet",
+                        _scatter("sbnet_scatter_fleet"))
+    monkeypatch.setattr(jops, "sbnet_scatter_changed",
+                        _scatter("sbnet_scatter_changed"))
+    monkeypatch.setattr(jops, "tile_delta_gate_canvas", _gate)
+
+
+# ---------------------------------------------------------------------------
+# a mostly static 8-step trace
+# ---------------------------------------------------------------------------
+
+def _grids(seed):
+    rng = np.random.default_rng(seed)
+    grids = {g: [rng.random(s) < 0.55 for s in ss]
+             for g, ss in GRID_SHAPES.items()}
+    for gs in grids.values():
+        for gg in gs:
+            gg[1, 1] = True
+    return grids
+
+
+def _trace(seed, n_steps=8):
+    """Frames per step: static except a moving patch, a sub-threshold
+    flicker and fully static steps (3 and 6)."""
+    rng = np.random.default_rng(seed)
+    frames = {g: [rng.normal(size=s + (3,)).astype(np.float32)
+                  for s in ss] for g, ss in FRAME_SHAPES.items()}
+    steps = [frames]
+    for k in range(1, n_steps):
+        cur = {g: [f.copy() for f in fs] for g, fs in steps[-1].items()}
+        if k not in (3, 6):
+            g = k % 2
+            cam = k % len(cur[g])
+            f = cur[g][cam]
+            y = int(rng.integers(0, f.shape[0] - 6))
+            x = int(rng.integers(0, f.shape[1] - 6))
+            f[y:y + 6, x:x + 6] = rng.normal(size=(6, 6, 3))
+            if k in (2, 5):
+                cur[1 - g][0][:4, :4] += 0.01      # flicker below QSTEP/2
+        steps.append(cur)
+    return steps
+
+
+def _dets(seed=0, channels=(8, 16, 16)):
+    cfg = jdet.DetectorConfig(channels=channels, tile=T)
+    jd = jdet.RoIDetector(cfg, jax.random.PRNGKey(seed))
+    td = tdet.RoIDetector.from_numpy(
+        tdet.DetectorConfig(channels=channels, tile=T),
+        [np.asarray(w) for w in jd.weights], np.asarray(jd.head),
+        device="cpu")
+    return jd, td
+
+
+def _jax_frames(frames):
+    return {g: [jnp.asarray(f) for f in fs] for g, fs in frames.items()}
+
+
+def _assert_heads_close(t_outs, j_outs):
+    assert set(t_outs) == set(j_outs)
+    for g in j_outs:
+        for a, b in zip(t_outs[g], j_outs[g]):
+            assert tuple(a.shape) == tuple(b.shape)
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5,
+                                       rtol=0)
+
+
+def _assert_stats_equal(ts, js):
+    for f in dataclasses.fields(js):
+        a, b = getattr(ts, f.name), getattr(js, f.name)
+        if f.name == "gate_stats":
+            assert (a is None) == (b is None)
+            if a is not None:
+                np.testing.assert_array_equal(a, b)
+        else:
+            assert a == b, (f.name, a, b)
+
+
+@pytest.mark.parametrize("threshold", [0.0, 40.0])
+def test_reuse_steps_match_jax(jax_oracle, threshold):
+    jd, td = _dets()
+    grids = _grids(1)
+    jcache, tcache = jdet.PackedActivationCache(), tdet.PackedActivationCache()
+    kinds = set()
+    for k, frames in enumerate(_trace(2)):
+        j_outs, j_counts, j_stats = jrt.fleet_reuse_step(
+            jd, _jax_frames(frames), grids, jcache, threshold, QSTEP)
+        t_outs, t_counts, t_stats = trt.fleet_reuse_step(
+            td, frames, grids, tcache, threshold, QSTEP)
+        assert t_counts == j_counts, k
+        _assert_stats_equal(t_stats, j_stats)
+        _assert_heads_close(t_outs, j_outs)
+        kinds.add("cold" if t_stats.cold else
+                  "static" if t_stats.computed == 0 else "changed")
+    assert kinds == {"cold", "static", "changed"}
+
+
+def test_inference_step_matches_jax(jax_oracle):
+    jd, td = _dets(3)
+    grids = _grids(4)
+    frames = _trace(5, n_steps=1)[0]
+    j_outs, j_counts = jrt.fleet_inference_step(jd, _jax_frames(frames),
+                                                grids)
+    t_outs, t_counts = trt.fleet_inference_step(td, frames, grids)
+    assert t_counts == j_counts
+    _assert_heads_close(t_outs, j_outs)
+
+
+def test_dense_forward_matches_jax():
+    jd, td = _dets(6)
+    x = np.random.default_rng(7).normal(size=(20, 27, 3)).astype(np.float32)
+    np.testing.assert_allclose(td.dense_forward(x).numpy(),
+                               np.asarray(jd.dense_forward(jnp.asarray(x))),
+                               atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the port's own invariants (CPU, plain versions)
+# ---------------------------------------------------------------------------
+
+def test_threshold0_reuse_is_bitwise_full_recompute():
+    _, td = _dets(8)
+    grids = _grids(9)
+    cache = tdet.PackedActivationCache()
+    tile_bytes = T * T * td.head.shape[-1] * 4
+    for k, frames in enumerate(_trace(10)):
+        outs, counts, stats = trt.fleet_reuse_step(td, frames, grids, cache)
+        kept = {g: [h.clone() for h in hs] for g, hs in outs.items()}
+        full, _ = trt.fleet_inference_step(td, frames, grids)
+        for g in full:
+            for a, b in zip(kept[g], full[g]):
+                assert torch.equal(a, b), (k, g)
+        if not stats.cold:
+            assert stats.canvas_bytes == stats.changed_out * tile_bytes
+        if k in (3, 6):                          # all-static steps
+            assert counts == {"tile_delta_gate": 1}
+            assert stats.computed == 0 and stats.canvas_bytes == 0
+
+
+def test_empty_fleet_launches_nothing():
+    _, td = _dets()
+    grids = {g: [np.zeros(s, bool) for s in ss]
+             for g, ss in GRID_SHAPES.items()}
+    frames = _trace(11, n_steps=1)[0]
+    outs, counts = trt.fleet_inference_step(td, frames, grids)
+    assert counts == {}
+    assert all(float(h.abs().sum()) == 0 for hs in outs.values() for h in hs)
+    cache = tdet.PackedActivationCache()
+    for _ in range(2):
+        outs, counts, stats = trt.fleet_reuse_step(td, frames, grids, cache)
+        assert counts == {} and stats.total_tiles == 0
+
+
+def test_mask_change_misses_the_cache():
+    _, td = _dets()
+    grids = _grids(12)
+    frames = _trace(13, n_steps=1)[0]
+    cache = tdet.PackedActivationCache()
+    assert trt.fleet_reuse_step(td, frames, grids, cache)[2].cold
+    assert not trt.fleet_reuse_step(td, frames, grids, cache)[2].cold
+    moved = {g: [gg.copy() for gg in gs] for g, gs in grids.items()}
+    moved[0][0][0, 0] = not moved[0][0][0, 0]
+    assert trt.fleet_reuse_step(td, frames, moved, cache)[2].cold
+    assert cache.cold_steps == 2
+
+
+def test_single_layer_stack_free_chain():
+    """A 1-layer net has no stack launch, on both sides."""
+    _, td = _dets(channels=(8,))
+    grids = _grids(14)
+    frames = _trace(15, n_steps=1)[0]
+    _, counts = trt.fleet_inference_step(td, frames, grids)
+    assert counts == {"roi_conv_entry": 1, "sbnet_scatter_fleet": 1}
