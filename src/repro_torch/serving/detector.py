@@ -132,17 +132,18 @@ def ref_advance_rows(threshold, cam_of_row, changed,
 class PackedActivationCache:
     """Per-fleet persistent state of the delta-gated path.
 
-    Holds the final conv layer's packed (n, th, tw, C_last) activations of
-    every active tile, the persistent HEAD-MAP CANVAS (``canvas``, (C, H,
-    W, A), updated in place: warm steps scatter only their refreshed
-    tiles, an all-static step writes nothing) and the gate's reference
-    canvas (``ref_canvas``, (C, H+2, W+2, 3), each tile's window content
-    as of its last refresh) with an (n,) refresh-epoch vector.  Keyed on
-    the fleet's grid digests and canvas shape: any mask change misses the
-    key and forces a full recompute into a fresh canvas.
+    Holds the persistent HEAD-MAP CANVAS (``canvas``, (C, H, W, A),
+    updated in place: warm steps scatter only their refreshed tiles, an
+    all-static step writes nothing) and the gate's reference canvas
+    (``ref_canvas``, (C, H+2, W+2, 3), each tile's window content as of
+    its last refresh) with an (n,) refresh-epoch vector.  Keyed on the
+    fleet's grid digests and canvas shape: any mask change misses the key
+    and forces a full recompute into a fresh canvas.
 
     Only ``ref_mode="canvas"`` exists in this package; the packed
-    per-tile reference windows need the packed-reference gate kernel."""
+    per-tile reference windows need the packed-reference gate kernel.
+    The final layer's packed activations are not kept: the head maps come
+    from ``canvas``, and only the sharded runtime reads them back."""
 
     def __init__(self, ref_mode: str = "canvas"):
         if ref_mode == "packed":
@@ -153,7 +154,6 @@ class PackedActivationCache:
             raise ValueError(f"unknown ref_mode {ref_mode!r}")
         self.ref_mode = ref_mode
         self.key: Optional[tuple] = None
-        self.packed: Optional[torch.Tensor] = None   # (n, th, tw, C_last)
         self.canvas: Optional[torch.Tensor] = None   # (C, H, W, A) heads
         self.ref_canvas: Optional[torch.Tensor] = None  # (C, H+2, W+2, 3)
         self.epoch_np: Optional[np.ndarray] = None   # (n,) last refresh
@@ -171,7 +171,6 @@ class PackedActivationCache:
     def invalidate(self) -> None:
         """Drop all cached state; the next reuse step recomputes fully."""
         self.key = None
-        self.packed = None
         self.canvas = None
         self.ref_canvas = None
         self.epoch_np = None
@@ -434,11 +433,11 @@ class RoIDetector:
         cache.total_tiles += n
         A = self.head.shape[-1]
         tile_bytes = t * t * A * self.head.element_size()
-        cold = (cache.key != key or cache.packed is None
-                or cache.canvas is None or cache.ref_canvas is None)
+        cold = (cache.key != key or cache.canvas is None
+                or cache.ref_canvas is None)
         if cold:
             cache.key = key
-            cache.packed = self._stack_chain(x, idx, nbr)
+            packed = self._stack_chain(x, idx, nbr)
             cache.ref_canvas = xp          # free alias, full advance
             cache.idx_np = idx_np
             cache.nbr_np = nbr_np
@@ -447,7 +446,7 @@ class RoIDetector:
             cache.canvas = torch.zeros((len(frames), canvas_h, canvas_w, A),
                                        dtype=torch.float32,
                                        device=self.device)
-            kops.sbnet_scatter_fleet(_head_rows(cache.packed, self.head),
+            kops.sbnet_scatter_fleet(_head_rows(packed, self.head),
                                      idx, cache.canvas)
             cache.cold_steps += 1
             cache.launched_tiles += n
@@ -476,16 +475,14 @@ class RoIDetector:
                         [cnbr, np.full((k_pad - k, 8), -1, np.int32)])
                 fresh = self._stack_chain(x, self._table(cidx),
                                           self._table(cnbr))
-                # only the changed-OUTPUT rows graduate to the cache; margin
-                # rows absorbed the zero-halo error and keep their values
+                # only the changed-OUTPUT rows' head tiles hit the canvas;
+                # margin rows absorbed the zero-halo error and keep their
+                # tiles.  The scatter is padded to a power of two by
+                # repeating the last tile
                 slots = np.nonzero(compute)[0]
                 upd = changed[slots]
                 fresh_rows = fresh[torch.as_tensor(np.nonzero(upd)[0],
                                                    device=self.device)]
-                cache.packed[torch.as_tensor(slots[upd],
-                                             device=self.device)] = fresh_rows
-                # ... and only those rows' head tiles hit the canvas, padded
-                # to a power of two by repeating the last tile
                 scidx = cache.idx_np[slots[upd]]
                 ph = _head_rows(fresh_rows, self.head)
                 m = scidx.shape[0]
