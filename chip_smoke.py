@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and drive its fleet step on one NVIDIA card.
+"""Build the port's CUDA kernels and drive its fleet paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -7,21 +7,41 @@ Phases, each printing its own lines; any failure raises and the exit code
 is non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build;
-2. every kernel of the fleet step against its plain PyTorch version on the
-   card, at the main path's shapes: the gate and the scatter bit-exact,
-   the two convolutions within 1e-4 (FMA contraction and summation order
-   differ; the plain versions use no TF32); each kernel's time (CUDA
-   events, median of 7) beside the plain version's and its bound;
+2. every kernel against its plain PyTorch version on the card, at the
+   main paths' shapes: the delta kernels (the canvas gate B1, the packed
+   gate B5 with its windows, the per-camera tile and halo pricing B10 and
+   B11) and the scatter bit-exact, the two convolutions within 1e-4 (FMA
+   contraction and summation order differ; the plain versions use no
+   TF32); each kernel's time (CUDA events, median of 7) beside the plain
+   version's and its bound.  B5's stats also equal B1's on the same
+   content, and B10's rows B1's body columns, camera by camera;
 3. the main path at full size -- the 4-group x 5-camera fleet at the
    paper's camera sizes (four 1920x1080 legs and one 1280x960 centre
    camera per group), default detector (channels (8, 16, 16), tile 16, 2
-   anchors), RoI masks at density 0.35 on the offline 64-px grid: one cold
-   step, six warm steps each giving 5 cameras a fresh 64x64 patch, one
-   all-static step and two lossy warm steps at threshold 40.  Every step
-   checks the runtime's dispatch structure; the warm threshold-0 steps are
-   bitwise equal to a cold recompute through the kernels; the cold step
-   is within 1e-4 of the plain-version composition;
-4. a ``kernels`` JSON line with each kernel's launches on the main path.
+   anchors), RoI masks at density 0.35 on the offline 64-px grid,
+   canvas references: one cold step, six warm steps each giving 5 cameras
+   a fresh 64x64 patch, one all-static step, two lossy warm steps at
+   threshold 40 whose patches change tile interiors only, and two lossy
+   steps with whole tile-aligned patches.  Every step checks the
+   runtime's dispatch structure; the warm threshold-0 steps are bitwise
+   equal to a cold recompute through the kernels; the cold step is within
+   1e-4 of the plain-version composition;
+3b. the packed reference mode: a second cache steps through the same
+   frames; on the cold, threshold-0, all-static and interior-lossy steps
+   its ReuseStats (gate stats included) and head maps equal the canvas
+   cache's bitwise;
+3c. the edge rate-control loop, on both caches: one threshold-0 step to
+   align the references, then a threshold-0 step whose gate stats give
+   each camera's static fraction with no launch -- equal, camera by
+   camera, to ``tile_static_fraction`` through B10 -- then the halo
+   fractions through B11, the rate controller on seeded (20, 10) byte
+   matrices behind an uplink that congests every other camera, its
+   quality trace as a (20, 2) per-camera, per-tile-class threshold table,
+   and one more step under that table: the unshed cameras bitwise equal to
+   a cold recompute, both caches equal;
+4. a ``kernels`` JSON line with each kernel's launches on its path (B1-B4
+   on the canvas path, B5 on the packed path, B10 and B11 on the
+   rate-control loop), each path driven with the counts set to 0.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the ``src/repro_torch`` package beside this file, it exits
@@ -50,9 +70,13 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
 CONV_TOL = 1e-4
 
+GATE_CU = "src/repro_torch/kernels/csrc/tile_delta_gate.cu"
+DELTA_CU = "src/repro_torch/kernels/csrc/tile_delta.cu"
 KERNELS = {
-    "tile_delta_gate_canvas": ("src/repro_torch/kernels/csrc/tile_delta_gate.cu",
-                               "src/repro/kernels/tile_delta.py:280"),
+    "tile_delta_gate_canvas": (GATE_CU, "src/repro/kernels/tile_delta.py:280"),
+    "tile_delta_gate": (GATE_CU, "src/repro/kernels/tile_delta.py:198"),
+    "tile_delta": (DELTA_CU, "src/repro/kernels/tile_delta.py:94"),
+    "tile_delta_halo": (DELTA_CU, "src/repro/kernels/tile_delta.py:361"),
     "roi_conv_entry": ("src/repro_torch/kernels/csrc/roi_conv_entry.cu",
                        "src/repro/kernels/roi_conv.py:283"),
     "roi_conv_stack": ("src/repro_torch/kernels/csrc/roi_conv_stack.cu",
@@ -129,10 +153,14 @@ def build_detector(dev):
     return RoIDetector.from_numpy(cfg, weights, head, device=dev)
 
 
-def with_patches(torch, frames, grids, rng, gen, amplitude):
+def with_patches(torch, frames, grids, rng, gen, amplitude,
+                 interior=False):
     """The next frames: 5 of the 20 cameras get one fresh 64x64 patch at a
     random active tile (about one vehicle); ``amplitude`` lifts it above
-    the gate's quantizer step for the lossy steps."""
+    the gate's quantizer step for the lossy steps.  ``interior`` places the
+    patch on the tile grid and keeps each covered tile's 2-pixel rim as it
+    was: the motion stays inside tile interiors, where the canvas and
+    packed reference modes agree at every threshold."""
     flat = [(g, c) for g in frames for c in range(len(frames[g]))]
     nxt = {g: list(fs) for g, fs in frames.items()}
     for k in rng.choice(len(flat), size=5, replace=False):
@@ -140,10 +168,20 @@ def with_patches(torch, frames, grids, rng, gen, amplitude):
         f = frames[g][c].clone()
         ys, xs = np.nonzero(grids[g][c])
         j = int(rng.integers(len(ys)))
-        y0 = min(int(ys[j]) * TILE, f.shape[0] - PATCH)
-        x0 = min(int(xs[j]) * TILE, f.shape[1] - PATCH)
-        f[y0:y0 + PATCH, x0:x0 + PATCH] = amplitude + torch.randn(
-            (PATCH, PATCH, 3), generator=gen, device=f.device)
+        hi_y, hi_x = f.shape[0] - PATCH, f.shape[1] - PATCH
+        if interior:
+            hi_y, hi_x = hi_y // TILE * TILE, hi_x // TILE * TILE
+        y0 = min(int(ys[j]) * TILE, hi_y)
+        x0 = min(int(xs[j]) * TILE, hi_x)
+        patch = amplitude + torch.randn((PATCH, PATCH, 3), generator=gen,
+                                        device=f.device)
+        region = f[y0:y0 + PATCH, x0:x0 + PATCH]
+        if interior:
+            lane = torch.arange(PATCH, device=f.device) % TILE
+            keep = (lane >= 2) & (lane < TILE - 2)
+            patch = torch.where((keep[:, None] & keep[None, :])[..., None],
+                                patch, region)
+        region.copy_(patch)
         nxt[g][c] = f
     return nxt
 
@@ -157,7 +195,8 @@ def flat(d):
 # ---------------------------------------------------------------------------
 
 def check_kernels(torch, det, frames, frames_next, grids):
-    from repro_torch.kernels import ref, roi_conv, sbnet, tile_delta
+    from repro_torch.kernels import ops, ref, roi_conv, sbnet, tile_delta
+    from repro_torch.net.encoder import pad_to_grid
     from repro_torch.serving.detector import _head_rows
 
     dev = det.device
@@ -204,7 +243,59 @@ def check_kernels(torch, det, frames, frames_next, grids):
            lambda: ref.tile_delta_gate_canvas(cur_p, ref_c, idx, t, t),
            2 * win_px_padded * 3 * 4 + n * (3 + 8) * 4,
            3 * 2 * n * (t + 2) ** 2 * 3, check="bit-exact")
-    del g_k, g_p, ref_c
+    del g_p
+
+    # B5: the packed gate against the previous frame's windows, bit-exact
+    # in its stats and its windows; on this content its stats are B1's
+    ref_win = ref.gather_windows(ref_c, idx, t, t)
+    s_k, w_k = tile_delta.tile_delta_gate(cur_p, ref_win, idx, t, t)
+    s_p, w_p = ref.tile_delta_gate(cur_p, ref_win, idx, t, t)
+    torch.cuda.synchronize()
+    win_bytes = n * (t + 2) ** 2 * 3 * 4
+    record("tile_delta_gate",
+           max(float((s_k - s_p).abs().max()),
+               float((w_k - w_p).abs().max())),
+           torch.equal(s_k, s_p) and torch.equal(w_k, w_p)
+           and torch.equal(s_k, g_k),
+           lambda: tile_delta.tile_delta_gate(cur_p, ref_win, idx, t, t),
+           lambda: ref.tile_delta_gate(cur_p, ref_win, idx, t, t),
+           win_px_padded * 3 * 4 + 2 * win_bytes + n * (3 + 8) * 4,
+           3 * 2 * n * (t + 2) ** 2 * 3,
+           check="bit-exact (stats, windows; stats == B1's)")
+    del s_k, w_k, s_p, w_p, ref_win, ref_c
+
+    # B10, B11: each camera's frame pair, padded to its grid's extent;
+    # B10's rows are B1's body columns on the camera's tiles
+    pairs = []
+    for c, (fc, fp, gr) in enumerate(zip(flat(frames_next), flat(frames),
+                                         flat(grids))):
+        a, b = pad_to_grid(fc, fp, gr.shape, t)
+        rows = torch.as_tensor(ops.mask_to_indices(gr), device=dev)
+        pairs.append((a, b, rows))
+    cam = idx[:, 0]
+
+    def per_camera(fn):
+        return [fn(a, b, rows, t, t) for a, b, rows in pairs]
+
+    for name, k_fn, p_fn, px in (
+            ("tile_delta", tile_delta.tile_delta, ref.tile_delta, t * t),
+            ("tile_delta_halo", tile_delta.tile_delta_halo,
+             ref.tile_delta_halo, 4 * t - 4)):
+        got, want = per_camera(k_fn), per_camera(p_fn)
+        torch.cuda.synchronize()
+        ok = all(torch.equal(a, b) for a, b in zip(got, want))
+        if name == "tile_delta":
+            ok = ok and all(torch.equal(a[:, :4], g_k[cam == c, :4])
+                            for c, a in enumerate(got))
+        record(name, max(float((a - b).abs().max()) for a, b in
+                         zip(got, want) if a.numel()), ok,
+               lambda: per_camera(k_fn), lambda: per_camera(p_fn),
+               n * (2 * px * 3 * 4 + (2 + 8) * 4),
+               3 * n * (t * t if name == "tile_delta" else 4 * t) * 3,
+               check=f"bit-exact, {len(pairs)} cameras" + (
+                   " (== B1's body columns)" if name == "tile_delta"
+                   else ""))
+    del pairs, g_k
 
     # B2: the entry conv, within CONV_TOL
     e_k = roi_conv.roi_conv_entry(x, w0, idx, t, t)
@@ -267,36 +358,101 @@ def plain_composition(torch, det, frames, grids):
     return ref.sbnet_scatter_fleet(_head_rows(packed, det.head), idx, canvas)
 
 
+# (label, threshold, patch amplitude or None for no new frame, interior)
+PLAN = ([("cold", 0.0, None, False)] + [("warm", 0.0, 0.0, False)] * 6
+        + [("static", 0.0, None, False)]
+        + [("interior", 40.0, 20.0, True)] * 2
+        + [("lossy", 40.0, 20.0, False)] * 2)
+# the steps on which the canvas and packed reference modes agree by
+# definition: no gate, exact gates, and lossy gates on interior motion
+SAME_IN_BOTH_MODES = {"cold", "warm", "static", "interior"}
+
+
+def timed_step(torch, det, frames, grids, cache, thr, tag, step, label):
+    """One ``fleet_reuse_step``, timed (host clock around work that ends in
+    a synchronize, and CUDA events) and printed."""
+    from repro_torch.fleet.runtime import fleet_reuse_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    outs, counts, stats = fleet_reuse_step(det, frames, grids, cache, thr)
+    b.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    st = {k: v for k, v in dataclasses.asdict(stats).items()
+          if k != "gate_stats"}
+    shown = thr if np.ndim(thr) == 0 else f"table{np.shape(thr)}"
+    say(f"[{tag} {step}] {label} threshold={shown} wall_ms={wall_ms:.3f} "
+        f"event_ms={a.elapsed_time(b):.3f} counts={dict(counts)} "
+        f"stats={st}")
+    for h in flat(outs):
+        assert torch.isfinite(h).all()
+    return outs, counts, stats
+
+
+def step_kind(stats):
+    return ("cold" if stats.cold else
+            "static" if stats.computed == 0 else "changed")
+
+
+def check_kind(label, counts, stats):
+    """The step kind the plan asks for, and its dispatch structure."""
+    kind = step_kind(stats)
+    if label == "cold":
+        assert kind == "cold", kind
+    elif label == "warm":
+        assert kind == "changed", kind
+    elif label == "static":
+        assert counts == {"tile_delta_gate": 1}, counts
+        assert stats.canvas_bytes == 0
+    else:
+        assert kind == "changed" and 0 < stats.raw_changed < \
+            stats.total_tiles, stats
+    return kind
+
+
+def same_stats(a, b) -> bool:
+    """Equal ReuseStats, the gate's stats rows included."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "gate_stats":
+            if (x is None) != (y is None) or (
+                    x is not None and not np.array_equal(x, y)):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def equals_recompute(torch, det, frames, grids, outs, cams=None):
+    """Whether the head maps of ``cams`` (all by default) are bitwise
+    equal to a cold recompute through the kernels."""
+    from repro_torch.fleet.runtime import fleet_inference_step
+    full, fc = fleet_inference_step(det, frames, grids)
+    pairs = list(zip(flat(outs), flat(full)))
+    cams = range(len(pairs)) if cams is None else cams
+    return all(torch.equal(*pairs[c]) for c in cams), dict(fc)
+
+
 def drive(torch, det, rng, gen, frames, grids):
-    from repro_torch.fleet.runtime import fleet_inference_step, fleet_reuse_step
+    """Phase 3, the canvas path.  Returns the frames of every step, the
+    canvas-mode (ReuseStats, head-map canvas) of each step the packed mode
+    must match (None elsewhere), the step kinds and the cache."""
     from repro_torch.serving.detector import PackedActivationCache
 
     cache = PackedActivationCache()
-    plan = ([("cold", 0.0, None)] + [("warm", 0.0, 0.0)] * 6
-            + [("static", 0.0, None)] + [("lossy", 40.0, 20.0)] * 2)
-    kinds = []
-    for step, (label, thr, amp) in enumerate(plan):
+    seq, records, kinds = [], [], []
+    for step, (label, thr, amp, interior) in enumerate(PLAN):
         if amp is not None:
-            frames = with_patches(torch, frames, grids, rng, gen, amp)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        outs, counts, stats = fleet_reuse_step(det, frames, grids, cache, thr)
-        b.record()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        st = {k: v for k, v in dataclasses.asdict(stats).items()
-              if k != "gate_stats"}
-        say(f"[step {step}] {label} threshold={thr} wall_ms={wall_ms:.3f} "
-            f"event_ms={a.elapsed_time(b):.3f} counts={dict(counts)} "
-            f"stats={st}")
-        kind = ("cold" if stats.cold else
-                "static" if stats.computed == 0 else "changed")
-        kinds.append(kind)
+            frames = with_patches(torch, frames, grids, rng, gen, amp,
+                                  interior)
+        seq.append(frames)
+        outs, counts, stats = timed_step(torch, det, frames, grids, cache,
+                                         thr, "step", step, label)
+        kinds.append(check_kind(label, counts, stats))
         if label == "cold":
-            assert kind == "cold"
             want = plain_composition(torch, det, frames, grids)
             err = max(float((h - want[i, :h.shape[0], :h.shape[1]])
                             .abs().max())
@@ -306,23 +462,163 @@ def drive(torch, det, rng, gen, frames, grids):
             assert err <= CONV_TOL, err
             del want
         elif label == "warm":
-            assert kind == "changed", kind
-            full, fc = fleet_inference_step(det, frames, grids)
-            same = all(torch.equal(h, f) for h, f in zip(flat(outs),
-                                                         flat(full)))
+            same, fc = equals_recompute(torch, det, frames, grids, outs)
             say(f"[step {step}] threshold-0 reuse == cold recompute "
-                f"bitwise: {same} (recompute counts {dict(fc)})")
+                f"bitwise: {same} (recompute counts {fc})")
             assert same
-            del full
-        elif label == "static":
-            assert counts == {"tile_delta_gate": 1}, counts
-            assert stats.canvas_bytes == 0
-        else:
-            assert kind == "changed" and 0 < stats.raw_changed < \
-                stats.total_tiles, stats
-        for h in flat(outs):
-            assert torch.isfinite(h).all()
-    return kinds
+        records.append((stats, cache.canvas.clone())
+                       if label in SAME_IN_BOTH_MODES else None)
+    return seq, records, kinds, cache
+
+
+def drive_packed(torch, det, seq, records, grids):
+    """Phase 3b, the packed path: the same frames through a packed-mode
+    cache, held bitwise against the canvas path's steps (``records``,
+    released as they are read)."""
+    from repro_torch.serving.detector import PackedActivationCache
+
+    cache = PackedActivationCache(ref_mode="packed")
+    kinds = []
+    for step, ((label, thr, _, _), frames) in enumerate(zip(PLAN, seq)):
+        outs, counts, stats = timed_step(torch, det, frames, grids, cache,
+                                         thr, "packed", step, label)
+        kinds.append(check_kind(label, counts, stats))
+        if records[step] is not None:
+            c_stats, c_canvas = records[step]
+            records[step] = None
+            st_ok = same_stats(stats, c_stats)
+            maps_ok = torch.equal(cache.canvas, c_canvas)
+            say(f"[packed {step}] == canvas mode: ReuseStats {st_ok}, "
+                f"head maps bitwise {maps_ok}")
+            assert st_ok and maps_ok
+            del c_canvas
+    return kinds, cache
+
+
+def rate_control_loop(torch, det, rng, gen, frames, grids, caches):
+    """Phase 3c, the edge rate-control loop on both caches."""
+    from repro_torch.kernels import ops
+    from repro_torch.net import (RateControlConfig, gate_threshold_schedule,
+                                 rate_controlled_departures,
+                                 static_fraction_from_stats,
+                                 tile_halo_static_fraction,
+                                 tile_static_fraction)
+
+    def both(frames, thr, step, label):
+        res = {m: timed_step(torch, det, frames, grids, c, thr,
+                             f"rate/{m}", step, label)
+               for m, c in caches.items()}
+        (c_outs, c_counts, c_st), (_, p_counts, p_st) = \
+            res["canvas"], res["packed"]
+        same = (c_counts == p_counts and same_stats(c_st, p_st)
+                and torch.equal(caches["canvas"].canvas,
+                                caches["packed"].canvas))
+        say(f"[rate {step}] canvas == packed (counts, ReuseStats, head "
+            f"maps bitwise): {same}")
+        assert same
+        return c_outs, c_st
+
+    # align the references: a threshold-0 step advances every row
+    frames = with_patches(torch, frames, grids, rng, gen, 0.0)
+    outs, st = both(frames, 0.0, 0, "align")
+    assert step_kind(st) == "changed"
+    same, _ = equals_recompute(torch, det, frames, grids, outs)
+    say(f"[rate 0] threshold-0 reuse == cold recompute bitwise: {same}")
+    assert same
+
+    # the fractions: the gate's own stats rows (no launch) against B10
+    prev = frames
+    frames = with_patches(torch, frames, grids, rng, gen, 20.0)
+    _, st = both(frames, 0.0, 1, "fractions")
+    assert step_kind(st) == "changed"
+    cam = caches["canvas"].idx_np[:, 0]
+    n_cams = len(flat(grids))
+    # the fleet packing is camera-major: camera c's rows are one range
+    bounds = np.searchsorted(cam, np.arange(n_cams + 1))
+    triples = list(zip(flat(frames), flat(prev), flat(grids)))
+
+    def host_ms(fn):
+        """Host wall of ``fn``, ending in a synchronize."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    with ops.count_kernels() as fast:
+        fast_f, fast_ms = host_ms(lambda: [
+            static_fraction_from_stats(st.gate_stats[bounds[c]:bounds[c + 1]],
+                                       3, TILE) for c in range(n_cams)])
+    with ops.count_kernels() as slow:
+        body_f, body_ms = host_ms(lambda: [
+            tile_static_fraction(a, b, g, TILE) for a, b, g in triples])
+        halo_f, halo_ms = host_ms(lambda: [
+            tile_halo_static_fraction(a, b, g, TILE) for a, b, g in triples])
+    say(f"[rate 1] static fractions from the gate stats ({dict(fast)} "
+        f"dispatches, {fast_ms:.3f} ms) == tile_static_fraction through "
+        f"B10 ({dict(slow)}; {body_ms:.3f} ms, the halo fractions "
+        f"{halo_ms:.3f} ms): {fast_f == body_f}; body "
+        f"{np.round(body_f, 4)}; halo {np.round(halo_f, 4)}")
+    assert sum(fast.values()) == 0 and fast_f == body_f
+    assert slow == {"tile_delta": n_cams, "tile_delta_halo": n_cams}, slow
+    assert min(body_f) < 1.0
+
+    # the rate controller behind an uplink that congests every other
+    # camera, and its quality trace as per-camera, per-class thresholds
+    prng = np.random.default_rng(SEED + 3)
+    S = 10
+    body = prng.uniform(2e4, 6e4, (n_cams, S))
+    halo = prng.uniform(0.1, 0.4, (n_cams, S)) * body
+    headers = np.full((n_cams, S), 240.0)
+    arrivals = np.arange(S)[None, :] + prng.uniform(0, 0.2, (n_cams, 1))
+    congested = np.arange(n_cams) % 2 == 1
+    bw = np.where(congested[:, None], 2e4, 1e7) \
+        * prng.uniform(0.8, 1.2, (n_cams, S))
+    rc = RateControlConfig(enabled=True, static_fraction=np.array(body_f),
+                           halo_static_fraction=np.array(halo_f))
+    _, sent, quality, shed_h, shed_b = rate_controlled_departures(
+        arrivals, body, halo, headers, bw, rc)
+    thr = gate_threshold_schedule(quality, TILE, 3, gain=0.5, halo_gain=0.25)
+    unshed = np.nonzero((thr == 0).all(axis=1))[0]
+    say(f"[rate 2] quality min per camera {np.round(quality.min(axis=1), 4)}"
+        f"; shed bytes halo {shed_h.sum():.1f} body {shed_b.sum():.1f} of "
+        f"{(body + halo + headers).sum():.1f}; thresholds {thr.shape} "
+        f"{np.round(thr[congested][0], 4)} on congested cameras, 0 on "
+        f"{len(unshed)} cameras")
+    assert thr.shape == (n_cams, 2)
+    assert (thr[congested] > 0).all() and list(unshed) == \
+        list(np.nonzero(~congested)[0])
+
+    # one more step under the table: fresh sub-threshold patches
+    frames = with_patches(torch, frames, grids, rng, gen, 0.0)
+    outs, st = both(frames, thr, 2, "schedule")
+    exact = st.gate_stats[:, ops.GATE_WIN_EXACT] > 0
+    same, _ = equals_recompute(torch, det, frames, grids, outs, unshed)
+    say(f"[rate 2] under the schedule: {st.raw_changed} raw-changed rows "
+        f"of {int(exact.sum())} that changed at all "
+        f"({int(exact[congested[cam]].sum())} on congested cameras); "
+        f"the {len(unshed)} unshed cameras == cold recompute bitwise: "
+        f"{same}")
+    assert same
+
+
+def run_path(torch, fn, *args):
+    """Drive one path with every count set to 0 just before it; returns
+    (its result, kernel launches, dispatches, peak GiB)."""
+    from repro_torch.kernels import _build, ops
+    torch.cuda.synchronize()
+    ops.KERNEL_COUNTS.clear()
+    _build.LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return (out, dict(_build.LAUNCHES), dict(ops.KERNEL_COUNTS),
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+# the path each kernel's ``launches`` is read from
+PATH_OF = {"tile_delta_gate": "packed", "tile_delta": "rate",
+           "tile_delta_halo": "rate"}
 
 
 def main() -> int:
@@ -335,7 +631,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build
 
     # plain versions on the card never round to TF32
     torch.backends.cudnn.allow_tf32 = False
@@ -362,22 +658,38 @@ def main() -> int:
     del nxt
     torch.cuda.empty_cache()
 
-    ops.KERNEL_COUNTS.clear()
-    _build.LAUNCHES.clear()
-    torch.cuda.reset_peak_memory_stats()
-    kinds = drive(torch, det, rng, gen, frames, grids)
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    say(f"[main] steps {kinds}; dispatches {dict(ops.KERNEL_COUNTS)}; "
-        f"launches {launches}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    launches = {}
+    (seq, records, kinds, c_cache), launches["canvas"], disp, peak = \
+        run_path(torch, drive, torch, det, rng, gen, frames, grids)
+    held = sum(r[1].numel() * 4 for r in records if r is not None) / 2 ** 30
+    say(f"[main] canvas path: steps {kinds}; dispatches {disp}; launches "
+        f"{launches['canvas']}; peak memory {peak:.2f} GiB, of which "
+        f"{held:.2f} GiB are the head maps kept for phase 3b")
+    (p_kinds, p_cache), launches["packed"], disp, peak = run_path(
+        torch, drive_packed, torch, det, seq, records, grids)
+    ref_gib = p_cache.ref_win.numel() * 4 / 2 ** 30
+    say(f"[main] packed path: steps {p_kinds}; dispatches {disp}; launches "
+        f"{launches['packed']}; peak memory {peak:.2f} GiB (the kept "
+        f"canvas-path maps, released step by step, included); ref_win "
+        f"{ref_gib:.3f} GiB against the reference canvas "
+        f"{c_cache.ref_canvas.numel() * 4 / 2 ** 30:.3f} GiB")
+    assert p_kinds == kinds
+    del records
+    torch.cuda.empty_cache()
+    _, launches["rate"], disp, peak = run_path(
+        torch, rate_control_loop, torch, det, rng, gen, seq[-1], grids,
+        {"canvas": c_cache, "packed": p_cache})
+    say(f"[main] rate-control loop: dispatches {disp}; launches "
+        f"{launches['rate']}; peak memory {peak:.2f} GiB")
+
     rows = []
     for kname, (source, replaces) in KERNELS.items():
-        r = results[kname]
+        path = PATH_OF.get(kname, "canvas")
+        n_launch = launches[path].get(kname, 0)
         rows.append(dict(name=kname, route="cuda", source=source,
-                         replaces=replaces, launches=launches.get(kname, 0),
-                         **r))
-        assert launches.get(kname, 0) > 0, f"{kname} never launched"
+                         replaces=replaces, launches=n_launch, path=path,
+                         **results[kname]))
+        assert n_launch > 0, f"{kname} never launched on the {path} path"
     say(json.dumps({"kernels": rows}))
     for line in smi:
         say(line)

@@ -7,7 +7,11 @@ Builds the fleet of ``chip_smoke.py`` (4 groups x 5 cameras at the
 paper's camera sizes, RoI density 0.35, default detector), runs a cold
 step and two warm-up warm steps, then profiles with ``torch.profiler``
 each of: a cold step, three warm threshold-0 steps (5 cameras get a fresh
-64x64 patch each) and an all-static step.  For each it prints the step's
+64x64 patch each) and an all-static step; the same warm and static steps
+with the packed reference mode; and the rate controller's static-tile
+fractions for the 20 cameras, through the kernels (``tile_static_fraction``
+and ``tile_halo_static_fraction``: 20 launches each) and from the warm
+step's gate stats (no launch).  For each it prints the step's
 wall time (host clock around work that ends in a synchronize), the
 device busy time (the sum of the kernel, copy and fill durations the
 profiler traced), the device idle share, the device time by kernel and
@@ -21,6 +25,8 @@ import io
 import pstats
 import sys
 import time
+
+import numpy as np
 
 import chip_smoke as cs
 
@@ -78,6 +84,9 @@ def main() -> int:
     sys.path.insert(0, str(cs.SRC))
     from repro_torch.fleet.runtime import fleet_reuse_step
     from repro_torch.kernels import _build
+    from repro_torch.net import (static_fraction_from_stats,
+                                 tile_halo_static_fraction,
+                                 tile_static_fraction)
     from repro_torch.serving.detector import PackedActivationCache
 
     _build.library()
@@ -105,6 +114,36 @@ def main() -> int:
     profile_step(torch, lambda: step(False), "static")
     python_profile(torch, step, "py-warm")
     python_profile(torch, lambda: step(False), "py-static")
+
+    packed = PackedActivationCache(ref_mode="packed")
+    fleet_reuse_step(det, state["frames"], grids, packed)   # cold seed
+
+    def packed_step(patch=True):
+        if patch:
+            state["frames"] = cs.with_patches(torch, state["frames"], grids,
+                                              rng, gen, 0.0)
+        return fleet_reuse_step(det, state["frames"], grids, packed)
+
+    packed_step()
+    for k in range(2):
+        profile_step(torch, packed_step, f"packed-warm{k}")
+    profile_step(torch, lambda: packed_step(False), "packed-static")
+
+    prev = state["frames"]
+    state["frames"] = cs.with_patches(torch, prev, grids, rng, gen, 20.0)
+    _, _, st = fleet_reuse_step(det, state["frames"], grids, cache)
+    triples = list(zip(cs.flat(state["frames"]), cs.flat(prev),
+                       cs.flat(grids)))
+    # the fleet packing is camera-major: camera c's rows are one range
+    bounds = np.searchsorted(cache.idx_np[:, 0], np.arange(len(triples) + 1))
+    profile_step(torch, lambda: [tile_static_fraction(a, b, g, cs.TILE)
+                                 for a, b, g in triples], "fractions-B10")
+    profile_step(torch, lambda: [tile_halo_static_fraction(a, b, g, cs.TILE)
+                                 for a, b, g in triples], "fractions-B11")
+    profile_step(torch, lambda: [
+        static_fraction_from_stats(st.gate_stats[bounds[c]:bounds[c + 1]], 3,
+                                   cs.TILE)
+        for c in range(len(triples))], "fractions-stats")
     return 0
 
 

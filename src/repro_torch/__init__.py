@@ -3,11 +3,17 @@ for the NVIDIA H100 (``sm_90a``).
 
 The package runs the delta-gated fleet step: the cold super-launch
 (``fleet.runtime.fleet_inference_step``) and the warm, changed-tiles-only
-step (``fleet.runtime.fleet_reuse_step``).  Four CUDA kernels carry it,
-built from ``kernels/csrc`` with ``nvcc`` at first use:
+step (``fleet.runtime.fleet_reuse_step``), with the gate's references on a
+canvas or in packed per-tile windows; and the edge rate-control loop
+around it (``net``: static-tile fractions, the rate controller, the
+per-camera gate-threshold schedule).  Seven CUDA kernels carry them, built
+from ``kernels/csrc`` with ``nvcc`` at first use:
 
-* ``tile_delta_gate_canvas`` -- per-tile delta stats against the
-  reference canvas (the reuse gate);
+* ``tile_delta_gate_canvas`` / ``tile_delta_gate`` -- per-tile delta
+  stats against the reference canvas / packed reference windows (the
+  reuse gate);
+* ``tile_delta`` / ``tile_delta_halo`` -- one camera's per-tile body /
+  edge-ring delta stats (the rate controller's feeds);
 * ``roi_conv_entry`` -- gather + 3x3 conv + ReLU straight off the frames;
 * ``roi_conv_stack`` -- every later 3x3 conv + ReLU layer in one launch;
 * ``sbnet_scatter`` -- packed head tiles into the (C, H, W, A) canvas.

@@ -27,8 +27,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("tile_delta_gate.cu", "roi_conv_entry.cu", "roi_conv_stack.cu",
-           "sbnet_scatter.cu")
+SOURCES = ("tile_delta_gate.cu", "tile_delta.cu", "roi_conv_entry.cu",
+           "roi_conv_stack.cu", "sbnet_scatter.cu")
+HEADERS = ("tile_delta_common.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
@@ -46,6 +47,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     # cur, ref, idx, out, n, C, Hp, Wp, Cin, th, tw, qstep, coef, run, stream
     lib.tile_delta_gate_canvas_launch.argtypes = \
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]
+    # cur, ref_win, idx, out, win, n, C, Hp, Wp, Cin, th, tw, qstep, coef,
+    # run, stream
+    lib.tile_delta_gate_launch.argtypes = \
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]
+    # cur, prev, idx, out, n, H, W, C, th, tw, qstep, coef, run, stream
+    for f in (lib.tile_delta_launch, lib.tile_delta_halo_launch):
+        f.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]
     # x, w, idx, out, n, C, H, W, Cin, Cout, th, tw, stream
     lib.roi_conv_entry_launch.argtypes = \
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
@@ -57,9 +65,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     # packed, idx, base, n, th, tw, A, C, H, W, stream
     lib.sbnet_scatter_launch.argtypes = \
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
-    for f in (lib.tile_delta_gate_canvas_launch, lib.roi_conv_entry_launch,
-              lib.roi_conv_stack_launch, lib.roi_conv_stack_smem_bytes,
-              lib.sbnet_scatter_launch):
+    for f in (lib.tile_delta_gate_canvas_launch, lib.tile_delta_gate_launch,
+              lib.tile_delta_launch, lib.tile_delta_halo_launch,
+              lib.roi_conv_entry_launch, lib.roi_conv_stack_launch,
+              lib.roi_conv_stack_smem_bytes, lib.sbnet_scatter_launch):
         f.restype = ctypes.c_int
     lib.repro_cuda_error_name.argtypes = [_I]
     lib.repro_cuda_error_name.restype = ctypes.c_char_p
@@ -83,7 +92,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(ARCH_FLAGS + CFLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

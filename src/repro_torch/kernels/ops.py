@@ -20,6 +20,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import roi_conv as _roi_conv
 from repro_torch.kernels import sbnet as _sbnet
 from repro_torch.kernels import tile_delta as _tile_delta
@@ -257,6 +258,60 @@ def tile_delta_gate_canvas(cur_p: torch.Tensor, ref_c: torch.Tensor,
                                               qstep, coef_bits, run_bits)
 
 
+def tile_delta_gate(cur_p: torch.Tensor, ref_win: torch.Tensor,
+                    idx: torch.Tensor, th: int, tw: int, qstep: float = 8.0,
+                    coef_bits: int = COEF_BITS, run_bits: int = RUN_BITS):
+    """The reuse gate against PACKED per-tile reference windows: (C, H+2,
+    W+2, Cin) padded frames + (n, th+2, tw+2, Cin) reference windows + (n,
+    3) rows -> (stats (n, STATS_WIDTH) int32, the current windows (n,
+    th+2, tw+2, Cin)).  The same stats rows as ``tile_delta_gate_canvas``
+    when the references hold the same content, and the same counter."""
+    if idx.shape[0] == 0:
+        return (torch.zeros((0, STATS_WIDTH), dtype=torch.int32,
+                            device=cur_p.device), ref_win[:0].clone())
+    record_dispatch("tile_delta_gate")
+    return _tile_delta.tile_delta_gate(cur_p, ref_win, idx, th, tw, qstep,
+                                       coef_bits, run_bits)
+
+
+def gather_windows(xp: torch.Tensor, idx: torch.Tensor, th: int,
+                   tw: int) -> torch.Tensor:
+    """The packed (n, th+2, tw+2, Cin) haloed windows of the rows ``idx``
+    on a zero-padded (C, H+2, W+2, Cin) canvas: the seed of the packed
+    gate references.  Plain indexing, not a counted dispatch; warm steps
+    advance the references from the gate's own windows output."""
+    return _ref.gather_windows(xp, idx, th, tw)
+
+
+def tile_delta(cur: torch.Tensor, prev: torch.Tensor, idx: torch.Tensor,
+               th: int, tw: int, qstep: float = 8.0,
+               coef_bits: int = COEF_BITS,
+               run_bits: int = RUN_BITS) -> torch.Tensor:
+    """The edge rate controller's per-tile delta stats: (H, W, C) frame
+    pair + (n, 2) (ty, tx) rows -> (n, STATS_WIDTH) int32 rows ``[bytes,
+    nnz, runs, sum|q|, 0...]``."""
+    if idx.shape[0] == 0:
+        return torch.zeros((0, STATS_WIDTH), dtype=torch.int32,
+                           device=cur.device)
+    record_dispatch("tile_delta")
+    return _tile_delta.tile_delta(cur, prev, idx, th, tw, qstep, coef_bits,
+                                  run_bits)
+
+
+def tile_delta_halo(cur: torch.Tensor, prev: torch.Tensor,
+                    idx: torch.Tensor, th: int, tw: int, qstep: float = 8.0,
+                    coef_bits: int = COEF_BITS,
+                    run_bits: int = RUN_BITS) -> torch.Tensor:
+    """``tile_delta`` over each tile's edge ring (top and bottom rows, left
+    and right columns, corners twice): the halo-first shedding feed."""
+    if idx.shape[0] == 0:
+        return torch.zeros((0, STATS_WIDTH), dtype=torch.int32,
+                           device=cur.device)
+    record_dispatch("tile_delta_halo")
+    return _tile_delta.tile_delta_halo(cur, prev, idx, th, tw, qstep,
+                                       coef_bits, run_bits)
+
+
 __all__ = ["KERNEL_NAMES", "KERNEL_COUNTS", "record_dispatch",
            "count_kernels", "NEIGHBOR_OFFSETS", "COEF_BITS", "RUN_BITS",
            "STATS_WIDTH", "GATE_BODY_BYTES", "GATE_BODY_NNZ",
@@ -265,4 +320,6 @@ __all__ = ["KERNEL_NAMES", "KERNEL_COUNTS", "record_dispatch",
            "fleet_indices", "fleet_neighbor_table", "superlaunch_tables",
            "dilate_changed", "reuse_sets", "compact_tables",
            "roi_conv_entry", "roi_conv_stack", "sbnet_scatter_fleet",
-           "sbnet_scatter_changed", "tile_delta_gate_canvas"]
+           "sbnet_scatter_changed", "tile_delta_gate_canvas",
+           "tile_delta_gate", "gather_windows", "tile_delta",
+           "tile_delta_halo"]

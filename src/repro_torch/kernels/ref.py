@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four CUDA kernels of the fleet step.
+"""Plain PyTorch versions of the port's CUDA kernels.
 
 Each function computes what its kernel computes, in float32, from
 elementwise tensor operations only: no cuDNN convolution and no cuBLAS
@@ -31,11 +31,21 @@ def tile_index(idx: torch.Tensor, th: int, tw: int, h: int, w: int):
     return idx[:, 0, None, None], rows[:, :, None], cols[:, None, :]
 
 
-def _windows(xp: torch.Tensor, idx: torch.Tensor, th: int,
-             tw: int) -> torch.Tensor:
+def gather_windows(xp: torch.Tensor, idx: torch.Tensor, th: int,
+                   tw: int) -> torch.Tensor:
     """(C, H+2, W+2, Cin) padded planes + (n, 3) (cam, ty, tx) rows ->
     the (n, th+2, tw+2, Cin) haloed windows starting at (ty*th, tx*tw)."""
     return xp[tile_index(idx, th, tw, th + 2, tw + 2)]
+
+
+def _quantize(cur: torch.Tensor, prev: torch.Tensor,
+              qstep: float) -> torch.Tensor:
+    """``round_half_even((cur - prev) / qstep)`` in float32, as int32."""
+    # a 0-dim tensor on the same device, not a Python scalar: CUDA turns
+    # division by a host scalar into a multiply by its reciprocal, which
+    # is not correctly rounded
+    step = torch.tensor(qstep, dtype=torch.float32, device=cur.device)
+    return torch.round((cur - prev) / step).to(torch.int32)
 
 
 def _scan_stats(q: torch.Tensor):
@@ -49,6 +59,75 @@ def _scan_stats(q: torch.Tensor):
     return nnz, runs, q.abs().sum(dim=(1, 2), dtype=torch.int64)
 
 
+def _stats_rows(nnz, runs, sabs, coef_bits: int,
+                run_bits: int) -> torch.Tensor:
+    """Per-tile (nnz, runs, sum|q|) -> (n, 8) int64 rows ``[bytes, nnz,
+    runs, sum|q|, 0, 0, 0, 0]`` with ``bytes = ceil((nnz * coef_bits +
+    runs * run_bits) / 8)``."""
+    out = torch.zeros((nnz.shape[0], 8), dtype=torch.int64,
+                      device=nnz.device)
+    out[:, 0] = (nnz * coef_bits + runs * run_bits + 7) // 8
+    out[:, 1] = nnz
+    out[:, 2] = runs
+    out[:, 3] = sabs
+    return out
+
+
+def _frame_tiles(x: torch.Tensor, idx: torch.Tensor, th: int,
+                 tw: int) -> torch.Tensor:
+    """(H, W, C) frame + (n, 2) (ty, tx) rows -> (n, th, tw, C) tiles."""
+    rows = torch.nn.functional.pad(idx, (1, 0))          # camera 0
+    return x[None][tile_index(rows, th, tw, th, tw)]
+
+
+def tile_delta(cur: torch.Tensor, prev: torch.Tensor, idx: torch.Tensor,
+               th: int, tw: int, qstep: float = 8.0, coef_bits: int = 6,
+               run_bits: int = 10) -> torch.Tensor:
+    """The edge rate controller's per-tile delta pricing.  cur, prev: (H,
+    W, C) frames; idx: (n, 2) int32 (ty, tx).  Returns (n, 8) int32 rows
+    ``[bytes, nnz, runs, sum|q|, 0, 0, 0, 0]``, q as in
+    ``tile_delta_gate_canvas``; the scan rows are the th pixel rows of
+    tw*C lanes."""
+    n = idx.shape[0]
+    q = _quantize(_frame_tiles(cur, idx, th, tw),
+                  _frame_tiles(prev, idx, th, tw), qstep)
+    return _stats_rows(*_scan_stats(q.reshape(n, th, -1)), coef_bits,
+                       run_bits).to(torch.int32)
+
+
+def tile_delta_halo(cur: torch.Tensor, prev: torch.Tensor,
+                    idx: torch.Tensor, th: int, tw: int, qstep: float = 8.0,
+                    coef_bits: int = 6, run_bits: int = 10) -> torch.Tensor:
+    """``tile_delta`` over each tile's edge ring instead of its body: 4
+    strips (top row, bottom row, left column, right column), each one
+    scan row -- a column strip is its (th, C) slice flattened y-major,
+    channel-minor -- so a zero run never joins across strips and the
+    corners count twice.  Same (n, 8) row layout as ``tile_delta``."""
+    n = idx.shape[0]
+    q = _quantize(_frame_tiles(cur, idx, th, tw),
+                  _frame_tiles(prev, idx, th, tw), qstep)
+    nnz = runs = sabs = 0
+    for strip in (q[:, 0], q[:, th - 1], q[:, :, 0], q[:, :, tw - 1]):
+        a, b, c = _scan_stats(strip.reshape(n, 1, -1))
+        nnz, runs, sabs = nnz + a, runs + b, sabs + c
+    return _stats_rows(nnz, runs, sabs, coef_bits, run_bits) \
+        .to(torch.int32)
+
+
+def _gate_rows(cw: torch.Tensor, pw: torch.Tensor, th: int, tw: int,
+               qstep: float, coef_bits: int, run_bits: int) -> torch.Tensor:
+    """(n, th+2, tw+2, Cin) current and reference windows -> the gate's
+    (n, 8) int32 stats rows (see ``tile_delta_gate_canvas``)."""
+    n = cw.shape[0]
+    q = _quantize(cw, pw, qstep)
+    out = _stats_rows(*_scan_stats(q[:, 1:1 + th, 1:1 + tw]
+                                   .reshape(n, th, -1)), coef_bits, run_bits)
+    w_nnz, w_runs, _ = _scan_stats(q.reshape(n, th + 2, -1))
+    out[:, 4] = (cw != pw).sum(dim=(1, 2, 3))
+    out[:, 5] = (w_nnz * coef_bits + w_runs * run_bits + 7) // 8
+    return out.to(torch.int32)
+
+
 def tile_delta_gate_canvas(cur_p: torch.Tensor, ref_c: torch.Tensor,
                            idx: torch.Tensor, th: int, tw: int,
                            qstep: float = 8.0, coef_bits: int = 6,
@@ -60,25 +139,20 @@ def tile_delta_gate_canvas(cur_p: torch.Tensor, ref_c: torch.Tensor,
     ``q = round_half_even((cur - prev) / qstep)`` in float32.  Body scan
     rows are the th inner pixel rows (tw*Cin lanes), window scan rows the
     th+2 window rows ((tw+2)*Cin lanes)."""
-    n = idx.shape[0]
-    cw = _windows(cur_p, idx, th, tw)
-    pw = _windows(ref_c, idx, th, tw)
-    # a 0-dim tensor on the same device, not a Python scalar: CUDA turns
-    # division by a host scalar into a multiply by its reciprocal, which
-    # is not correctly rounded
-    step = torch.tensor(qstep, dtype=torch.float32, device=cur_p.device)
-    q = torch.round((cw - pw) / step).to(torch.int32)
-    b_nnz, b_runs, b_sabs = _scan_stats(
-        q[:, 1:1 + th, 1:1 + tw].reshape(n, th, -1))
-    w_nnz, w_runs, _ = _scan_stats(q.reshape(n, th + 2, -1))
-    out = torch.zeros((n, 8), dtype=torch.int64, device=cur_p.device)
-    out[:, 0] = (b_nnz * coef_bits + b_runs * run_bits + 7) // 8
-    out[:, 1] = b_nnz
-    out[:, 2] = b_runs
-    out[:, 3] = b_sabs
-    out[:, 4] = (cw != pw).sum(dim=(1, 2, 3))
-    out[:, 5] = (w_nnz * coef_bits + w_runs * run_bits + 7) // 8
-    return out.to(torch.int32)
+    return _gate_rows(gather_windows(cur_p, idx, th, tw),
+                      gather_windows(ref_c, idx, th, tw), th, tw, qstep,
+                      coef_bits, run_bits)
+
+
+def tile_delta_gate(cur_p: torch.Tensor, ref_win: torch.Tensor,
+                    idx: torch.Tensor, th: int, tw: int, qstep: float = 8.0,
+                    coef_bits: int = 6, run_bits: int = 10):
+    """The reuse gate against PACKED per-tile reference windows: ref_win
+    (n, th+2, tw+2, Cin) in place of a canvas, otherwise as
+    ``tile_delta_gate_canvas``.  Returns (stats (n, 8) int32, the current
+    windows (n, th+2, tw+2, Cin)) -- the rows a reference advance copies."""
+    cw = gather_windows(cur_p, idx, th, tw)
+    return _gate_rows(cw, ref_win, th, tw, qstep, coef_bits, run_bits), cw
 
 
 def conv3x3_taps(win: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -103,7 +177,7 @@ def roi_conv_entry(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
     stacked frames, w (3, 3, Cin, Cout), idx (n, 3) -> (n, th, tw, Cout).
     Pixels outside a camera's plane read as zero."""
     xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
-    return torch.relu(conv3x3_taps(_windows(xp, idx, th, tw), w))
+    return torch.relu(conv3x3_taps(gather_windows(xp, idx, th, tw), w))
 
 
 def assemble_halo(packed: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:

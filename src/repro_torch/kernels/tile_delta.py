@@ -1,11 +1,16 @@
-"""The reuse gate's delta pricing (CUDA kernel ``csrc/tile_delta_gate.cu``).
+"""Per-tile delta pricing: the reuse gate (CUDA kernels in
+``csrc/tile_delta_gate.cu``) and the edge rate controller's tile and halo
+pricing (``csrc/tile_delta.cu``).
 
 The temporal reuse gate must know whether a tile's entry-layer input
 changed: the (th+2, tw+2) haloed window the entry conv reads, not only the
 (th, tw) body -- a pixel flip in an inactive neighbour changes an active
 tile's conv output through the 1-pixel halo.  One launch prices both views
 per tile: the body stats (cols 0..3) for the edge rate controller and the
-window stats (cols 4..5) for the gate.
+window stats (cols 4..5) for the gate.  The gate's reference is a canvas
+(``tile_delta_gate_canvas``) or packed per-tile windows
+(``tile_delta_gate``).  ``tile_delta`` and ``tile_delta_halo`` price one
+camera's frame pair, body or edge ring, for the rate controller.
 """
 from __future__ import annotations
 
@@ -31,6 +36,21 @@ GATE_WIN_EXACT = 4       # exact count of (th+2, tw+2, C) positions that
 GATE_WIN_BYTES = 5       # quantized zero-run byte estimate of the window
 
 
+def _check_smem(name: str, elems: int) -> None:
+    if 4 * elems > 48 * 1024:
+        raise ValueError(f"{name}: {elems} quantized deltas per tile do not "
+                         f"fit the kernel's 48 KB of shared memory")
+
+
+def _launch(name: str, dev: torch.device, fn, *args) -> None:
+    """Launch ``fn`` on ``dev``'s current stream; raise on a CUDA error and
+    count the launch."""
+    with torch.cuda.device(dev):
+        err = fn(*args, _build.stream_handle(dev))
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+
+
 def tile_delta_gate_canvas(cur_p: torch.Tensor, ref_c: torch.Tensor,
                            idx: torch.Tensor, th: int, tw: int,
                            qstep: float = 8.0, coef_bits: int = COEF_BITS,
@@ -48,19 +68,98 @@ def tile_delta_gate_canvas(cur_p: torch.Tensor, ref_c: torch.Tensor,
     _build.expect(name, "ref_c", ref_c, torch.float32, tuple(cur_p.shape))
     _build.expect(name, "idx", idx, torch.int32, (None, 3))
     C, Hp, Wp, Cin = cur_p.shape
-    if 4 * (th + 2) * (tw + 2) * Cin > 48 * 1024:
-        raise ValueError(f"{name}: a {th}x{tw}x{Cin} tile window does not "
-                         f"fit the kernel's 48 KB of shared memory")
+    _check_smem(name, (th + 2) * (tw + 2) * Cin)
     n = idx.shape[0]
     out = torch.empty((n, STATS_WIDTH), dtype=torch.int32, device=dev)
     if n == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.tile_delta_gate_canvas_launch(
+    _launch(name, dev, _build.library().tile_delta_gate_canvas_launch,
             cur_p.data_ptr(), ref_c.data_ptr(), idx.data_ptr(),
             out.data_ptr(), n, C, Hp, Wp, Cin, th, tw, float(qstep),
-            int(coef_bits), int(run_bits), _build.stream_handle(dev))
-    _build.check(err, name)
-    _build.LAUNCHES[name] += 1
+            int(coef_bits), int(run_bits))
     return out
+
+
+def tile_delta_gate(cur_p: torch.Tensor, ref_win: torch.Tensor,
+                    idx: torch.Tensor, th: int, tw: int, qstep: float = 8.0,
+                    coef_bits: int = COEF_BITS, run_bits: int = RUN_BITS):
+    """cur_p: (C, H+2, W+2, Cin) float32 zero-padded current frames;
+    ref_win: (n, th+2, tw+2, Cin) float32 packed per-tile reference
+    windows; idx: (n, 3) int32 (cam, ty, tx).  Returns (stats (n,
+    STATS_WIDTH) int32, windows (n, th+2, tw+2, Cin) float32 -- the current
+    windows), see ``ref.tile_delta_gate``.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    if cur_p.device.type == "cpu":
+        return ref.tile_delta_gate(cur_p, ref_win, idx, th, tw, qstep,
+                                   coef_bits, run_bits)
+    name = "tile_delta_gate"
+    dev = _build.cuda_device(name, cur_p, ref_win, idx)
+    _build.expect(name, "cur_p", cur_p, torch.float32, (None,) * 4)
+    C, Hp, Wp, Cin = cur_p.shape
+    _build.expect(name, "idx", idx, torch.int32, (None, 3))
+    n = idx.shape[0]
+    _build.expect(name, "ref_win", ref_win, torch.float32,
+                  (n, th + 2, tw + 2, Cin))
+    _check_smem(name, (th + 2) * (tw + 2) * Cin)
+    out = torch.empty((n, STATS_WIDTH), dtype=torch.int32, device=dev)
+    win = torch.empty_like(ref_win)
+    if n == 0:
+        return out, win
+    _launch(name, dev, _build.library().tile_delta_gate_launch,
+            cur_p.data_ptr(), ref_win.data_ptr(), idx.data_ptr(),
+            out.data_ptr(), win.data_ptr(), n, C, Hp, Wp, Cin, th, tw,
+            float(qstep), int(coef_bits), int(run_bits))
+    return out, win
+
+
+def _frame_pair_stats(name: str, fn, cur, prev, idx, th, tw, qstep,
+                      coef_bits, run_bits, elems: int) -> torch.Tensor:
+    """The launcher shared by ``tile_delta`` and ``tile_delta_halo``:
+    (H, W, C) float32 frames + (n, 2) int32 (ty, tx) rows -> (n,
+    STATS_WIDTH) int32."""
+    dev = _build.cuda_device(name, cur, prev, idx)
+    _build.expect(name, "cur", cur, torch.float32, (None,) * 3)
+    _build.expect(name, "prev", prev, torch.float32, tuple(cur.shape))
+    _build.expect(name, "idx", idx, torch.int32, (None, 2))
+    H, W, C = cur.shape
+    _check_smem(name, elems * C)
+    n = idx.shape[0]
+    out = torch.empty((n, STATS_WIDTH), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    _launch(name, dev, fn(_build.library()), cur.data_ptr(),
+            prev.data_ptr(), idx.data_ptr(), out.data_ptr(), n, H, W, C, th,
+            tw, float(qstep), int(coef_bits), int(run_bits))
+    return out
+
+
+def tile_delta(cur: torch.Tensor, prev: torch.Tensor, idx: torch.Tensor,
+               th: int, tw: int, qstep: float = 8.0,
+               coef_bits: int = COEF_BITS,
+               run_bits: int = RUN_BITS) -> torch.Tensor:
+    """cur, prev: (H, W, C) float32 frames holding every tile of ``idx``
+    whole; idx: (n, 2) int32 (ty, tx).  Returns (n, STATS_WIDTH) int32 body
+    stats rows (see ``ref.tile_delta``).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    if cur.device.type == "cpu":
+        return ref.tile_delta(cur, prev, idx, th, tw, qstep, coef_bits,
+                              run_bits)
+    return _frame_pair_stats("tile_delta", lambda lib: lib.tile_delta_launch,
+                             cur, prev, idx, th, tw, qstep, coef_bits,
+                             run_bits, th * tw)
+
+
+def tile_delta_halo(cur: torch.Tensor, prev: torch.Tensor,
+                    idx: torch.Tensor, th: int, tw: int, qstep: float = 8.0,
+                    coef_bits: int = COEF_BITS,
+                    run_bits: int = RUN_BITS) -> torch.Tensor:
+    """As ``tile_delta`` over each tile's edge ring (see
+    ``ref.tile_delta_halo``).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if cur.device.type == "cpu":
+        return ref.tile_delta_halo(cur, prev, idx, th, tw, qstep, coef_bits,
+                                   run_bits)
+    return _frame_pair_stats("tile_delta_halo",
+                             lambda lib: lib.tile_delta_halo_launch, cur,
+                             prev, idx, th, tw, qstep, coef_bits, run_bits,
+                             2 * (th + tw))

@@ -10,12 +10,13 @@ dispatches for the whole fleet, independent of camera, group and layer
 count.
 
 ``fleet_forward_reuse`` adds the temporal axis: one ``tile_delta_gate``
-dispatch prices each active tile's haloed entry window against the
-reference canvas, the changed set is dilated per layer
-(``ops.reuse_sets``) and compacted into the launch tables, unchanged tiles
-keep their bytes in a persistent head-map canvas, and one changed-only
-scatter writes the refreshed tiles -- compute proportional to scene motion,
-bit-identical to a full recompute at threshold 0.
+dispatch prices each active tile's haloed entry window against its
+reference (a canvas, or packed per-tile windows), the changed set is
+dilated per layer (``ops.reuse_sets``) and compacted into the launch
+tables, unchanged tiles keep their bytes in a persistent head-map canvas,
+and one changed-only scatter writes the refreshed tiles -- compute
+proportional to scene motion, bit-identical to a full recompute at
+threshold 0.
 
 Tensors live on ``self.device`` (the CUDA card unless the caller asks for
 the CPU); the host plans the changed sets with numpy between the gate and
@@ -134,28 +135,31 @@ class PackedActivationCache:
 
     Holds the persistent HEAD-MAP CANVAS (``canvas``, (C, H, W, A),
     updated in place: warm steps scatter only their refreshed tiles, an
-    all-static step writes nothing) and the gate's reference canvas
-    (``ref_canvas``, (C, H+2, W+2, 3), each tile's window content as of
-    its last refresh) with an (n,) refresh-epoch vector.  Keyed on the
-    fleet's grid digests and canvas shape: any mask change misses the key
-    and forces a full recompute into a fresh canvas.
+    all-static step writes nothing), the gate's references and an (n,)
+    refresh-epoch vector.  Keyed on the fleet's grid digests and canvas
+    shape: any mask change misses the key and forces a full recompute into
+    a fresh canvas.  The references hold each tile's haloed window content
+    as of its last refresh, in one of two layouts:
 
-    Only ``ref_mode="canvas"`` exists in this package; the packed
-    per-tile reference windows need the packed-reference gate kernel.
+    * ``ref_mode="canvas"`` (default): ``ref_canvas``, a padded (C, H+2,
+      W+2, 3) reference canvas the gate addresses like the frames;
+    * ``ref_mode="packed"``: ``ref_win``, packed (n, t+2, t+2, 3) per-tile
+      windows, advanced row for row from the gate's windows output.  A
+      tile's reference never aliases a neighbour's through the window
+      overlap; the two modes agree bitwise whenever motion stays inside
+      tile interiors, and at every threshold <= 0.
+
     The final layer's packed activations are not kept: the head maps come
     from ``canvas``, and only the sharded runtime reads them back."""
 
     def __init__(self, ref_mode: str = "canvas"):
-        if ref_mode == "packed":
-            raise NotImplementedError(
-                "ref_mode='packed' needs the packed-reference gate kernel "
-                "(tile_delta_gate), which is not ported yet")
-        if ref_mode != "canvas":
+        if ref_mode not in ("canvas", "packed"):
             raise ValueError(f"unknown ref_mode {ref_mode!r}")
         self.ref_mode = ref_mode
         self.key: Optional[tuple] = None
         self.canvas: Optional[torch.Tensor] = None   # (C, H, W, A) heads
         self.ref_canvas: Optional[torch.Tensor] = None  # (C, H+2, W+2, 3)
+        self.ref_win: Optional[torch.Tensor] = None  # (n, t+2, t+2, 3)
         self.epoch_np: Optional[np.ndarray] = None   # (n,) last refresh
         self.idx_np: Optional[np.ndarray] = None     # (n, 3) static tables
         self.nbr_np: Optional[np.ndarray] = None     # (n, 8)
@@ -173,6 +177,7 @@ class PackedActivationCache:
         self.key = None
         self.canvas = None
         self.ref_canvas = None
+        self.ref_win = None
         self.epoch_np = None
         self.idx_np = None
         self.nbr_np = None
@@ -201,22 +206,32 @@ def _head_rows(packed: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
 
 
 def _advance_refs(cache: PackedActivationCache, xp: torch.Tensor,
-                  adv: Optional[np.ndarray], t: int) -> None:
+                  adv: Optional[np.ndarray], windows: Optional[torch.Tensor],
+                  t: int) -> None:
     """Advance the gate references per ``ref_advance_rows``'s verdict and
-    stamp the refresh epochs.  ``adv is None`` = every row: the reference
-    canvas becomes the current padded frame itself (a free alias; ``xp``
-    is a fresh tensor every step).  A partial advance copies the advanced
-    rows' full (t+2, t+2) window regions from ``xp`` into the reference
-    canvas in place -- the same result as the JAX package's masked select
-    over a (C, H+2, W+2) host mask, without building the mask.  Windows of
-    neighbouring advanced rows overlap and carry the same content."""
+    stamp the refresh epochs.  ``adv is None`` = every row: the packed
+    references become the gate's windows output and the reference canvas
+    the current padded frame, each a free alias (both are fresh tensors
+    every step).  A partial advance copies the advanced rows in place:
+    packed mode their windows, canvas mode their full (t+2, t+2) window
+    regions from ``xp`` -- the same result as the JAX package's masked
+    select over a (C, H+2, W+2) host mask, without building the mask.
+    Windows of neighbouring advanced rows overlap and carry the same
+    content."""
     if adv is None:
-        cache.ref_canvas = xp
+        if cache.ref_mode == "packed":
+            cache.ref_win = windows
+        else:
+            cache.ref_canvas = xp
         cache.epoch_np[:] = cache.steps
     elif adv.any():
-        rows = torch.as_tensor(cache.idx_np[adv], device=xp.device)
-        where = kref.tile_index(rows, t, t, t + 2, t + 2)
-        cache.ref_canvas[where] = xp[where]
+        if cache.ref_mode == "packed":
+            rows = torch.as_tensor(np.nonzero(adv)[0], device=xp.device)
+            cache.ref_win[rows] = windows[rows]
+        else:
+            rows = torch.as_tensor(cache.idx_np[adv], device=xp.device)
+            where = kref.tile_index(rows, t, t, t + 2, t + 2)
+            cache.ref_canvas[where] = xp[where]
         cache.epoch_np[adv] = cache.steps
 
 
@@ -401,7 +416,8 @@ class RoIDetector:
         """``fleet_forward`` with compute proportional to CHANGED tiles.
 
         One ``tile_delta_gate`` dispatch prices every active tile's haloed
-        entry window against the reference canvas; a tile is changed when
+        entry window against its reference (``cache.ref_mode``: the
+        reference canvas or packed per-tile windows); a tile is changed when
         its window byte estimate exceeds ``threshold`` (at <= 0 the exact
         change count gates, making reuse bit-identical to a full
         recompute).  ``threshold`` may also be a per-camera (C,) or a
@@ -434,11 +450,15 @@ class RoIDetector:
         A = self.head.shape[-1]
         tile_bytes = t * t * A * self.head.element_size()
         cold = (cache.key != key or cache.canvas is None
-                or cache.ref_canvas is None)
+                or (cache.ref_win is None if cache.ref_mode == "packed"
+                    else cache.ref_canvas is None))
         if cold:
             cache.key = key
             packed = self._stack_chain(x, idx, nbr)
-            cache.ref_canvas = xp          # free alias, full advance
+            if cache.ref_mode == "packed":
+                cache.ref_win = kops.gather_windows(xp, idx, t, t)
+            else:
+                cache.ref_canvas = xp      # free alias, full advance
             cache.idx_np = idx_np
             cache.nbr_np = nbr_np
             cache.cls_np = tile_class_rows(nbr_np)
@@ -453,8 +473,13 @@ class RoIDetector:
             stats = ReuseStats(n, n, n, n, n, cold=True,
                                canvas_bytes=n * tile_bytes)
         else:
-            gate = kops.tile_delta_gate_canvas(xp, cache.ref_canvas, idx, t,
-                                               t, qstep=qstep)
+            if cache.ref_mode == "packed":
+                gate, windows = kops.tile_delta_gate(xp, cache.ref_win, idx,
+                                                     t, t, qstep=qstep)
+            else:
+                gate = kops.tile_delta_gate_canvas(xp, cache.ref_canvas, idx,
+                                                   t, t, qstep=qstep)
+                windows = None
             s = gate.cpu().numpy()        # the step's one host round trip
             raw = gate_changed_rows(s, threshold, cache.idx_np[:, 0],
                                     cache.cls_np)
@@ -504,7 +529,7 @@ class RoIDetector:
                                    gate_stats=s, canvas_bytes=0)
             adv = ref_advance_rows(threshold, cache.idx_np[:, 0], changed,
                                    cache.cls_np)
-            _advance_refs(cache, xp, adv, t)
+            _advance_refs(cache, xp, adv, windows, t)
         cache.canvas_bytes_last = stats.canvas_bytes
         cache.canvas_bytes_total += stats.canvas_bytes
         return ([cache.canvas[c, :f.shape[0], :f.shape[1]]

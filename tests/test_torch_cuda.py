@@ -15,6 +15,7 @@ import torch
 from repro_torch.fleet import runtime as trt
 from repro_torch.kernels import _build, ops as tops, ref as tref
 from repro_torch.kernels import roi_conv, sbnet, tile_delta
+from repro_torch.net import encoder as tenc
 from repro_torch.serving import detector as tdet
 
 SHAPES = [(4, 5), (3, 4), (5, 3)]          # per-camera tile grids
@@ -83,6 +84,82 @@ def test_cuda_kernels_match_plain_versions(cuda, tile, channels):
         assert _build.LAUNCHES[k] > before.get(k, 0)
 
 
+def _half_grid_pair(rng, shape):
+    """(prev, cur) on a 0.5 grid (deltas on rounding ties), 30% moved,
+    with a -0.0 over a 0.0."""
+    prev = (rng.integers(-40, 40, shape) * 0.5).astype(np.float32)
+    cur = prev.copy()
+    moved = rng.random(shape) < 0.3
+    cur[moved] += (rng.integers(-60, 60, moved.sum()) * 0.5) \
+        .astype(np.float32)
+    cur[..., 0, :3, :] = -0.0
+    prev[..., 0, :3, :] = 0.0
+    return prev, cur
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [8, 16])
+@pytest.mark.parametrize("cin", [3, 5])
+def test_cuda_tile_delta_family_matches_plain_versions(cuda, tile, cin):
+    """B5 (packed gate, stats and windows), B10 and B11 bit-exact against
+    their plain versions; references of mixed age for B5."""
+    rng, grids, idx, _, H, W = _fleet(9, tile)
+    prev, cur = _half_grid_pair(rng, (len(SHAPES), H, W, cin))
+    pad = ((0, 0), (1, 1), (1, 1), (0, 0))
+    cur_p = _t(np.pad(cur, pad)).to(cuda)
+    prev_p = _t(np.pad(prev, pad)).to(cuda)
+    d_idx = _t(idx).to(cuda)
+    ref_win = tref.gather_windows(prev_p, d_idx, tile, tile)
+    fresh = torch.as_tensor(rng.random(idx.shape[0]) < 0.3, device=cuda)
+    ref_win[fresh] = tref.gather_windows(cur_p, d_idx, tile, tile)[fresh]
+    before = dict(_build.LAUNCHES)
+    for q in (1.0, 8.0, 13.0):
+        s, w = tile_delta.tile_delta_gate(cur_p, ref_win, d_idx, tile, tile,
+                                          q)
+        s_ref, w_ref = tref.tile_delta_gate(cur_p, ref_win, d_idx, tile,
+                                            tile, q)
+        assert torch.equal(s, s_ref) and torch.equal(w, w_ref)
+        for c, g in enumerate(grids):
+            rows = _t(tops.mask_to_indices(g)).to(cuda)
+            a, b = _t(cur[c]).to(cuda), _t(prev[c]).to(cuda)
+            assert torch.equal(
+                tile_delta.tile_delta(a, b, rows, tile, tile, q),
+                tref.tile_delta(a, b, rows, tile, tile, q))
+            assert torch.equal(
+                tile_delta.tile_delta_halo(a, b, rows, tile, tile, q),
+                tref.tile_delta_halo(a, b, rows, tile, tile, q))
+    torch.cuda.synchronize()
+    for k in ("tile_delta_gate", "tile_delta", "tile_delta_halo"):
+        assert _build.LAUNCHES[k] > before.get(k, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_fractions_on_a_ragged_grid(cuda):
+    """A grid past the frame's edge (the 1080-px legs' case): the
+    fractions on the card equal those on the CPU, and B10's rows equal the
+    canvas gate's body columns on the same camera."""
+    t = 16
+    rng = np.random.default_rng(10)
+    grid = rng.random((5, 4)) < 0.6
+    grid[-1] = True
+    prev = rng.normal(size=(5 * t - 8, 4 * t - 5, 3)).astype(np.float32)
+    cur = prev.copy()
+    cur[20:60, 10:40] += 30.0
+    for fn in (tenc.tile_static_fraction, tenc.tile_halo_static_fraction):
+        on_card = fn(_t(cur).to(cuda), _t(prev).to(cuda), grid, t)
+        assert on_card == fn(cur, prev, grid, t)
+    a, b = tenc.pad_to_grid(_t(cur).to(cuda), _t(prev).to(cuda),
+                             grid.shape, t)
+    rows = _t(tops.mask_to_indices(grid)).to(cuda)
+    body = tile_delta.tile_delta(a, b, rows, t, t)
+    pad = (0, 0, 1, 1, 1, 1)
+    gate = tile_delta.tile_delta_gate_canvas(
+        torch.nn.functional.pad(a, pad)[None].contiguous(),
+        torch.nn.functional.pad(b, pad)[None].contiguous(),
+        torch.nn.functional.pad(rows, (1, 0)), t, t)
+    assert torch.equal(body[:, :4], gate[:, :4])
+
+
 def _trace(seed, n_steps=6):
     """Ragged frames, static except a moving patch; step 3 is static."""
     rng = np.random.default_rng(seed)
@@ -140,3 +217,36 @@ def test_cuda_fleet_steps_match_cpu(cuda, threshold):
             full, _ = trt.fleet_inference_step(gpu, g_frames, grids)
             assert all(torch.equal(a, b) for g in full
                        for a, b in zip(kept[g], full[g]))
+
+
+@pytest.mark.cuda
+def test_cuda_ref_modes_bitwise_equal(cuda):
+    """On the card, canvas and packed reference modes at threshold 0: equal
+    dispatches and ReuseStats (gate stats included), bitwise-equal head
+    maps, both equal to a cold recompute."""
+    _, grids, _, _, _, _ = _fleet(11, 8)
+    grids = {0: grids[:2], 1: grids[2:]}
+    det = tdet.RoIDetector(tdet.DetectorConfig(tile=8), seed=4, device=cuda)
+    caches = {m: tdet.PackedActivationCache(ref_mode=m)
+              for m in ("canvas", "packed")}
+    for frames in _trace(12):
+        g_frames = {g: [_t(f).to(cuda) for f in fs]
+                    for g, fs in frames.items()}
+        c_out, c_counts, c_st = trt.fleet_reuse_step(
+            det, g_frames, grids, caches["canvas"], 0.0, 0.125)
+        c_out = {g: [h.clone() for h in hs] for g, hs in c_out.items()}
+        p_out, p_counts, p_st = trt.fleet_reuse_step(
+            det, g_frames, grids, caches["packed"], 0.0, 0.125)
+        assert c_counts == p_counts
+        for f in dataclasses.fields(c_st):
+            a, b = getattr(p_st, f.name), getattr(c_st, f.name)
+            if f.name == "gate_stats":
+                assert (a is None) == (b is None)
+                if a is not None:
+                    np.testing.assert_array_equal(a, b)
+            else:
+                assert a == b, f.name
+        full, _ = trt.fleet_inference_step(det, g_frames, grids)
+        assert all(torch.equal(a, b) and torch.equal(a, f)
+                   for g in full
+                   for a, b, f in zip(c_out[g], p_out[g], full[g]))

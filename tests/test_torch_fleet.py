@@ -1,10 +1,11 @@
 """The whole slice: the port's fleet steps against the JAX package's.
 
 The JAX package's Pallas kernels do not trace on this jax, so its own
-``fleet_inference_step`` and ``fleet_reuse_step`` run here with the five
+``fleet_inference_step`` and ``fleet_reuse_step`` run here with the six
 kernel wrappers the detector calls swapped (``monkeypatch``) for
 compositions of ``repro.kernels.ref`` and pure jnp that also count their
-dispatches.  Both sides get the same numpy frames and weights; ReuseStats
+dispatches.  Both reference modes run: the canvas gate and the packed
+gate.  Both sides get the same numpy frames and weights; ReuseStats
 and dispatch counters must match exactly, head maps within atol 1e-5 (the
 f32 bar of ``tests/test_fleet.py``).  The port's own invariants (threshold-0
 reuse bit-identical to a full recompute, gate-only all-static steps,
@@ -89,6 +90,25 @@ def _gate(cur_p, ref_c, idx, th, tw, qstep=8.0, coef_bits=6, run_bits=10,
         np.asarray(idx), th, tw, qstep, coef_bits, run_bits))
 
 
+def _gate_packed(cur_p, ref_win, idx, th, tw, qstep=8.0, coef_bits=6,
+                 run_bits=10, block=1, interpret=True):
+    """The packed gate: per row, ``ref.tile_delta`` over the body and over
+    the whole window of the (current, reference) window pair."""
+    jops.record_dispatch("tile_delta_gate")
+    cw = np.asarray(jops.gather_windows(cur_p, jnp.asarray(idx), th, tw))
+    one = np.zeros((1, 2), np.int32)
+    rows = np.zeros((cw.shape[0], 8), np.int32)
+    for i, (c, p) in enumerate(zip(cw, np.asarray(ref_win))):
+        body = jref.tile_delta(c[1:-1, 1:-1], p[1:-1, 1:-1], one, th, tw,
+                               qstep, coef_bits, run_bits)[0]
+        win = jref.tile_delta(c, p, one, th + 2, tw + 2, qstep, coef_bits,
+                              run_bits)[0]
+        rows[i, :4] = body[:4]
+        rows[i, 4] = int((c != p).sum())
+        rows[i, 5] = win[0]
+    return jnp.asarray(rows), jnp.asarray(cw)
+
+
 @pytest.fixture
 def jax_oracle(monkeypatch):
     monkeypatch.setattr(jops, "roi_conv_entry", _entry)
@@ -98,6 +118,7 @@ def jax_oracle(monkeypatch):
     monkeypatch.setattr(jops, "sbnet_scatter_changed",
                         _scatter("sbnet_scatter_changed"))
     monkeypatch.setattr(jops, "tile_delta_gate_canvas", _gate)
+    monkeypatch.setattr(jops, "tile_delta_gate", _gate_packed)
 
 
 # ---------------------------------------------------------------------------
@@ -170,11 +191,11 @@ def _assert_stats_equal(ts, js):
             assert a == b, (f.name, a, b)
 
 
-@pytest.mark.parametrize("threshold", [0.0, 40.0])
-def test_reuse_steps_match_jax(jax_oracle, threshold):
+def _reuse_steps_match_jax(threshold, ref_mode):
     jd, td = _dets()
     grids = _grids(1)
-    jcache, tcache = jdet.PackedActivationCache(), tdet.PackedActivationCache()
+    jcache = jdet.PackedActivationCache(ref_mode=ref_mode)
+    tcache = tdet.PackedActivationCache(ref_mode=ref_mode)
     kinds = set()
     for k, frames in enumerate(_trace(2)):
         j_outs, j_counts, j_stats = jrt.fleet_reuse_step(
@@ -187,6 +208,19 @@ def test_reuse_steps_match_jax(jax_oracle, threshold):
         kinds.add("cold" if t_stats.cold else
                   "static" if t_stats.computed == 0 else "changed")
     assert kinds == {"cold", "static", "changed"}
+    np.testing.assert_array_equal(tcache.epoch_np, jcache.epoch_np)
+
+
+@pytest.mark.parametrize("threshold", [0.0, 40.0])
+def test_reuse_steps_match_jax(jax_oracle, threshold):
+    _reuse_steps_match_jax(threshold, "canvas")
+
+
+@pytest.mark.parametrize("threshold", [0.0, 40.0])
+def test_packed_reuse_steps_match_jax(jax_oracle, threshold):
+    """The packed reference mode (gate B5, references advanced row for row
+    from its windows output) against the JAX package's packed mode."""
+    _reuse_steps_match_jax(threshold, "packed")
 
 
 def test_inference_step_matches_jax(jax_oracle):
@@ -265,3 +299,60 @@ def test_single_layer_stack_free_chain():
     frames = _trace(15, n_steps=1)[0]
     _, counts = trt.fleet_inference_step(td, frames, grids)
     assert counts == {"roi_conv_entry": 1, "sbnet_scatter_fleet": 1}
+
+
+def _interior_trace(seed, t=T, n_steps=6):
+    """Frames whose motion stays inside tile interiors (each changed
+    tile's 2-pixel rim stays bit-static), with all-static repeats: the
+    regime where the canvas and packed reference modes are defined to
+    agree at every threshold."""
+    rng = np.random.default_rng(seed)
+    shapes = {0: [(3, 4), (2, 2)], 1: [(4, 3)]}
+    grids = {g: [rng.random(s) < 0.7 for s in ss] for g, ss in shapes.items()}
+    for gs in grids.values():
+        for gg in gs:
+            gg[0, 0] = True
+    cur = {g: [rng.normal(size=(s[0] * t, s[1] * t, 3)).astype(np.float32)
+               for s in ss] for g, ss in shapes.items()}
+    steps = [cur]
+    for step in range(1, n_steps):
+        if step % 3 != 2:                        # else an all-static repeat
+            cur = {g: [f.copy() for f in fs] for g, fs in cur.items()}
+            f = cur[int(rng.integers(2))][0]
+            ty = int(rng.integers(f.shape[0] // t))
+            tx = int(rng.integers(f.shape[1] // t))
+            f[ty * t + 2:ty * t + t - 2, tx * t + 2:tx * t + t - 2] += \
+                rng.normal(size=(t - 4, t - 4, 3)).astype(np.float32)
+        steps.append(cur)
+    return grids, steps
+
+
+@pytest.mark.parametrize("threshold", [0.0, 40.0, 1e9])
+def test_ref_modes_bitwise_equal(threshold):
+    """The port-side twin of ``tests/test_canvas.py``'s mode test: canvas
+    and packed references give equal ReuseStats (gate stats included) and
+    bitwise-equal head maps at exact, lossy and everything-reused
+    thresholds; at threshold 0 both equal a full recompute."""
+    _, td = _dets(16, channels=(4, 6))
+    grids, steps = _interior_trace(17)
+    caches = {m: tdet.PackedActivationCache(ref_mode=m)
+              for m in ("canvas", "packed")}
+    for k, frames in enumerate(steps):
+        out = {m: trt.fleet_reuse_step(td, frames, grids, c, threshold,
+                                       QSTEP) for m, c in caches.items()}
+        (c_outs, c_counts, c_st), (p_outs, p_counts, p_st) = \
+            out["canvas"], out["packed"]
+        assert c_counts == p_counts, k
+        _assert_stats_equal(p_st, c_st)
+        for g in grids:
+            for a, b in zip(c_outs[g], p_outs[g]):
+                assert torch.equal(a, b), (k, g)
+        if threshold == 0.0:
+            full, _ = trt.fleet_inference_step(td, frames, grids)
+            for g in grids:
+                for a, b in zip(c_outs[g], full[g]):
+                    assert torch.equal(a, b), (k, g)
+    assert caches["packed"].ref_canvas is None
+    assert caches["canvas"].ref_win is None
+    np.testing.assert_array_equal(caches["canvas"].epoch_np,
+                                  caches["packed"].epoch_np)
