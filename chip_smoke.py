@@ -18,18 +18,17 @@ is non-zero:
 3. the main path at full size -- the 4-group x 5-camera fleet at the
    paper's camera sizes (four 1920x1080 legs and one 1280x960 centre
    camera per group), default detector (channels (8, 16, 16), tile 16, 2
-   anchors), RoI masks at density 0.35 on the offline 64-px grid,
-   canvas references: one cold step, six warm steps each giving 5 cameras
-   a fresh 64x64 patch, one all-static step, two lossy warm steps at
-   threshold 40 whose patches change tile interiors only, and two lossy
-   steps with whole tile-aligned patches.  Every step checks the
-   runtime's dispatch structure; the warm threshold-0 steps are bitwise
-   equal to a cold recompute through the kernels; the cold step is within
-   1e-4 of the plain-version composition;
-3b. the packed reference mode: a second cache steps through the same
-   frames; on the cold, threshold-0, all-static and interior-lossy steps
-   its ReuseStats (gate stats included) and head maps equal the canvas
-   cache's bitwise;
+   anchors), RoI masks at density 0.35 on the offline 64-px grid: one
+   cold step, six warm steps each giving 5 cameras a fresh 64x64 patch,
+   one all-static step, two lossy warm steps at threshold 40 whose
+   patches change tile interiors only, and two lossy steps with whole
+   tile-aligned patches, each step through a canvas-reference cache and
+   (3b) a packed-reference cache in lockstep.  Every step checks the
+   runtime's dispatch structure in both modes; the warm threshold-0 steps
+   are bitwise equal to a cold recompute through the kernels; the cold
+   step is within 1e-4 of the plain-version composition; on the cold,
+   threshold-0, all-static and interior-lossy steps the two caches give
+   equal ReuseStats (gate stats included) and bitwise-equal head maps;
 3c. the edge rate-control loop, on both caches: one threshold-0 step to
    align the references, then a threshold-0 step whose gate stats give
    each camera's static fraction with no launch -- equal, camera by
@@ -38,10 +37,11 @@ is non-zero:
    matrices behind an uplink that congests every other camera, its
    quality trace as a (20, 2) per-camera, per-tile-class threshold table,
    and one more step under that table: the unshed cameras bitwise equal to
-   a cold recompute, both caches equal;
-4. a ``kernels`` JSON line with each kernel's launches on its path (B1-B4
-   on the canvas path, B5 on the packed path, B10 and B11 on the
-   rate-control loop), each path driven with the counts set to 0.
+   a cold recompute, sub-threshold changes on the congested cameras not
+   recomputed, both caches equal;
+4. a ``kernels`` JSON line with each kernel's launches on its path (B1-B5
+   on the fleet path of phases 3 and 3b, B10 and B11 on the rate-control
+   loop), each path driven with the counts set to 0.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the ``src/repro_torch`` package beside this file, it exits
@@ -436,22 +436,41 @@ def equals_recompute(torch, det, frames, grids, outs, cams=None):
     return all(torch.equal(*pairs[c]) for c in cams), dict(fc)
 
 
-def drive(torch, det, rng, gen, frames, grids):
-    """Phase 3, the canvas path.  Returns the frames of every step, the
-    canvas-mode (ReuseStats, head-map canvas) of each step the packed mode
-    must match (None elsewhere), the step kinds and the cache."""
-    from repro_torch.serving.detector import PackedActivationCache
+def step_both(torch, det, frames, grids, caches, thr, tag, step, label,
+              compare=True):
+    """One step of the canvas and the packed cache on the same frames;
+    with ``compare``, both give equal counts, ReuseStats and head maps.
+    Returns {mode: (outs, counts, stats)}."""
+    res = {m: timed_step(torch, det, frames, grids, c, thr, f"{tag}/{m}",
+                         step, label)
+           for m, c in caches.items()}
+    if compare:
+        (_, c_counts, c_st), (_, p_counts, p_st) = \
+            res["canvas"], res["packed"]
+        same = (c_counts == p_counts and same_stats(c_st, p_st)
+                and torch.equal(caches["canvas"].canvas,
+                                caches["packed"].canvas))
+        say(f"[{tag} {step}] canvas == packed (counts, ReuseStats, head "
+            f"maps bitwise): {same}")
+        assert same
+    return res
 
-    cache = PackedActivationCache()
-    seq, records, kinds = [], [], []
+
+def drive(torch, det, rng, gen, frames, grids, caches):
+    """Phases 3 and 3b: the plan's steps through the canvas and the packed
+    cache in lockstep.  Returns the last frames and the step kinds."""
+    kinds = []
     for step, (label, thr, amp, interior) in enumerate(PLAN):
         if amp is not None:
             frames = with_patches(torch, frames, grids, rng, gen, amp,
                                   interior)
-        seq.append(frames)
-        outs, counts, stats = timed_step(torch, det, frames, grids, cache,
-                                         thr, "step", step, label)
-        kinds.append(check_kind(label, counts, stats))
+        res = step_both(torch, det, frames, grids, caches, thr, "step", step,
+                        label, compare=label in SAME_IN_BOTH_MODES)
+        step_kinds = {m: check_kind(label, counts, stats)
+                      for m, (_, counts, stats) in res.items()}
+        assert step_kinds["canvas"] == step_kinds["packed"], step_kinds
+        kinds.append(step_kinds["canvas"])
+        outs = res["canvas"][0]
         if label == "cold":
             want = plain_composition(torch, det, frames, grids)
             err = max(float((h - want[i, :h.shape[0], :h.shape[1]])
@@ -466,33 +485,7 @@ def drive(torch, det, rng, gen, frames, grids):
             say(f"[step {step}] threshold-0 reuse == cold recompute "
                 f"bitwise: {same} (recompute counts {fc})")
             assert same
-        records.append((stats, cache.canvas.clone())
-                       if label in SAME_IN_BOTH_MODES else None)
-    return seq, records, kinds, cache
-
-
-def drive_packed(torch, det, seq, records, grids):
-    """Phase 3b, the packed path: the same frames through a packed-mode
-    cache, held bitwise against the canvas path's steps (``records``,
-    released as they are read)."""
-    from repro_torch.serving.detector import PackedActivationCache
-
-    cache = PackedActivationCache(ref_mode="packed")
-    kinds = []
-    for step, ((label, thr, _, _), frames) in enumerate(zip(PLAN, seq)):
-        outs, counts, stats = timed_step(torch, det, frames, grids, cache,
-                                         thr, "packed", step, label)
-        kinds.append(check_kind(label, counts, stats))
-        if records[step] is not None:
-            c_stats, c_canvas = records[step]
-            records[step] = None
-            st_ok = same_stats(stats, c_stats)
-            maps_ok = torch.equal(cache.canvas, c_canvas)
-            say(f"[packed {step}] == canvas mode: ReuseStats {st_ok}, "
-                f"head maps bitwise {maps_ok}")
-            assert st_ok and maps_ok
-            del c_canvas
-    return kinds, cache
+    return frames, kinds
 
 
 def rate_control_loop(torch, det, rng, gen, frames, grids, caches):
@@ -505,18 +498,9 @@ def rate_control_loop(torch, det, rng, gen, frames, grids, caches):
                                  tile_static_fraction)
 
     def both(frames, thr, step, label):
-        res = {m: timed_step(torch, det, frames, grids, c, thr,
-                             f"rate/{m}", step, label)
-               for m, c in caches.items()}
-        (c_outs, c_counts, c_st), (_, p_counts, p_st) = \
-            res["canvas"], res["packed"]
-        same = (c_counts == p_counts and same_stats(c_st, p_st)
-                and torch.equal(caches["canvas"].canvas,
-                                caches["packed"].canvas))
-        say(f"[rate {step}] canvas == packed (counts, ReuseStats, head "
-            f"maps bitwise): {same}")
-        assert same
-        return c_outs, c_st
+        res = step_both(torch, det, frames, grids, caches, thr, "rate", step,
+                        label)
+        return res["canvas"][0], res["canvas"][2]
 
     # align the references: a threshold-0 step advances every row
     frames = with_patches(torch, frames, grids, rng, gen, 0.0)
@@ -593,13 +577,18 @@ def rate_control_loop(torch, det, rng, gen, frames, grids, caches):
     frames = with_patches(torch, frames, grids, rng, gen, 0.0)
     outs, st = both(frames, thr, 2, "schedule")
     exact = st.gate_stats[:, ops.GATE_WIN_EXACT] > 0
+    exact_congested = int(exact[congested[cam]].sum())
+    # the unshed cameras gate exactly, so every raw-changed row beyond
+    # their exact changes lies on a congested camera
+    raw_congested = st.raw_changed - int(exact[~congested[cam]].sum())
     same, _ = equals_recompute(torch, det, frames, grids, outs, unshed)
     say(f"[rate 2] under the schedule: {st.raw_changed} raw-changed rows "
-        f"of {int(exact.sum())} that changed at all "
-        f"({int(exact[congested[cam]].sum())} on congested cameras); "
-        f"the {len(unshed)} unshed cameras == cold recompute bitwise: "
-        f"{same}")
+        f"of {int(exact.sum())} that changed at all; on congested cameras "
+        f"{raw_congested} raw-changed of {exact_congested} changed; the "
+        f"{len(unshed)} unshed cameras == cold recompute bitwise: {same}")
     assert same
+    assert exact_congested > 0 and 0 <= raw_congested < exact_congested, \
+        "the congested cameras' thresholds did not take effect"
 
 
 def run_path(torch, fn, *args):
@@ -617,8 +606,7 @@ def run_path(torch, fn, *args):
 
 
 # the path each kernel's ``launches`` is read from
-PATH_OF = {"tile_delta_gate": "packed", "tile_delta": "rate",
-           "tile_delta_halo": "rate"}
+PATH_OF = {"tile_delta": "rate", "tile_delta_halo": "rate"}
 
 
 def main() -> int:
@@ -658,33 +646,28 @@ def main() -> int:
     del nxt
     torch.cuda.empty_cache()
 
+    from repro_torch.serving.detector import PackedActivationCache
+    caches = {"canvas": PackedActivationCache(),
+              "packed": PackedActivationCache(ref_mode="packed")}
     launches = {}
-    (seq, records, kinds, c_cache), launches["canvas"], disp, peak = \
-        run_path(torch, drive, torch, det, rng, gen, frames, grids)
-    held = sum(r[1].numel() * 4 for r in records if r is not None) / 2 ** 30
-    say(f"[main] canvas path: steps {kinds}; dispatches {disp}; launches "
-        f"{launches['canvas']}; peak memory {peak:.2f} GiB, of which "
-        f"{held:.2f} GiB are the head maps kept for phase 3b")
-    (p_kinds, p_cache), launches["packed"], disp, peak = run_path(
-        torch, drive_packed, torch, det, seq, records, grids)
-    ref_gib = p_cache.ref_win.numel() * 4 / 2 ** 30
-    say(f"[main] packed path: steps {p_kinds}; dispatches {disp}; launches "
-        f"{launches['packed']}; peak memory {peak:.2f} GiB (the kept "
-        f"canvas-path maps, released step by step, included); ref_win "
-        f"{ref_gib:.3f} GiB against the reference canvas "
-        f"{c_cache.ref_canvas.numel() * 4 / 2 ** 30:.3f} GiB")
-    assert p_kinds == kinds
-    del records
+    (frames, kinds), launches["fleet"], disp, peak = run_path(
+        torch, drive, torch, det, rng, gen, frames, grids, caches)
+    say(f"[main] fleet path, canvas and packed caches in lockstep: steps "
+        f"{kinds}; dispatches {disp}; launches {launches['fleet']}; peak "
+        f"memory {peak:.2f} GiB; ref_win "
+        f"{caches['packed'].ref_win.numel() * 4 / 2 ** 30:.3f} GiB against "
+        f"the reference canvas "
+        f"{caches['canvas'].ref_canvas.numel() * 4 / 2 ** 30:.3f} GiB")
     torch.cuda.empty_cache()
     _, launches["rate"], disp, peak = run_path(
-        torch, rate_control_loop, torch, det, rng, gen, seq[-1], grids,
-        {"canvas": c_cache, "packed": p_cache})
+        torch, rate_control_loop, torch, det, rng, gen, frames, grids,
+        caches)
     say(f"[main] rate-control loop: dispatches {disp}; launches "
         f"{launches['rate']}; peak memory {peak:.2f} GiB")
 
     rows = []
     for kname, (source, replaces) in KERNELS.items():
-        path = PATH_OF.get(kname, "canvas")
+        path = PATH_OF.get(kname, "fleet")
         n_launch = launches[path].get(kname, 0)
         rows.append(dict(name=kname, route="cuda", source=source,
                          replaces=replaces, launches=n_launch, path=path,

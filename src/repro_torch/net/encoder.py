@@ -19,14 +19,16 @@ camera's FIFO queue wait exceeds the trigger, it sheds quality on the
 *sheddable* byte mass — the halo surcharge plus the body bytes sitting in
 temporally-static tiles.  Which tiles are static comes from the
 ``tile_delta`` CUDA kernel (``kernels/csrc/tile_delta.cu``): per-tile
-quantized-delta zero-run byte estimates, computed on the frames' device
+quantized-delta zero-run byte estimates, computed on the card
 (``tile_static_fraction``), or read off the fleet step's own gate stats
 with no launch at all (``static_fraction_from_stats``).  Control is causal
 — segment ``s`` reacts to the backlog left by segment ``s-1`` — so the
 evolution is a single scan over segments, vectorized across all cameras.
 
 The packetization and the rate controller are numpy, as in the JAX
-package; only the fractions touch tensors, on the frames' device.
+package; only the fractions touch tensors: on a CUDA frame's own device,
+else on the card, and on the CPU only when the caller passes
+``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels import ops as kops
 
 
@@ -218,7 +221,8 @@ def rate_controlled_departures(arrivals: np.ndarray, body: np.ndarray,
 # ---------------------------------------------------------------------------
 
 def static_fraction_from_stats(stats, n_channels: int, tile: int,
-                               static_ratio: float = 0.10) -> float:
+                               static_ratio: float = 0.10,
+                              device=None) -> float:
     """Body-byte static fraction from PRECOMPUTED delta stats rows —
     the zero-dispatch half of the shared-pricing contract.  ``stats`` is
     any (n, STATS_WIDTH) row block whose col 0 is the body byte estimate:
@@ -283,13 +287,24 @@ def _host(stats) -> np.ndarray:
     return np.asarray(stats)
 
 
-def pad_to_grid(cur, prev, grid_shape, tile: int):
-    """The frame pair as float32 tensors on ``cur``'s device, zero-padded
-    at the bottom and right to cover the grid's extent (grid shape x
-    tile), as the fleet step places a frame on its canvas: a partial tile
-    at the frame's edge is priced with its missing pixels at zero."""
-    cur = torch.as_tensor(cur, dtype=torch.float32)
-    prev = torch.as_tensor(prev, dtype=torch.float32, device=cur.device)
+def _frames_device(cur, device=None) -> torch.device:
+    """The device the fractions run on: ``device`` when given, else a CUDA
+    frame's own device, else the card (``resolve_device``): numpy or CPU
+    frames run on the CPU only when the caller asks for it."""
+    if device is None and isinstance(cur, torch.Tensor) and cur.is_cuda:
+        return cur.device
+    return resolve_device(device)
+
+
+def pad_to_grid(cur, prev, grid_shape, tile: int, device=None):
+    """The frame pair as float32 tensors on ``_frames_device(cur, device)``,
+    zero-padded at the bottom and right to cover the grid's extent (grid
+    shape x tile), as the fleet step places a frame on its canvas: a
+    partial tile at the frame's edge is priced with its missing pixels at
+    zero."""
+    dev = _frames_device(cur, device)
+    cur = torch.as_tensor(cur, dtype=torch.float32, device=dev)
+    prev = torch.as_tensor(prev, dtype=torch.float32, device=dev)
     h = max(cur.shape[0], grid_shape[0] * tile)
     w = max(cur.shape[1], grid_shape[1] * tile)
     pad = (0, 0, 0, w - cur.shape[1], 0, h - cur.shape[0])
@@ -304,16 +319,18 @@ def _tile_rows(grid: np.ndarray, device) -> torch.Tensor:
 
 def tile_static_fraction(cur, prev, grid: np.ndarray, tile: int,
                          qstep: float = 8.0, static_ratio: float = 0.10,
-                         stats=None) -> float:
+                         stats=None, device=None) -> float:
     """Fraction of a camera's RoI tiles whose quantized temporal delta
     prices below ``static_ratio`` of the dense tile cost — the
     ``static_fraction`` feed for the rate controller.  One ``tile_delta``
-    kernel launch per call, on the frames' device (observable in
+    kernel launch per call (observable in
     ``ops.KERNEL_COUNTS``) — UNLESS ``stats`` carries precomputed rows
     (e.g. the fleet reuse gate's shared ``tile_delta_gate`` output), in
     which case no kernel is dispatched at all.
 
-    ``cur``/``prev``: (H, W, C) frames, numpy or tensors.  A grid whose
+    ``cur``/``prev``: (H, W, C) frames, numpy or tensors, priced on
+    ``device`` (default: a CUDA frame's own device, else the card; pass
+    ``device="cpu"`` for the plain version).  A grid whose
     extent passes the frame's edge (1080-px frames on a 68-row grid of
     16-px tiles) is priced on the frames zero-padded to that extent
     (``pad_to_grid``), so every tile is whole and its row equals the
@@ -323,7 +340,7 @@ def tile_static_fraction(cur, prev, grid: np.ndarray, tile: int,
         return static_fraction_from_stats(stats, C, tile,
                                           static_ratio=static_ratio)
     grid = np.asarray(grid, bool)
-    cur, prev = pad_to_grid(cur, prev, grid.shape, tile)
+    cur, prev = pad_to_grid(cur, prev, grid.shape, tile, device)
     idx = _tile_rows(grid, cur.device)
     if idx.shape[0] == 0:
         return 0.0
@@ -334,16 +351,17 @@ def tile_static_fraction(cur, prev, grid: np.ndarray, tile: int,
 
 def tile_halo_static_fraction(cur, prev, grid: np.ndarray, tile: int,
                               qstep: float = 8.0,
-                              static_ratio: float = 0.10) -> float:
+                              static_ratio: float = 0.10,
+                              device=None) -> float:
     """Fraction of a camera's RoI tiles whose HALO RING (the duplicated
     boundary pixels behind the codec's ``k/sqrt(area)`` surcharge) prices
     below ``static_ratio`` of the dense ring cost — the
     ``halo_static_fraction`` feed for the rate controller, letting it
     shed static halo rows before it touches whole tiles.  One
-    ``tile_delta_halo`` kernel launch per call, on the frames' device;
-    frames are padded as in ``tile_static_fraction``."""
+    ``tile_delta_halo`` kernel launch per call; frames are placed on
+    ``device`` and padded as in ``tile_static_fraction``."""
     grid = np.asarray(grid, bool)
-    cur, prev = pad_to_grid(cur, prev, grid.shape, tile)
+    cur, prev = pad_to_grid(cur, prev, grid.shape, tile, device)
     idx = _tile_rows(grid, cur.device)
     if idx.shape[0] == 0:
         return 0.0

@@ -147,7 +147,8 @@ def test_cuda_fractions_on_a_ragged_grid(cuda):
     cur[20:60, 10:40] += 30.0
     for fn in (tenc.tile_static_fraction, tenc.tile_halo_static_fraction):
         on_card = fn(_t(cur).to(cuda), _t(prev).to(cuda), grid, t)
-        assert on_card == fn(cur, prev, grid, t)
+        assert on_card == fn(cur, prev, grid, t, device="cpu")
+        assert fn(cur, prev, grid, t) == on_card  # numpy: the card
     a, b = tenc.pad_to_grid(_t(cur).to(cuda), _t(prev).to(cuda),
                              grid.shape, t)
     rows = _t(tops.mask_to_indices(grid)).to(cuda)

@@ -169,17 +169,20 @@ def _frames(seed, shape=(48, 64, 3)):
 def test_fractions_match_jax(jax_deltas, qstep):
     cur, prev, grid = _frames(4)
     for fn in ("tile_static_fraction", "tile_halo_static_fraction"):
-        got = getattr(tenc, fn)(cur, prev, grid, 8, qstep=qstep)
+        got = getattr(tenc, fn)(cur, prev, grid, 8, qstep=qstep,
+                                device="cpu")
         want = getattr(jenc, fn)(cur, prev, grid, 8, qstep=qstep)
         assert got == want, fn
         assert 0.0 < got < 1.0, (fn, got)
     t_cur = torch.as_tensor(cur)
     assert tenc.tile_static_fraction(t_cur, torch.as_tensor(prev), grid, 8,
-                                     qstep=qstep) == \
-        tenc.tile_static_fraction(cur, prev, grid, 8, qstep=qstep)
+                                     qstep=qstep, device="cpu") == \
+        tenc.tile_static_fraction(cur, prev, grid, 8, qstep=qstep,
+                                  device="cpu")
     empty = np.zeros_like(grid)
-    assert tenc.tile_static_fraction(cur, prev, empty, 8) == 0.0
-    assert tenc.tile_halo_static_fraction(cur, prev, empty, 8) == 0.0
+    assert tenc.tile_static_fraction(cur, prev, empty, 8, device="cpu") == 0
+    assert tenc.tile_halo_static_fraction(cur, prev, empty, 8,
+                                          device="cpu") == 0.0
 
 
 def test_partial_tiles_priced_on_the_zero_padded_frame(jax_deltas):
@@ -190,7 +193,7 @@ def test_partial_tiles_priced_on_the_zero_padded_frame(jax_deltas):
     grid[-1, -1] = True
     pad = ((0, 48 - 44), (0, 64 - 61), (0, 0))
     for fn in ("tile_static_fraction", "tile_halo_static_fraction"):
-        got = getattr(tenc, fn)(cur, prev, grid, 8)
+        got = getattr(tenc, fn)(cur, prev, grid, 8, device="cpu")
         want = getattr(jenc, fn)(np.pad(cur, pad), np.pad(prev, pad), grid,
                                  8)
         assert got == want, fn
@@ -231,11 +234,30 @@ def test_gate_stats_feed_rate_control_without_a_launch():
             f_fast = tenc.static_fraction_from_stats(rows, 3, t)
             f_pass = tenc.tile_static_fraction(fc, fp, gr, t, stats=rows)
         with tops.count_kernels() as slow:
-            f_slow = tenc.tile_static_fraction(fc, fp, gr, t)
+            f_slow = tenc.tile_static_fraction(fc, fp, gr, t, device="cpu")
         assert fast == {} and slow == {"tile_delta": 1}
         assert f_fast == f_pass == f_slow, c
         idx = tops.mask_to_indices(gr)
-        a, b = tenc.pad_to_grid(fc, fp, gr.shape, t)
+        a, b = tenc.pad_to_grid(fc, fp, gr.shape, t, device="cpu")
         body = tops.tile_delta(a, b, torch.as_tensor(idx), t, t).numpy()
         np.testing.assert_array_equal(body[:, :4], rows[:, :4])
     assert tenc.static_fraction_from_stats(st.gate_stats, 3, t) < 1.0
+
+
+def test_fractions_have_no_hidden_device(monkeypatch):
+    """Numpy or CPU frames run on the card unless the caller passes
+    ``device="cpu"``: without a card the fractions raise, never drop to
+    the CPU on their own.  Precomputed stats rows need no device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cur, prev, grid = _frames(7)
+    for frames in ((cur, prev), (torch.as_tensor(cur), torch.as_tensor(prev))):
+        for fn in (tenc.tile_static_fraction, tenc.tile_halo_static_fraction):
+            with pytest.raises(RuntimeError):
+                fn(*frames, grid, 8)
+            assert 0.0 <= fn(*frames, grid, 8, device="cpu") <= 1.0
+        with pytest.raises(RuntimeError):
+            tenc.pad_to_grid(*frames, grid.shape, 8)
+    a, b = tenc.pad_to_grid(cur, prev, grid.shape, 8, device="cpu")
+    assert a.device.type == b.device.type == "cpu"
+    stats = np.zeros((4, tops.STATS_WIDTH), np.int32)
+    assert tenc.tile_static_fraction(cur, prev, grid, 8, stats=stats) == 1.0

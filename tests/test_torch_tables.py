@@ -158,7 +158,7 @@ def test_no_hidden_device(monkeypatch):
     assert det.head.device.type == "cpu"
 
 
-def test_packed_reference_mode_is_not_ported():
+def test_packed_reference_mode_builds():
     """The packed reference mode, refused until its gate kernel was
     ported, now builds with empty references; an unknown mode raises."""
     cache = tdet.PackedActivationCache(ref_mode="packed")
