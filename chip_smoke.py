@@ -10,11 +10,15 @@ is non-zero:
 2. every kernel against its plain PyTorch version on the card, at the
    main paths' shapes: the delta kernels (the canvas gate B1, the packed
    gate B5 with its windows, the per-camera tile and halo pricing B10 and
-   B11) and the scatter bit-exact, the two convolutions within 1e-4 (FMA
-   contraction and summation order differ; the plain versions use no
-   TF32); each kernel's time (CUDA events, median of 7) beside the plain
-   version's and its bound.  B5's stats also equal B1's on the same
-   content, and B10's rows B1's body columns, camera by camera;
+   B11) and the tile copies (the fleet scatter B4, one camera's gather and
+   scatter B9) bit-exact, the convolutions (the entry B2 and its
+   ReLU-free twin B7, the stack B3, each per-layer packed layer B6 over
+   the fleet, one camera's B8) within 1e-4 (FMA contraction and summation
+   order differ; the plain versions use no TF32); each kernel's time (CUDA
+   events, median of 7) beside the plain version's and its bound.  B5's
+   stats also equal B1's on the same content, B10's rows B1's body
+   columns, camera by camera; ReLU of B7 is B2 and B8 is B7's rows of its
+   camera, bit for bit;
 3. the main path at full size -- the 4-group x 5-camera fleet at the
    paper's camera sizes (four 1920x1080 legs and one 1280x960 centre
    camera per group), default detector (channels (8, 16, 16), tile 16, 2
@@ -39,9 +43,24 @@ is non-zero:
    and one more step under that table: the unshed cameras bitwise equal to
    a cold recompute, sub-threshold changes on the congested cameras not
    recomputed, both caches equal;
+3d. the per-layer and single-camera paths on the same fleet:
+   ``fleet_forward_layers`` (B7, then B6 + ReLU per layer, B4) bitwise
+   equal to ``fleet_forward`` (B2 + B3 + B4); for each of the 20 cameras
+   ``roi_forward`` (B2 + B3 + B9's scatter, the frame padded to its grid)
+   bitwise equal to ``roi_forward_layers`` (B8, B6 + ReLU, B9), to the
+   one-camera ``fleet_forward`` and to the fleet's map; each path's
+   dispatches as the JAX package's; ``forward`` on the RoI path at density
+   0.35 and on the dense path with an all-true grid (within 1e-4 of
+   ``roi_forward`` there, on the leg padded to its grid);
+   ``roi_conv_batched`` over a group's four legs with one mask, one
+   launch, bitwise equal to B8 frame by frame; B9's
+   gather taking the RoI tiles of a full-frame SAME conv (``F.conv2d``,
+   no TF32), within 1e-4 of B8, and of each ``roi_forward`` map, bitwise
+   equal to the packed head rows;
 4. a ``kernels`` JSON line with each kernel's launches on its path (B1-B5
    on the fleet path of phases 3 and 3b, B10 and B11 on the rate-control
-   loop), each path driven with the counts set to 0.
+   loop, B6-B9 on phase 3d's paths), each path driven with the counts set
+   to 0.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the ``src/repro_torch`` package beside this file, it exits
@@ -70,19 +89,26 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
 CONV_TOL = 1e-4
 
-GATE_CU = "src/repro_torch/kernels/csrc/tile_delta_gate.cu"
-DELTA_CU = "src/repro_torch/kernels/csrc/tile_delta.cu"
+CSRC = "src/repro_torch/kernels/csrc/"
+GATE_CU = CSRC + "tile_delta_gate.cu"
+DELTA_CU = CSRC + "tile_delta.cu"
+ENTRY_CU = CSRC + "roi_conv_entry.cu"
+SBNET_CU = CSRC + "sbnet.cu"
 KERNELS = {
     "tile_delta_gate_canvas": (GATE_CU, "src/repro/kernels/tile_delta.py:280"),
     "tile_delta_gate": (GATE_CU, "src/repro/kernels/tile_delta.py:198"),
     "tile_delta": (DELTA_CU, "src/repro/kernels/tile_delta.py:94"),
     "tile_delta_halo": (DELTA_CU, "src/repro/kernels/tile_delta.py:361"),
-    "roi_conv_entry": ("src/repro_torch/kernels/csrc/roi_conv_entry.cu",
-                       "src/repro/kernels/roi_conv.py:283"),
-    "roi_conv_stack": ("src/repro_torch/kernels/csrc/roi_conv_stack.cu",
+    "roi_conv_entry": (ENTRY_CU, "src/repro/kernels/roi_conv.py:283"),
+    "roi_conv_stack": (CSRC + "roi_conv_stack.cu",
                        "src/repro/kernels/roi_conv.py:435"),
-    "sbnet_scatter": ("src/repro_torch/kernels/csrc/sbnet_scatter.cu",
-                      "src/repro/kernels/sbnet.py:109"),
+    "sbnet_scatter_fleet": (SBNET_CU, "src/repro/kernels/sbnet.py:109"),
+    "roi_conv_packed": (CSRC + "roi_conv_packed.cu",
+                        "src/repro/kernels/roi_conv.py:519"),
+    "roi_conv_fleet": (ENTRY_CU, "src/repro/kernels/roi_conv.py:160"),
+    "roi_conv": (ENTRY_CU, "src/repro/kernels/roi_conv.py:68"),
+    "sbnet_gather": (SBNET_CU, "src/repro/kernels/sbnet.py:35"),
+    "sbnet_scatter": (SBNET_CU, "src/repro/kernels/sbnet.py:58"),
 }
 
 
@@ -307,7 +333,20 @@ def check_kernels(torch, det, frames, frames_next, grids):
            win_px_frame * 3 * 4 + w0.numel() * 4 + n * 3 * 4
            + n * t * t * chans[0] * 4,
            2 * 9 * 3 * chans[0] * t * t * n, check=f"atol {CONV_TOL}")
-    del e_k
+
+    # B7: the entry without ReLU, within CONV_TOL; its ReLU is B2's bits
+    f_k = roi_conv.roi_conv_fleet(x, w0, idx, t, t)
+    f_p = ref.roi_conv_fleet(x, w0, idx, t, t)
+    err = float((f_k - f_p).abs().max())
+    same = torch.equal(torch.relu(f_k), e_k)
+    del e_k, f_p
+    record("roi_conv_fleet", err, err <= CONV_TOL and same,
+           lambda: roi_conv.roi_conv_fleet(x, w0, idx, t, t),
+           lambda: ref.roi_conv_fleet(x, w0, idx, t, t),
+           win_px_frame * 3 * 4 + w0.numel() * 4 + n * 3 * 4
+           + n * t * t * chans[0] * 4,
+           2 * 9 * 3 * chans[0] * t * t * n,
+           check=f"atol {CONV_TOL}; ReLU == B2 bitwise: {same}")
 
     # B3: the layer stack on the plain entry output, within CONV_TOL
     s_k = roi_conv.roi_conv_stack(e_p, ws, nbr)
@@ -321,7 +360,30 @@ def check_kernels(torch, det, frames, frames_next, grids):
            n * t * t * (chans[0] + chans[-1]) * 4 + n * 8 * 4
            + sum(w.numel() for w in ws) * 4, flops,
            check=f"atol {CONV_TOL}")
-    del s_k, e_p
+    del s_k
+
+    # B6: each later layer of the per-layer chain on the plain ReLU'd
+    # input, within CONV_TOL; timed as the chain's launches for all of them
+    ins = [e_p]
+    for w in ws[:-1]:
+        ins.append(torch.relu(ref.roi_conv_packed(ins[-1], w, nbr)))
+    err = 0.0
+    for a, w in zip(ins, ws):
+        err = max(err, float((roi_conv.roi_conv_packed(a, w, nbr)
+                              - ref.roi_conv_packed(a, w, nbr)).abs().max()))
+    layer_ms = [time_ms(torch, lambda a=a, w=w:
+                        roi_conv.roi_conv_packed(a, w, nbr))
+                for a, w in zip(ins, ws)]
+    record("roi_conv_packed", err, err <= CONV_TOL,
+           lambda: [roi_conv.roi_conv_packed(a, w, nbr)
+                    for a, w in zip(ins, ws)],
+           lambda: [ref.roi_conv_packed(a, w, nbr) for a, w in zip(ins, ws)],
+           sum(n * t * t * (ci + co) * 4 + n * 8 * 4 + w.numel() * 4
+               for ci, co, w in zip(chans[:-1], chans[1:], ws)), flops,
+           check=f"atol {CONV_TOL}, {len(ws)} layers "
+                 f"{chans[0]}->{'->'.join(map(str, chans[1:]))}, per layer "
+                 f"ms {[round(v, 4) for v in layer_ms]}")
+    del ins, e_p
 
     # B4: the scatter of head tiles into a fresh canvas, bit-exact; the
     # library yardstick is one index_put_ with precomputed pixel indices
@@ -332,12 +394,61 @@ def check_kernels(torch, det, frames, frames_next, grids):
     c_p = ref.sbnet_scatter_fleet(ph, idx, base.clone())
     where = ref.tile_index(idx, t, t, t, t)
     where = tuple(w.expand(n, t, t) for w in where)
-    record("sbnet_scatter", float((c_k - c_p).abs().max()),
+    record("sbnet_scatter_fleet", float((c_k - c_p).abs().max()),
            torch.equal(c_k, c_p),
            lambda: sbnet.sbnet_scatter_fleet(ph, idx, base),
            lambda: ref.sbnet_scatter_fleet(ph, idx, base),
            2 * n * t * t * A * 4 + n * 3 * 4, 0,
            lib_fn=lambda: base.index_put_(where, ph), check="bit-exact")
+    del base, where
+
+    # B8 and B9 on one 1920x1080 leg, padded to its grid's extent (1088
+    # rows), as ``roi_forward`` hands it over
+    leg, leg_grid = flat(frames)[0], flat(grids)[0]
+    xl = det._stack_frames([leg], [leg_grid])[0][0]
+    rows = torch.as_tensor(ops.mask_to_indices(leg_grid), device=dev)
+    n1 = rows.shape[0]
+    cam0 = idx[:, 0] == 0
+    cover = torch.zeros((xl.shape[0] + 2, xl.shape[1] + 2), dtype=torch.bool,
+                        device=dev)
+    cover[ref.tile_index(torch.nn.functional.pad(rows, (1, 0)), t, t,
+                         t + 2, t + 2)[1:]] = True
+    leg_px = int(cover[1:-1, 1:-1].sum())
+    o_k = roi_conv.roi_conv(xl, w0, rows, t, t)
+    err = float((o_k - ref.roi_conv(xl, w0, rows, t, t)).abs().max())
+    same = torch.equal(o_k, f_k[cam0])
+    del f_k
+    record("roi_conv", err, err <= CONV_TOL and same,
+           lambda: roi_conv.roi_conv(xl, w0, rows, t, t),
+           lambda: ref.roi_conv(xl, w0, rows, t, t),
+           leg_px * 3 * 4 + w0.numel() * 4 + n1 * 2 * 4
+           + n1 * t * t * chans[0] * 4, 2 * 9 * 3 * chans[0] * t * t * n1,
+           check=f"atol {CONV_TOL}; == B7's rows of camera 0 bitwise: "
+                 f"{same}; {n1} tiles")
+
+    # B9 on the leg's plane of B4's canvas: the gather gives back B4's
+    # head tiles; the library yardsticks index with precomputed pixels
+    hm = c_k[0]
+    where1 = tuple(w.expand(n1, t, t) for w in ref.tile_index(
+        torch.nn.functional.pad(rows, (1, 0)), t, t, t, t)[1:])
+    g_k = sbnet.sbnet_gather(hm, rows, t, t)
+    g_p = ref.sbnet_gather(hm, rows, t, t)
+    ok = torch.equal(g_k, g_p) and torch.equal(g_k, ph[cam0])
+    copy_bytes = 2 * n1 * t * t * A * 4 + n1 * 2 * 4
+    record("sbnet_gather", float((g_k - g_p).abs().max()), ok,
+           lambda: sbnet.sbnet_gather(hm, rows, t, t),
+           lambda: ref.sbnet_gather(hm, rows, t, t), copy_bytes, 0,
+           lib_fn=lambda: hm[where1],
+           check=f"bit-exact (== B4's head tiles); {n1} tiles")
+    base1 = torch.zeros_like(hm)
+    s_k = sbnet.sbnet_scatter(g_k, rows, base1.clone())
+    s_p = ref.sbnet_scatter(g_k, rows, base1.clone())
+    record("sbnet_scatter", float((s_k - s_p).abs().max()),
+           torch.equal(s_k, s_p),
+           lambda: sbnet.sbnet_scatter(g_k, rows, base1),
+           lambda: ref.sbnet_scatter(g_k, rows, base1), copy_bytes, 0,
+           lib_fn=lambda: base1.index_put_(where1, g_k),
+           check=f"bit-exact; {n1} tiles")
     return results
 
 
@@ -591,6 +702,135 @@ def rate_control_loop(torch, det, rng, gen, frames, grids, caches):
         "the congested cameras' thresholds did not take effect"
 
 
+FUSED = {"roi_conv_entry": 1, "roi_conv_stack": 1}
+LAYERS = {"roi_conv_packed": 2}
+# each path's dispatches, as the JAX package's detector counts them
+STRUCTURE = {
+    "fleet_forward": {**FUSED, "sbnet_scatter_fleet": 1},
+    "fleet_forward_layers": {"roi_conv_fleet": 1, **LAYERS,
+                             "sbnet_scatter_fleet": 1},
+    "roi_forward": {**FUSED, "sbnet_scatter": 1},
+    "roi_forward_layers": {"roi_conv": 1, **LAYERS, "sbnet_scatter": 1},
+}
+
+
+def layer_paths(torch, det, frames, grids):
+    """Phase 3d: the per-layer and single-camera paths against the fused
+    ones, bitwise, with their dispatch structures; the density switch;
+    the batched single-camera conv; B9's gather on B8's oracle and on the
+    head maps."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.detector import _head_rows
+    t = TILE
+    w0 = det.weights[0]
+    walls = {}
+
+    def run(name, fn, *args):
+        """``fn(*args)`` with its dispatches (checked against the path's
+        structure when it has one) and its host wall, ending in a
+        synchronize."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ops.count_kernels() as c:
+            out = fn(*args)
+        torch.cuda.synchronize()
+        walls.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        if name in STRUCTURE:
+            assert dict(c) == STRUCTURE[name], (name, dict(c))
+        return out, dict(c)
+
+    fl_f, fl_g = flat(frames), flat(grids)
+    fused, _ = run("fleet_forward", det.fleet_forward, fl_f, fl_g)
+    layers, _ = run("fleet_forward_layers", det.fleet_forward_layers, fl_f,
+                    fl_g)
+    same = all(torch.equal(a, b) for a, b in zip(fused, layers))
+    say(f"[layers] fleet_forward_layers == fleet_forward bitwise over "
+        f"{sum(int(g.sum()) for g in fl_g)} tiles: {same}; walls "
+        f"{walls['fleet_forward'][0]:.3f} / "
+        f"{walls['fleet_forward_layers'][0]:.3f} ms")
+    assert same
+    del layers
+
+    for c, (f, g) in enumerate(zip(fl_f, fl_g)):
+        # the first call builds the camera's tables on the host
+        one, _ = run("roi_forward", det.roi_forward, f, g)
+        lay, _ = run("roi_forward_layers", det.roi_forward_layers, f, g)
+        again, _ = run("roi_forward", det.roi_forward, f, g)
+        solo, _ = run("fleet_forward", det.fleet_forward, [f], [g])
+        same = (torch.equal(one, lay) and torch.equal(one, again)
+                and torch.equal(one, solo[0]) and torch.equal(one, fused[c]))
+        assert tuple(one.shape) == tuple(f.shape[:2]) + (det.head.shape[-1],)
+        assert torch.isfinite(one).all()
+        if not same:
+            raise AssertionError(f"camera {c}: roi_forward, "
+                                 f"roi_forward_layers and fleet_forward "
+                                 f"differ")
+    say(f"[layers] {len(fl_f)} cameras: roi_forward == roi_forward_layers == "
+        f"one-camera fleet_forward == the fleet's map, bitwise: True; walls "
+        f"ms roi_forward, tables built "
+        f"{np.round(walls['roi_forward'][0::2], 3).tolist()}, cached "
+        f"{np.round(walls['roi_forward'][1::2], 3).tolist()}; "
+        f"roi_forward_layers "
+        f"{np.round(walls['roi_forward_layers'], 3).tolist()}; one-camera "
+        f"fleet_forward {np.round(walls['fleet_forward'][1:], 3).tolist()}")
+
+    # the density switch, on the first leg; the dense check runs on the
+    # leg padded to its grid (1088 rows), where the RoI path's tiles lie
+    f0, g0 = fl_f[0], fl_g[0]
+    r, rc = run("forward (RoI)", det.forward, f0, g0)
+    assert rc == STRUCTURE["roi_forward"] and torch.equal(r, fused[0]), rc
+    all_true = np.ones_like(g0)
+    f0p = det._stack_frames([f0], [g0])[0][0]
+    d, dc = run("forward (dense)", det.forward, f0p, all_true)
+    want, _ = run("roi_forward", det.roi_forward, f0p, all_true)
+    err = float((d - want).abs().max())
+    say(f"[layers] forward: density {g0.mean():.3f} -> {rc}; all-true grid "
+        f"-> dense, {dc} dispatches, max_abs_err vs roi_forward {err}")
+    assert dc == {} and err <= CONV_TOL
+    del fused, d, want, f0p
+
+    # roi_conv_batched: the first group's four legs under one shared mask
+    legs = frames[0][:4]
+    xs, _, _ = det._stack_frames(legs, [g0] * len(legs))
+    idx, idx3, nbr = det._mask_tables(g0)
+    batch, bc = run("roi_conv_batched", ops.roi_conv_batched, xs, w0, idx, t,
+                    t)
+    per = [run("roi_conv", ops.roi_conv, xs[b], w0, idx, t, t)[0]
+           for b in range(len(legs))]
+    same = all(torch.equal(batch[b], per[b]) for b in range(len(legs)))
+    say(f"[layers] roi_conv_batched over {len(legs)} legs, one mask: "
+        f"{bc}; == B8 frame by frame bitwise: {same}")
+    assert bc == {"roi_conv": 1} and same
+
+    # B8's defining oracle: the RoI tiles of the full-frame SAME conv
+    full = torch.nn.functional.conv2d(
+        xs[0].permute(2, 0, 1)[None], w0.permute(3, 2, 0, 1), padding=1)
+    full = full[0].permute(1, 2, 0).contiguous()
+    tiles, gc = run("sbnet_gather", ops.sbnet_gather, full, idx, t, t)
+    err = float((tiles - per[0]).abs().max())
+    say(f"[layers] B9 gather of the full-frame F.conv2d (no TF32) vs B8: "
+        f"{gc}, max_abs_err {err}")
+    assert gc == {"sbnet_gather": 1} and err <= CONV_TOL
+    del batch, per, full, tiles, xs
+
+    # gather o scatter: each map, zero-padded to its grid, gathered at its
+    # RoI tiles gives back the packed head rows (zero below the frame)
+    for f, g in zip(fl_f, fl_g):
+        idx, idx3, nbr = det._mask_tables(g)
+        xs1, ch, cw = det._stack_frames([f], [g])
+        ph = _head_rows(det._stack_chain(xs1, idx3, nbr), det.head)
+        ys = idx[:, 0, None].long() * t + torch.arange(t, device=idx.device)
+        ph[ys >= f.shape[0]] = 0
+        hm = torch.zeros((ch, cw, ph.shape[-1]), device=ph.device)
+        hm[:f.shape[0], :f.shape[1]] = det.roi_forward(f, g)
+        back, _ = run("sbnet_gather", ops.sbnet_gather, hm, idx, t, t)
+        if not torch.equal(back, ph):
+            raise AssertionError("gather of roi_forward's map != head rows")
+    say(f"[layers] {len(fl_f)} cameras: B9 gather of roi_forward's map == "
+        f"the packed head rows bitwise: True")
+    return walls
+
+
 def run_path(torch, fn, *args):
     """Drive one path with every count set to 0 just before it; returns
     (its result, kernel launches, dispatches, peak GiB)."""
@@ -606,7 +846,10 @@ def run_path(torch, fn, *args):
 
 
 # the path each kernel's ``launches`` is read from
-PATH_OF = {"tile_delta": "rate", "tile_delta_halo": "rate"}
+PATH_OF = {"tile_delta": "rate", "tile_delta_halo": "rate",
+           **{k: "layers" for k in ("roi_conv_packed", "roi_conv_fleet",
+                                    "roi_conv", "sbnet_gather",
+                                    "sbnet_scatter")}}
 
 
 def main() -> int:
@@ -664,6 +907,12 @@ def main() -> int:
         caches)
     say(f"[main] rate-control loop: dispatches {disp}; launches "
         f"{launches['rate']}; peak memory {peak:.2f} GiB")
+    del caches
+    torch.cuda.empty_cache()
+    _, launches["layers"], disp, peak = run_path(
+        torch, layer_paths, torch, det, frames, grids)
+    say(f"[main] per-layer and single-camera paths: dispatches {disp}; "
+        f"launches {launches['layers']}; peak memory {peak:.2f} GiB")
 
     rows = []
     for kname, (source, replaces) in KERNELS.items():

@@ -11,7 +11,12 @@ each of: a cold step, three warm threshold-0 steps (5 cameras get a fresh
 with the packed reference mode; and the rate controller's static-tile
 fractions for the 20 cameras, through the kernels (``tile_static_fraction``
 and ``tile_halo_static_fraction``: 20 launches each) and from the warm
-step's gate stats (no launch).  For each it prints the step's
+step's gate stats (no launch); and the detector's fused and per-layer
+paths (``chip_smoke.py`` phase 3d): ``fleet_forward`` and
+``fleet_forward_layers`` over the fleet, ``roi_forward`` and
+``roi_forward_layers`` on one 1920x1080 leg, its tables cached, after a
+``cProfile`` of the first ``roi_forward`` call, which builds them.  For
+each it prints the step's
 wall time (host clock around work that ends in a synchronize), the
 device busy time (the sum of the kernel, copy and fill durations the
 profiler traced), the device idle share, the device time by kernel and
@@ -144,6 +149,18 @@ def main() -> int:
         static_fraction_from_stats(st.gate_stats[bounds[c]:bounds[c + 1]], 3,
                                    cs.TILE)
         for c in range(len(triples))], "fractions-stats")
+
+    fl_f, fl_g = cs.flat(state["frames"]), cs.flat(grids)
+    det.fleet_forward_layers(fl_f, fl_g)          # warm-up
+    profile_step(torch, lambda: det.fleet_forward(fl_f, fl_g), "fleet-fused")
+    profile_step(torch, lambda: det.fleet_forward_layers(fl_f, fl_g),
+                 "fleet-layers")
+    leg, leg_grid = fl_f[0], fl_g[0]
+    python_profile(torch, lambda: det.roi_forward(leg, leg_grid),
+                   "py-roi-first")
+    profile_step(torch, lambda: det.roi_forward(leg, leg_grid), "roi")
+    profile_step(torch, lambda: det.roi_forward_layers(leg, leg_grid),
+                 "roi-layers")
     return 0
 
 

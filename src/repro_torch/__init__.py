@@ -6,8 +6,10 @@ The package runs the delta-gated fleet step: the cold super-launch
 step (``fleet.runtime.fleet_reuse_step``), with the gate's references on a
 canvas or in packed per-tile windows; and the edge rate-control loop
 around it (``net``: static-tile fractions, the rate controller, the
-per-camera gate-threshold schedule).  Seven CUDA kernels carry them, built
-from ``kernels/csrc`` with ``nvcc`` at first use:
+per-camera gate-threshold schedule); and the detector's single-camera path
+(``RoIDetector.roi_forward``, ``forward``) and per-layer chains
+(``roi_forward_layers``, ``fleet_forward_layers``).  Twelve CUDA kernels
+carry them, built from ``kernels/csrc`` with ``nvcc`` at first use:
 
 * ``tile_delta_gate_canvas`` / ``tile_delta_gate`` -- per-tile delta
   stats against the reference canvas / packed reference windows (the
@@ -15,8 +17,13 @@ from ``kernels/csrc`` with ``nvcc`` at first use:
 * ``tile_delta`` / ``tile_delta_halo`` -- one camera's per-tile body /
   edge-ring delta stats (the rate controller's feeds);
 * ``roi_conv_entry`` -- gather + 3x3 conv + ReLU straight off the frames;
+  ``roi_conv_fleet`` the same without ReLU, ``roi_conv`` on one camera's
+  (ty, tx) rows;
 * ``roi_conv_stack`` -- every later 3x3 conv + ReLU layer in one launch;
-* ``sbnet_scatter`` -- packed head tiles into the (C, H, W, A) canvas.
+  ``roi_conv_packed`` -- one later layer, no ReLU (the per-layer chain);
+* ``sbnet_scatter_fleet`` -- packed head tiles into the (C, H, W, A)
+  canvas; ``sbnet_scatter`` / ``sbnet_gather`` -- one camera's tiles
+  into / out of an (H, W, C) frame.
 
 Entry points run on ``torch.device("cuda")`` unless the caller passes
 ``device="cpu"``; on a CPU tensor every kernel wrapper takes its plain

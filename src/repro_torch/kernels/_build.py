@@ -2,15 +2,17 @@
 
 Each ``.cu`` file has a plain C interface.  At first use every source is
 compiled by its own ``nvcc`` process, all started together, for
-``sm_90a`` (no ``--use_fast_math``: the gate's rounding must stay exact),
-and the objects are linked into one shared library that is loaded with
-``ctypes``.  The library lives under ``build/repro_torch/<hash>/`` at the
+``sm_90a`` (no ``--use_fast_math``: the gate's rounding and the
+convolutions' bits must stay exact), and the objects are linked into one
+shared library that is loaded with ``ctypes``.  The library lives under ``build/repro_torch/<hash>/`` at the
 root of the checkout, keyed on a hash of the sources and flags, so an
 edited source rebuilds and an unchanged one loads at once.
 
-``LAUNCHES`` counts kernel launches by kernel name.  Each wrapper adds one
-right after its kernel was launched and nowhere else, so a run can show
-that its path went through the kernels.
+``LAUNCHES`` counts kernel launches under the counter name of the TPU
+kernel each one replaces (``sbnet_scatter_fleet`` for the scatter that
+also serves the changed-only scatter).  Each wrapper adds one right after
+its kernel was launched and nowhere else, so a run can show that its path
+went through the kernels.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("tile_delta_gate.cu", "tile_delta.cu", "roi_conv_entry.cu",
-           "roi_conv_stack.cu", "sbnet_scatter.cu")
+           "roi_conv_packed.cu", "roi_conv_stack.cu", "sbnet.cu")
 HEADERS = ("tile_delta_common.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -54,21 +56,34 @@ def _declare(lib: ctypes.CDLL) -> None:
     # cur, prev, idx, out, n, H, W, C, th, tw, qstep, coef, run, stream
     for f in (lib.tile_delta_launch, lib.tile_delta_halo_launch):
         f.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]
-    # x, w, idx, out, n, C, H, W, Cin, Cout, th, tw, stream
-    lib.roi_conv_entry_launch.argtypes = \
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+    # x, w, idx, out, n, C (B frames for roi_conv), H, W, Cin, Cout, th,
+    # tw, stream
+    for f in (lib.roi_conv_entry_launch, lib.roi_conv_fleet_launch,
+              lib.roi_conv_launch):
+        f.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+    # packed, w, nbr, out, n, th, tw, Cin, Cout, stream
+    lib.roi_conv_packed_launch.argtypes = \
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    # th, tw, Cin, Cout -> bytes of shared memory per CTA
+    lib.roi_conv_packed_smem_bytes.argtypes = [_I, _I, _I, _I]
     # packed, wcat, chans (host int array), nbr, out, n, th, tw, L, stream
     lib.roi_conv_stack_launch.argtypes = \
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
     # chans (host int array), L, th, tw -> bytes of shared memory per CTA
     lib.roi_conv_stack_smem_bytes.argtypes = [_P, _I, _I, _I]
     # packed, idx, base, n, th, tw, A, C, H, W, stream
-    lib.sbnet_scatter_launch.argtypes = \
+    lib.sbnet_scatter_fleet_launch.argtypes = \
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+    # packed, idx, base / x, idx, out; n, th, tw, A, H, W, stream
+    for f in (lib.sbnet_scatter_launch, lib.sbnet_gather_launch):
+        f.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     for f in (lib.tile_delta_gate_canvas_launch, lib.tile_delta_gate_launch,
               lib.tile_delta_launch, lib.tile_delta_halo_launch,
-              lib.roi_conv_entry_launch, lib.roi_conv_stack_launch,
-              lib.roi_conv_stack_smem_bytes, lib.sbnet_scatter_launch):
+              lib.roi_conv_entry_launch, lib.roi_conv_fleet_launch,
+              lib.roi_conv_launch, lib.roi_conv_packed_launch,
+              lib.roi_conv_packed_smem_bytes, lib.roi_conv_stack_launch,
+              lib.roi_conv_stack_smem_bytes, lib.sbnet_scatter_fleet_launch,
+              lib.sbnet_scatter_launch, lib.sbnet_gather_launch):
         f.restype = ctypes.c_int
     lib.repro_cuda_error_name.argtypes = [_I]
     lib.repro_cuda_error_name.restype = ctypes.c_char_p

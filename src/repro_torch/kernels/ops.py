@@ -1,4 +1,4 @@
-"""Counting wrappers around the fleet step's kernels, and the host tables.
+"""Counting wrappers around the port's kernels, and the host tables.
 
 Host side (numpy, static per mask): mask -> index-list conversion, the
 (n, 8) neighbour table of the packed conv chain, the fleet-flat super-launch
@@ -211,6 +211,48 @@ def roi_conv_entry(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
     return _roi_conv.roi_conv_entry(x, w, idx, th, tw)
 
 
+def roi_conv_fleet(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
+                   th: int, tw: int) -> torch.Tensor:
+    """``roi_conv_entry`` without the ReLU: the per-layer fleet chain's
+    first layer, (C, H, W, Cin) stacked frames + (n, 3) rows -> packed (n,
+    th, tw, Cout)."""
+    if idx.shape[0] == 0:
+        return x.new_zeros((0, th, tw, w.shape[-1]))
+    record_dispatch("roi_conv_fleet")
+    return _roi_conv.roi_conv_fleet(x, w, idx, th, tw)
+
+
+def roi_conv(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, th: int,
+             tw: int) -> torch.Tensor:
+    """One camera's gather + 3x3 conv, no ReLU: an (H, W, Cin) frame
+    covering its grid + (n, 2) (ty, tx) rows -> packed (n, th, tw, Cout),
+    the single-camera per-layer chain's first layer."""
+    if idx.shape[0] == 0:
+        return x.new_zeros((0, th, tw, w.shape[-1]))
+    record_dispatch("roi_conv")
+    return _roi_conv.roi_conv(x, w, idx, th, tw)
+
+
+def roi_conv_batched(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
+                     th: int, tw: int) -> torch.Tensor:
+    """(B, H, W, Cin) frames sharing one active set -> (B, n, th, tw,
+    Cout), in ONE launch, counted as one ``roi_conv``."""
+    if idx.shape[0] == 0 or x.shape[0] == 0:
+        return x.new_zeros((x.shape[0], idx.shape[0], th, tw, w.shape[-1]))
+    record_dispatch("roi_conv")
+    return _roi_conv.roi_conv(x, w, idx, th, tw)
+
+
+def roi_conv_packed(packed: torch.Tensor, w: torch.Tensor,
+                    nbr: torch.Tensor) -> torch.Tensor:
+    """One packed-resident conv layer, no ReLU: (n, th, tw, Cin) -> (n,
+    th, tw, Cout) with halos from the (n, 8) neighbour table."""
+    if packed.shape[0] == 0:
+        return packed.new_zeros(packed.shape[:3] + (w.shape[-1],))
+    record_dispatch("roi_conv_packed")
+    return _roi_conv.roi_conv_packed(packed, w, nbr)
+
+
 def roi_conv_stack(packed: torch.Tensor, ws: Sequence[torch.Tensor],
                    nbr: torch.Tensor) -> torch.Tensor:
     """The whole packed conv chain after the entry (conv + ReLU per
@@ -229,6 +271,25 @@ def sbnet_scatter_fleet(packed: torch.Tensor, idx: torch.Tensor,
         return base
     record_dispatch("sbnet_scatter_fleet")
     return _sbnet.sbnet_scatter_fleet(packed, idx, base)
+
+
+def sbnet_gather(x: torch.Tensor, idx: torch.Tensor, th: int,
+                 tw: int) -> torch.Tensor:
+    """(H, W, C) + (n, 2) tile coords -> packed (n, th, tw, C)."""
+    if idx.shape[0] == 0:
+        return x.new_zeros((0, th, tw, x.shape[-1]))
+    record_dispatch("sbnet_gather")
+    return _sbnet.sbnet_gather(x, idx, th, tw)
+
+
+def sbnet_scatter(packed: torch.Tensor, idx: torch.Tensor,
+                  base: torch.Tensor) -> torch.Tensor:
+    """One camera's scatter: packed tiles -> (H, W, A) ``base`` at (n, 2)
+    tile coords, in place; returns ``base``."""
+    if packed.shape[0] == 0:
+        return base
+    record_dispatch("sbnet_scatter")
+    return _sbnet.sbnet_scatter(packed, idx, base)
 
 
 def sbnet_scatter_changed(packed: torch.Tensor, idx: torch.Tensor,
@@ -319,7 +380,9 @@ __all__ = ["KERNEL_NAMES", "KERNEL_COUNTS", "record_dispatch",
            "GATE_WIN_BYTES", "mask_to_indices", "neighbor_table",
            "fleet_indices", "fleet_neighbor_table", "superlaunch_tables",
            "dilate_changed", "reuse_sets", "compact_tables",
-           "roi_conv_entry", "roi_conv_stack", "sbnet_scatter_fleet",
+           "roi_conv_entry", "roi_conv_fleet", "roi_conv",
+           "roi_conv_batched", "roi_conv_packed", "roi_conv_stack",
+           "sbnet_gather", "sbnet_scatter", "sbnet_scatter_fleet",
            "sbnet_scatter_changed", "tile_delta_gate_canvas",
            "tile_delta_gate", "gather_windows", "tile_delta",
            "tile_delta_halo"]

@@ -73,11 +73,16 @@ def _stats_rows(nnz, runs, sabs, coef_bits: int,
     return out
 
 
-def _frame_tiles(x: torch.Tensor, idx: torch.Tensor, th: int,
+def _cam0(idx: torch.Tensor) -> torch.Tensor:
+    """(n, 2) (ty, tx) rows -> (n, 3) rows of camera 0."""
+    return torch.nn.functional.pad(idx, (1, 0))
+
+
+def sbnet_gather(x: torch.Tensor, idx: torch.Tensor, th: int,
                  tw: int) -> torch.Tensor:
-    """(H, W, C) frame + (n, 2) (ty, tx) rows -> (n, th, tw, C) tiles."""
-    rows = torch.nn.functional.pad(idx, (1, 0))          # camera 0
-    return x[None][tile_index(rows, th, tw, th, tw)]
+    """(H, W, C) frame + (n, 2) (ty, tx) rows -> the (n, th, tw, C) tiles
+    at (ty*th, tx*tw)."""
+    return x[None][tile_index(_cam0(idx), th, tw, th, tw)]
 
 
 def tile_delta(cur: torch.Tensor, prev: torch.Tensor, idx: torch.Tensor,
@@ -89,8 +94,8 @@ def tile_delta(cur: torch.Tensor, prev: torch.Tensor, idx: torch.Tensor,
     ``tile_delta_gate_canvas``; the scan rows are the th pixel rows of
     tw*C lanes."""
     n = idx.shape[0]
-    q = _quantize(_frame_tiles(cur, idx, th, tw),
-                  _frame_tiles(prev, idx, th, tw), qstep)
+    q = _quantize(sbnet_gather(cur, idx, th, tw),
+                  sbnet_gather(prev, idx, th, tw), qstep)
     return _stats_rows(*_scan_stats(q.reshape(n, th, -1)), coef_bits,
                        run_bits).to(torch.int32)
 
@@ -104,8 +109,8 @@ def tile_delta_halo(cur: torch.Tensor, prev: torch.Tensor,
     channel-minor -- so a zero run never joins across strips and the
     corners count twice.  Same (n, 8) row layout as ``tile_delta``."""
     n = idx.shape[0]
-    q = _quantize(_frame_tiles(cur, idx, th, tw),
-                  _frame_tiles(prev, idx, th, tw), qstep)
+    q = _quantize(sbnet_gather(cur, idx, th, tw),
+                  sbnet_gather(prev, idx, th, tw), qstep)
     nnz = runs = sabs = 0
     for strip in (q[:, 0], q[:, th - 1], q[:, :, 0], q[:, :, tw - 1]):
         a, b, c = _scan_stats(strip.reshape(n, 1, -1))
@@ -171,13 +176,34 @@ def conv3x3_taps(win: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def roi_conv_entry(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
+def roi_conv_fleet(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
                    th: int, tw: int) -> torch.Tensor:
-    """Gather + 3x3 SAME conv + ReLU on active tiles: x (C, H, W, Cin)
+    """Gather + 3x3 SAME conv on active tiles, no ReLU: x (C, H, W, Cin)
     stacked frames, w (3, 3, Cin, Cout), idx (n, 3) -> (n, th, tw, Cout).
     Pixels outside a camera's plane read as zero."""
     xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
-    return torch.relu(conv3x3_taps(gather_windows(xp, idx, th, tw), w))
+    return conv3x3_taps(gather_windows(xp, idx, th, tw), w)
+
+
+def roi_conv_entry(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
+                   th: int, tw: int) -> torch.Tensor:
+    """``roi_conv_fleet`` + ReLU: the fused backbone's entry layer."""
+    return torch.relu(roi_conv_fleet(x, w, idx, th, tw))
+
+
+def roi_conv(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, th: int,
+             tw: int) -> torch.Tensor:
+    """One camera's gather + 3x3 SAME conv, no ReLU: x (H, W, Cin) + (n, 2)
+    (ty, tx) rows -> (n, th, tw, Cout); or B frames sharing the rows, x
+    (B, H, W, Cin) -> (B, n, th, tw, Cout)."""
+    if x.ndim == 3:
+        return roi_conv(x[None], w, idx, th, tw)[0]
+    B, n = x.shape[0], idx.shape[0]
+    cams = torch.arange(B, dtype=idx.dtype, device=idx.device)
+    rows = torch.cat([cams.repeat_interleave(n)[:, None], idx.repeat(B, 1)],
+                     dim=1)
+    out = roi_conv_fleet(x, w, rows, th, tw)
+    return out.reshape((B, n) + tuple(out.shape[1:]))
 
 
 def assemble_halo(packed: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
@@ -201,13 +227,20 @@ def assemble_halo(packed: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
     return win
 
 
+def roi_conv_packed(packed: torch.Tensor, w: torch.Tensor,
+                    nbr: torch.Tensor) -> torch.Tensor:
+    """One packed layer, no ReLU: each tile's halo from its neighbours
+    (zero at -1 slots), 3x3 conv -- equal to scattering onto zeros, a
+    SAME conv and a gather."""
+    return conv3x3_taps(assemble_halo(packed, nbr), w)
+
+
 def roi_conv_stack(packed: torch.Tensor, ws: Sequence[torch.Tensor],
                    nbr: torch.Tensor) -> torch.Tensor:
-    """Every later layer over the packed tensor: per layer, each tile's
-    halo from its neighbours (zero at -1 slots), 3x3 conv, ReLU -- equal
-    to scattering onto zeros, a SAME conv and a gather, at every layer."""
+    """Every later layer over the packed tensor: ``roi_conv_packed`` +
+    ReLU per layer."""
     for w in ws:
-        packed = torch.relu(conv3x3_taps(assemble_halo(packed, nbr), w))
+        packed = torch.relu(roi_conv_packed(packed, w, nbr))
     return packed
 
 
@@ -218,4 +251,13 @@ def sbnet_scatter_fleet(packed: torch.Tensor, idx: torch.Tensor,
     same tile and rewrite the same bytes."""
     _, th, tw, _ = packed.shape
     base[tile_index(idx, th, tw, th, tw)] = packed
+    return base
+
+
+def sbnet_scatter(packed: torch.Tensor, idx: torch.Tensor,
+                  base: torch.Tensor) -> torch.Tensor:
+    """One camera's scatter: (n, th, tw, C) tiles into ``base`` (H, W, C)
+    at (ty*th, tx*tw) for (n, 2) (ty, tx) rows, in place; returns
+    ``base``."""
+    sbnet_scatter_fleet(packed, _cam0(idx), base[None])
     return base

@@ -1,11 +1,16 @@
-"""RoI-sparse 3x3 convolution: the fused backbone's two kernels.
+"""RoI-sparse 3x3 convolution: the fused backbone and the per-layer chain.
 
-``roi_conv_entry`` (``csrc/roi_conv_entry.cu``) is the entry layer: gather
-+ 3x3 SAME conv + ReLU evaluated on the active tiles only, reading each
-haloed window straight off the stacked frames.  ``roi_conv_stack``
-(``csrc/roi_conv_stack.cu``) runs every later layer over the packed tiles
-in one launch, each tile's halo coming from its neighbours through the
-(n, 8) neighbour table.
+``csrc/roi_conv_entry.cu`` holds the gather + 3x3 SAME conv family, read
+straight off the frames on the active tiles only: ``roi_conv_entry`` (the
+fused backbone's entry, with ReLU), ``roi_conv_fleet`` (the per-layer
+chain's entry, without) and ``roi_conv`` (one camera's (ty, tx) rows, or
+a batch of frames sharing them).  ``roi_conv_packed``
+(``csrc/roi_conv_packed.cu``) is one later layer over the packed tiles,
+each tile's halo coming from its neighbours through the (n, 8) neighbour
+table; ``roi_conv_stack`` (``csrc/roi_conv_stack.cu``) runs every later
+layer, each with its ReLU, in one launch.  All accumulate their taps in
+the same fixed order, so the fused stack and the per-layer chain give the
+same bits.
 """
 from __future__ import annotations
 
@@ -23,6 +28,37 @@ NEIGHBOR_OFFSETS = ((-1, -1), (-1, 0), (-1, 1), (0, -1),
 _SMEM_LIMIT = 227 * 1024          # shared memory one H100 CTA may hold
 
 
+def _gather_conv(name: str, launch, x: torch.Tensor, w: torch.Tensor,
+                 idx: torch.Tensor, th: int, tw: int,
+                 cols: int) -> torch.Tensor:
+    """Launch one instance of ``csrc/roi_conv_entry.cu``'s kernel, chosen
+    by ``launch(lib)``, on x (C, H, W, Cin) frames.  With ``cols`` = 3
+    each (cam, ty, tx) row names its frame and the output is (n, th, tw,
+    Cout); with ``cols`` = 2 the C frames share the (ty, tx) rows and the
+    output is (C * n, th, tw, Cout), frame-major."""
+    dev = _build.cuda_device(name, x, w, idx)
+    _build.expect(name, "x", x, torch.float32, (None,) * 4)
+    C, H, W, Cin = x.shape
+    _build.expect(name, "w", w, torch.float32, (3, 3, Cin, None))
+    _build.expect(name, "idx", idx, torch.int32, (None, cols))
+    Cout = w.shape[-1]
+    n = idx.shape[0]
+    if 4 * (9 * Cin * Cout + (th + 2) * (tw + 2) * Cin) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: weights and window exceed shared memory")
+    rows = n if cols == 3 else C * n
+    out = torch.empty((rows, th, tw, Cout), dtype=torch.float32, device=dev)
+    if rows == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = launch(lib)(
+            x.data_ptr(), w.data_ptr(), idx.data_ptr(), out.data_ptr(), n, C,
+            H, W, Cin, Cout, th, tw, _build.stream_handle(dev))
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
 def roi_conv_entry(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
                    th: int, tw: int) -> torch.Tensor:
     """x: (C, H, W, Cin) float32 stacked frames; w: (3, 3, Cin, Cout);
@@ -31,24 +67,66 @@ def roi_conv_entry(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
     tensors launch the kernel."""
     if x.device.type == "cpu":
         return ref.roi_conv_entry(x, w, idx, th, tw)
-    name = "roi_conv_entry"
-    dev = _build.cuda_device(name, x, w, idx)
-    _build.expect(name, "x", x, torch.float32, (None,) * 4)
-    C, H, W, Cin = x.shape
-    _build.expect(name, "w", w, torch.float32, (3, 3, Cin, None))
-    _build.expect(name, "idx", idx, torch.int32, (None, 3))
-    Cout = w.shape[-1]
-    n = idx.shape[0]
-    if 4 * (9 * Cin * Cout + (th + 2) * (tw + 2) * Cin) > _SMEM_LIMIT:
-        raise ValueError(f"{name}: weights and window exceed shared memory")
-    out = torch.empty((n, th, tw, Cout), dtype=torch.float32, device=dev)
+    return _gather_conv("roi_conv_entry", lambda lib:
+                        lib.roi_conv_entry_launch, x, w, idx, th, tw, 3)
+
+
+def roi_conv_fleet(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
+                   th: int, tw: int) -> torch.Tensor:
+    """``roi_conv_entry`` without the ReLU: the per-layer chain's entry
+    over the stacked frames.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return ref.roi_conv_fleet(x, w, idx, th, tw)
+    return _gather_conv("roi_conv_fleet", lambda lib:
+                        lib.roi_conv_fleet_launch, x, w, idx, th, tw, 3)
+
+
+def roi_conv(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, th: int,
+             tw: int) -> torch.Tensor:
+    """One camera's gather + 3x3 SAME conv, no ReLU: x (H, W, Cin) float32
+    + idx (n, 2) int32 (ty, tx) -> (n, th, tw, Cout); or B frames sharing
+    the rows, x (B, H, W, Cin) -> (B, n, th, tw, Cout), in one launch.
+    Every tile must lie inside the frame (pad the frame to its grid's
+    extent).  CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    if x.device.type == "cpu":
+        return ref.roi_conv(x, w, idx, th, tw)
+    frames = x if x.ndim == 4 else x[None]
+    out = _gather_conv("roi_conv", lambda lib: lib.roi_conv_launch, frames,
+                       w, idx, th, tw, 2)
+    if x.ndim == 4:
+        return out.reshape((x.shape[0], idx.shape[0]) + tuple(out.shape[1:]))
+    return out
+
+
+def roi_conv_packed(packed: torch.Tensor, w: torch.Tensor,
+                    nbr: torch.Tensor) -> torch.Tensor:
+    """packed: (n, th, tw, Cin) float32; w: (3, 3, Cin, Cout); nbr: (n, 8)
+    int32 neighbour slots (-1 = zero halo).  Returns one packed SAME-conv
+    layer (n, th, tw, Cout), no ReLU.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
+    if packed.device.type == "cpu":
+        return ref.roi_conv_packed(packed, w, nbr)
+    name = "roi_conv_packed"
+    dev = _build.cuda_device(name, packed, w, nbr)
+    _build.expect(name, "packed", packed, torch.float32, (None,) * 4)
+    n, th, tw, cin = packed.shape
+    _build.expect(name, "w", w, torch.float32, (3, 3, cin, None))
+    _build.expect(name, "nbr", nbr, torch.int32, (n, 8))
+    cout = w.shape[-1]
+    lib = _build.library()
+    smem = lib.roi_conv_packed_smem_bytes(th, tw, cin, cout)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{name}: needs {smem} bytes of shared memory per "
+                         f"tile, more than {_SMEM_LIMIT}")
+    out = torch.empty((n, th, tw, cout), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    lib = _build.library()
     with torch.cuda.device(dev):
-        err = lib.roi_conv_entry_launch(
-            x.data_ptr(), w.data_ptr(), idx.data_ptr(), out.data_ptr(), n, C,
-            H, W, Cin, Cout, th, tw, _build.stream_handle(dev))
+        err = lib.roi_conv_packed_launch(
+            packed.data_ptr(), w.data_ptr(), nbr.data_ptr(), out.data_ptr(),
+            n, th, tw, cin, cout, _build.stream_handle(dev))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
     return out

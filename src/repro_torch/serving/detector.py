@@ -7,7 +7,13 @@ windows straight off the stacked frames), every later layer runs inside
 one ``roi_conv_stack`` launch, the 1x1 head is applied to the packed tiles,
 and one scatter writes the head tiles into the (C, H, W, A) canvas: three
 dispatches for the whole fleet, independent of camera, group and layer
-count.
+count.  ``roi_forward`` runs the same chain on one camera, and
+``forward`` switches between it and the dense path by mask density.
+
+``roi_forward_layers`` and ``fleet_forward_layers`` are the per-layer
+chains (one ``roi_conv`` / ``roi_conv_fleet`` entry without ReLU, then one
+``roi_conv_packed`` launch per later layer, ``torch.relu`` between
+layers): the A/B baselines of the fused paths, bitwise equal to them.
 
 ``fleet_forward_reuse`` adds the temporal axis: one ``tile_delta_gate``
 dispatch prices each active tile's haloed entry window against its
@@ -263,6 +269,8 @@ class RoIDetector:
         head = torch.randn((chans[-1], cfg.num_anchors * 5),
                            generator=gen) / np.sqrt(chans[-1])
         self._set_params(weights, head)
+        # per-mask static tables: digest -> (idx, idx3, nbr) on the device
+        self._mask_cache: Dict[bytes, tuple] = {}
         # per-fleet static tables: digest tuple -> (idx, nbr) numpy + device
         self._fleet_cache: Dict[tuple, tuple] = {}
         # per-grid digest memo: id(grid) -> (grid ref, popcount, digest)
@@ -324,6 +332,23 @@ class RoIDetector:
         return torch.as_tensor(np.ascontiguousarray(a, np.int32),
                                device=self.device)
 
+    def _mask_tables(self, grid):
+        """(idx (n, 2), idx3 (n, 3) rows of camera 0, nbr (n, 8)) on the
+        device for one camera's grid, cached on the grid's content in a
+        FIFO of 8 (masks change rarely: offline re-solves)."""
+        key = self._grid_digest(grid)
+        hit = self._mask_cache.get(key)
+        if hit is None:
+            idx_np = kops.mask_to_indices(grid)
+            idx3 = np.concatenate([np.zeros((idx_np.shape[0], 1), np.int32),
+                                   idx_np], axis=1)
+            hit = (self._table(idx_np), self._table(idx3),
+                   self._table(kops.neighbor_table(idx_np, grid.shape)))
+            while len(self._mask_cache) >= 8:
+                self._mask_cache.pop(next(iter(self._mask_cache)))
+            self._mask_cache[key] = hit
+        return hit
+
     def _fleet_tables(self, grids):
         """(idx_np (n, 3), nbr_np (n, 8), idx, nbr) for a fleet of grids,
         cached on the grids' content."""
@@ -352,6 +377,16 @@ class RoIDetector:
             packed = kops.roi_conv_stack(packed, self.weights[1:], nbr)
         return packed
 
+    def _layer_chain(self, entry: torch.Tensor,
+                     nbr: torch.Tensor) -> torch.Tensor:
+        """The per-layer chain after the first layer's packed conv output
+        ``entry``: ReLU, then one ``roi_conv_packed`` launch + ReLU per
+        later layer."""
+        packed = torch.relu(entry)
+        for w in self.weights[1:]:
+            packed = torch.relu(kops.roi_conv_packed(packed, w, nbr))
+        return packed
+
     def _stack_frames(self, frames, grids):
         """Frames of any sizes -> (C, canvas_h, canvas_w, 3) zero-padded
         stack on the device, the canvas covering every frame and grid."""
@@ -372,6 +407,63 @@ class RoIDetector:
                             dtype=torch.float32, device=self.device)
                 for f in frames]
 
+    def _camera_heads(self, packed: torch.Tensor, idx: torch.Tensor,
+                      x: torch.Tensor, frame) -> torch.Tensor:
+        """The head on one camera's packed tiles, scattered (one
+        ``sbnet_scatter``) onto zeros of the padded frame ``x``'s extent
+        and cropped to the ``frame``'s (H, W, A)."""
+        base = torch.zeros(tuple(x.shape[:2]) + (self.head.shape[-1],),
+                           dtype=torch.float32, device=self.device)
+        kops.sbnet_scatter(_head_rows(packed, self.head), idx, base)
+        return base[:frame.shape[0], :frame.shape[1]]
+
+    def _fleet_heads(self, packed: torch.Tensor, idx: torch.Tensor,
+                     frames, canvas_h: int,
+                     canvas_w: int) -> List[torch.Tensor]:
+        """The head on the fleet's packed tiles, scattered (one
+        ``sbnet_scatter_fleet``) onto a zero (C, canvas_h, canvas_w, A)
+        canvas; returns each camera's (H, W, A) view."""
+        canvas = torch.zeros((len(frames), canvas_h, canvas_w,
+                              self.head.shape[-1]), dtype=torch.float32,
+                             device=self.device)
+        kops.sbnet_scatter_fleet(_head_rows(packed, self.head), idx, canvas)
+        return [canvas[c, :f.shape[0], :f.shape[1]]
+                for c, f in enumerate(frames)]
+
+    def roi_forward(self, x, grid: np.ndarray) -> torch.Tensor:
+        """x: (H, W, 3) frame; grid: bool tile mask at ``cfg.tile``
+        granularity.  Returns the full-frame (H, W, A) head map, zero
+        outside the RoI, in 3 dispatches whatever the layer count: the
+        entry, the layer stack (none for a 1-layer net) and one scatter of
+        the head tiles.  The frame is zero-padded to cover its grid first,
+        as on the fleet canvas, so a partial last tile row is computed as
+        ``fleet_forward`` computes it.  An empty mask launches nothing."""
+        idx, idx3, nbr = self._mask_tables(grid)
+        if idx.shape[0] == 0:
+            return self._zero_heads([x])[0]
+        xs, _, _ = self._stack_frames([x], [grid])
+        return self._camera_heads(self._stack_chain(xs, idx3, nbr), idx,
+                                  xs[0], x)
+
+    def roi_forward_layers(self, x, grid: np.ndarray) -> torch.Tensor:
+        """``roi_forward`` through the per-layer chain: one ``roi_conv``
+        (the gather fused into the first conv), one ``roi_conv_packed`` per
+        later layer, ReLU between, one scatter -- the bitwise A/B baseline
+        of the fused stack."""
+        t = self.cfg.tile
+        idx, _, nbr = self._mask_tables(grid)
+        xs, _, _ = self._stack_frames([x], [grid])
+        packed = self._layer_chain(
+            kops.roi_conv(xs[0], self.weights[0], idx, t, t), nbr)
+        return self._camera_heads(packed, idx, xs[0], x)
+
+    def forward(self, x, grid: Optional[np.ndarray]) -> torch.Tensor:
+        """The dense path without a mask or at a mask density of at least
+        ``cfg.switch_density``, else ``roi_forward``."""
+        if grid is None or grid.mean() >= self.cfg.switch_density:
+            return self.dense_forward(x)
+        return self.roi_forward(x, grid)
+
     def fleet_forward(self, frames: List[torch.Tensor],
                       grids: List[np.ndarray]) -> List[torch.Tensor]:
         """Any number of cameras in <= 3 dispatches: the frames are
@@ -383,13 +475,21 @@ class RoIDetector:
         if idx.shape[0] == 0:             # whole set empty: no launches
             return self._zero_heads(frames)
         x, canvas_h, canvas_w = self._stack_frames(frames, grids)
-        packed = self._stack_chain(x, idx, nbr)
-        canvas = torch.zeros((len(frames), canvas_h, canvas_w,
-                              self.head.shape[-1]), dtype=torch.float32,
-                             device=self.device)
-        kops.sbnet_scatter_fleet(_head_rows(packed, self.head), idx, canvas)
-        return [canvas[c, :f.shape[0], :f.shape[1]]
-                for c, f in enumerate(frames)]
+        return self._fleet_heads(self._stack_chain(x, idx, nbr), idx, frames,
+                                 canvas_h, canvas_w)
+
+    def fleet_forward_layers(self, frames: List[torch.Tensor],
+                             grids: List[np.ndarray]) -> List[torch.Tensor]:
+        """``fleet_forward`` through the per-layer chain: one
+        ``roi_conv_fleet``, one ``roi_conv_packed`` per later layer, ReLU
+        between, one scatter (1 + (N-1) + 1 dispatches) -- the bitwise A/B
+        baseline of the fused path."""
+        t = self.cfg.tile
+        _, _, idx, nbr = self._fleet_tables(grids)
+        x, canvas_h, canvas_w = self._stack_frames(frames, grids)
+        packed = self._layer_chain(
+            kops.roi_conv_fleet(x, self.weights[0], idx, t, t), nbr)
+        return self._fleet_heads(packed, idx, frames, canvas_h, canvas_w)
 
     def superlaunch_forward(self, frames: Dict[int, List[torch.Tensor]],
                             grids: Dict[int, List[np.ndarray]]

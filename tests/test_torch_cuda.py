@@ -79,7 +79,7 @@ def test_cuda_kernels_match_plain_versions(cuda, tile, channels):
                                               q),
             tref.tile_delta_gate_canvas(xp, prev, d["idx"], tile, tile, q))
     torch.cuda.synchronize()
-    for k in ("roi_conv_entry", "roi_conv_stack", "sbnet_scatter",
+    for k in ("roi_conv_entry", "roi_conv_stack", "sbnet_scatter_fleet",
               "tile_delta_gate_canvas"):
         assert _build.LAUNCHES[k] > before.get(k, 0)
 
@@ -251,3 +251,76 @@ def test_cuda_ref_modes_bitwise_equal(cuda):
         assert all(torch.equal(a, b) and torch.equal(a, f)
                    for g in full
                    for a, b, f in zip(c_out[g], p_out[g], full[g]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [8, 16])
+@pytest.mark.parametrize("channels", [(8, 16, 16), (6, 12, 5)])
+def test_cuda_slice_kernels_match_plain_versions(cuda, tile, channels):
+    """B6 (each later layer), B7, B8 (one frame and a batch) within 1e-4 of
+    their plain versions; B9 bit-exact.  The instances of the entry kernel
+    agree bit for bit: ReLU of B7 is B2, B8 is B2 on one camera."""
+    rng, grids, idx, nbr, H, W = _fleet(40, tile)
+    C = len(SHAPES)
+    chans = (3,) + channels
+    ws = [_t((rng.normal(size=(3, 3, ci, co)) / np.sqrt(9 * ci))
+             .astype(np.float32)).to(cuda)
+          for ci, co in zip(chans[:-1], chans[1:])]
+    x = _t(rng.normal(size=(C, H, W, 3)).astype(np.float32)).to(cuda)
+    d_idx, d_nbr = _t(idx).to(cuda), _t(nbr).to(cuda)
+    before = dict(_build.LAUNCHES)
+    f = roi_conv.roi_conv_fleet(x, ws[0], d_idx, tile, tile)
+    assert (f - tref.roi_conv_fleet(x, ws[0], d_idx, tile, tile)).abs() \
+        .max().item() <= 1e-4
+    assert torch.equal(torch.relu(f), roi_conv.roi_conv_entry(
+        x, ws[0], d_idx, tile, tile))
+    p = torch.relu(tref.roi_conv_fleet(x, ws[0], d_idx, tile, tile))
+    for w in ws[1:]:
+        got = roi_conv.roi_conv_packed(p, w, d_nbr)
+        want = tref.roi_conv_packed(p, w, d_nbr)
+        assert (got - want).abs().max().item() <= 1e-4
+        p = torch.relu(want)
+    frame = x[0].contiguous()
+    rows = _t(tops.mask_to_indices(grids[0])).to(cuda)
+    one = roi_conv.roi_conv(frame, ws[0], rows, tile, tile)
+    assert (one - tref.roi_conv(frame, ws[0], rows, tile, tile)).abs() \
+        .max().item() <= 1e-4
+    assert torch.equal(one, f[d_idx[:, 0] == 0])
+    batch = roi_conv.roi_conv(x, ws[0], rows, tile, tile)
+    assert all(torch.equal(batch[b], roi_conv.roi_conv(
+        x[b].contiguous(), ws[0], rows, tile, tile)) for b in range(C))
+    act = _t(rng.normal(size=(H, W, 10)).astype(np.float32)).to(cuda)
+    tiles = sbnet.sbnet_gather(act, rows, tile, tile)
+    assert torch.equal(tiles, tref.sbnet_gather(act, rows, tile, tile))
+    base = torch.zeros_like(act)
+    out = sbnet.sbnet_scatter(tiles, rows, base.clone())
+    assert torch.equal(out, tref.sbnet_scatter(tiles, rows, base))
+    torch.cuda.synchronize()
+    for k in ("roi_conv_fleet", "roi_conv_packed", "roi_conv",
+              "sbnet_gather", "sbnet_scatter"):
+        assert _build.LAUNCHES[k] > before.get(k, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [8, 16])
+def test_cuda_fused_equals_per_layer_bitwise(cuda, tile):
+    """With the kernels: the fused stack (B2 + B3) equals the per-layer
+    chain (B7 or B8, then B6 + ReLU per layer) bitwise, on the fleet and
+    on each camera of ragged frames; ``roi_forward`` equals the one-camera
+    ``fleet_forward``."""
+    _, grids, _, _, _, _ = _fleet(41, tile)
+    det = tdet.RoIDetector(tdet.DetectorConfig(tile=tile), seed=5,
+                           device=cuda)
+    rng = np.random.default_rng(42)
+    frames = [torch.as_tensor(rng.normal(size=(g.shape[0] * tile - 3,
+                                               g.shape[1] * tile - 1, 3))
+                              .astype(np.float32), device=cuda)
+              for g in grids]
+    fused = det.fleet_forward(frames, grids)
+    layers = det.fleet_forward_layers(frames, grids)
+    for c, (f, g) in enumerate(zip(frames, grids)):
+        one = det.roi_forward(f, g)
+        assert torch.equal(fused[c], layers[c]), c
+        assert torch.equal(one, det.roi_forward_layers(f, g)), c
+        assert torch.equal(one, det.fleet_forward([f], [g])[0]), c
+        assert torch.equal(one, fused[c]), c

@@ -1,15 +1,17 @@
 """The whole slice: the port's fleet steps against the JAX package's.
 
 The JAX package's Pallas kernels do not trace on this jax, so its own
-``fleet_inference_step`` and ``fleet_reuse_step`` run here with the six
-kernel wrappers the detector calls swapped (``monkeypatch``) for
-compositions of ``repro.kernels.ref`` and pure jnp that also count their
-dispatches.  Both reference modes run: the canvas gate and the packed
-gate.  Both sides get the same numpy frames and weights; ReuseStats
-and dispatch counters must match exactly, head maps within atol 1e-5 (the
-f32 bar of ``tests/test_fleet.py``).  The port's own invariants (threshold-0
-reuse bit-identical to a full recompute, gate-only all-static steps,
-canvas-byte accounting) are checked inside the port."""
+``fleet_inference_step`` and ``fleet_reuse_step``, and its detector's
+single-camera and per-layer paths, run here with the ten kernel wrappers
+the detector calls swapped (``monkeypatch``) for compositions of
+``repro.kernels.ref`` and pure jnp that also count their dispatches.
+Both reference modes run: the canvas gate and the packed gate.  Both
+sides get the same numpy frames and weights; ReuseStats and dispatch
+counters must match exactly, head maps within atol 1e-5 (the f32 bar of
+``tests/test_fleet.py``).  The port's own invariants (threshold-0 reuse
+bit-identical to a full recompute, gate-only all-static steps, canvas-byte
+accounting, the fused stack equal to the per-layer chain) are checked
+inside the port."""
 import dataclasses
 
 import numpy as np
@@ -45,28 +47,58 @@ def _by_camera(idx):
         yield int(c), rows, jnp.asarray(idx[rows, 1:])
 
 
+def _fleet_conv_body(x, w, idx, th, tw):
+    out = jnp.zeros((idx.shape[0], th, tw, w.shape[-1]), x.dtype)
+    for c, rows, cidx in _by_camera(idx):
+        out = out.at[rows].set(jref.roi_conv(x[c], w, cidx, th, tw))
+    return out
+
+
 def _entry(x, w, idx, th, tw, block=1, interpret=True):
     if idx.shape[0] == 0:
         return jnp.zeros((0, th, tw, w.shape[-1]), x.dtype)
     jops.record_dispatch("roi_conv_entry")
-    out = jnp.zeros((idx.shape[0], th, tw, w.shape[-1]), x.dtype)
-    for c, rows, cidx in _by_camera(idx):
-        out = out.at[rows].set(jref.roi_conv(x[c], w, cidx, th, tw))
-    return jax.nn.relu(out)
+    return jax.nn.relu(_fleet_conv_body(x, w, idx, th, tw))
+
+
+def _packed_layer(packed, w, nbr):
+    """One packed layer, no ReLU: halo rims from the neighbour table (zero
+    at -1 slots), a VALID conv."""
+    rt, rb, rl, rr = assemble_rims(packed, jnp.asarray(nbr))
+    mid = jnp.concatenate([rl[:, :, None], packed, rr[:, :, None]], axis=2)
+    win = jnp.concatenate([rt[:, None], mid, rb[:, None]], axis=1)
+    return jax.lax.conv_general_dilated(
+        win, w, (1, 1), "VALID", dimension_numbers=("NHWC", "HWIO", "NHWC"))
 
 
 def _stack(packed, ws, nbr, block=128, interpret=True):
     jops.record_dispatch("roi_conv_stack")
-    nbr = jnp.asarray(nbr)
     for w in ws:
-        rt, rb, rl, rr = assemble_rims(packed, nbr)    # zero at -1 slots
-        mid = jnp.concatenate([rl[:, :, None], packed, rr[:, :, None]],
-                              axis=2)
-        win = jnp.concatenate([rt[:, None], mid, rb[:, None]], axis=1)
-        packed = jax.nn.relu(jax.lax.conv_general_dilated(
-            win, w, (1, 1), "VALID",
-            dimension_numbers=("NHWC", "HWIO", "NHWC")))
+        packed = jax.nn.relu(_packed_layer(packed, w, nbr))
     return packed
+
+
+# the per-layer and single-camera wrappers: the JAX package counts them
+# whatever the row count
+def _roi_conv(x, w, idx, th, tw, interpret=True):
+    jops.record_dispatch("roi_conv")
+    return jref.roi_conv(x, w, idx, th, tw)
+
+
+def _fleet_conv(x, w, idx, th, tw, interpret=True):
+    jops.record_dispatch("roi_conv_fleet")
+    return _fleet_conv_body(x, w, idx, th, tw)
+
+
+def _roi_conv_packed(packed, w, nbr, interpret=True):
+    jops.record_dispatch("roi_conv_packed")
+    return _packed_layer(packed, w, nbr)
+
+
+def _scatter_one(packed, idx, base, interpret=True):
+    jops.record_dispatch("sbnet_scatter")
+    th, tw = packed.shape[1:3]
+    return jref.sbnet_scatter(packed, idx, base, th, tw)
 
 
 def _scatter(name):
@@ -119,6 +151,10 @@ def jax_oracle(monkeypatch):
                         _scatter("sbnet_scatter_changed"))
     monkeypatch.setattr(jops, "tile_delta_gate_canvas", _gate)
     monkeypatch.setattr(jops, "tile_delta_gate", _gate_packed)
+    monkeypatch.setattr(jops, "roi_conv", _roi_conv)
+    monkeypatch.setattr(jops, "roi_conv_fleet", _fleet_conv)
+    monkeypatch.setattr(jops, "roi_conv_packed", _roi_conv_packed)
+    monkeypatch.setattr(jops, "sbnet_scatter", _scatter_one)
 
 
 # ---------------------------------------------------------------------------
@@ -356,3 +392,140 @@ def test_ref_modes_bitwise_equal(threshold):
     assert caches["canvas"].ref_win is None
     np.testing.assert_array_equal(caches["canvas"].epoch_np,
                                   caches["packed"].epoch_np)
+
+
+# ---------------------------------------------------------------------------
+# the single-camera and per-layer paths (B6-B9)
+# ---------------------------------------------------------------------------
+
+def _camera(seed, shape=(4, 5), density=0.5):
+    """A grid and a whole-tile frame (the JAX package leaves a partial
+    last tile row undefined; the port pads)."""
+    rng = np.random.default_rng(seed)
+    grid = rng.random(shape) < density
+    grid[1, 1] = True
+    x = rng.normal(size=(shape[0] * T, shape[1] * T, 3)).astype(np.float32)
+    return grid, x
+
+
+def _counted(fn, *args):
+    with jops.count_kernels() as jc, tdet.kops.count_kernels() as tc:
+        out = fn(*args)
+    return out, dict(jc), dict(tc)
+
+
+@pytest.mark.parametrize("path", ["roi_forward", "roi_forward_layers"])
+def test_single_camera_paths_match_jax(jax_oracle, path):
+    """The port's ``roi_forward`` / ``roi_forward_layers`` against the JAX
+    detector's: equal dispatch counters, head maps within atol 1e-5."""
+    jd, td = _dets(20)
+    grid, x = _camera(21)
+    j_out, j_counts, _ = _counted(getattr(jd, path), jnp.asarray(x), grid)
+    t_out, _, t_counts = _counted(getattr(td, path), x, grid)
+    assert t_counts == j_counts == (
+        {"roi_conv_entry": 1, "roi_conv_stack": 1, "sbnet_scatter": 1}
+        if path == "roi_forward" else
+        {"roi_conv": 1, "roi_conv_packed": 2, "sbnet_scatter": 1})
+    assert tuple(t_out.shape) == tuple(j_out.shape) == x.shape[:2] + (10,)
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), atol=1e-5,
+                               rtol=0)
+
+
+def test_fleet_forward_layers_matches_jax(jax_oracle):
+    """The per-layer fleet chain against the JAX detector's: equal
+    dispatch counters, head maps within atol 1e-5 on ragged frames."""
+    jd, td = _dets(22)
+    grids = _grids(23)
+    frames = _trace(24, n_steps=1)[0]
+    flat_g = [g for gs in grids.values() for g in gs]
+    flat_f = [f for fs in frames.values() for f in fs]
+    j_outs, j_counts, _ = _counted(jd.fleet_forward_layers,
+                                   [jnp.asarray(f) for f in flat_f], flat_g)
+    t_outs, _, t_counts = _counted(td.fleet_forward_layers, flat_f, flat_g)
+    assert t_counts == j_counts == {"roi_conv_fleet": 1,
+                                    "roi_conv_packed": 2,
+                                    "sbnet_scatter_fleet": 1}
+    _assert_heads_close({0: t_outs}, {0: j_outs})
+
+
+@pytest.mark.parametrize("density", [0.3, 1.0])
+def test_forward_switch_matches_jax(jax_oracle, density):
+    """``forward`` takes the RoI path below ``switch_density`` and the
+    dense path at or above it, as the JAX detector does."""
+    jd, td = _dets(25)
+    grid, x = _camera(26, density=density)
+    j_out, j_counts, _ = _counted(jd.forward, jnp.asarray(x), grid)
+    t_out, _, t_counts = _counted(td.forward, x, grid)
+    assert t_counts == j_counts
+    assert bool(t_counts) == (grid.mean() < td.cfg.switch_density)
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), atol=1e-5,
+                               rtol=0)
+
+
+def test_fused_equals_per_layer_bitwise():
+    """Inside the port: the fused stack equals the per-layer chain
+    bitwise, on one camera and on the fleet; ``roi_forward`` equals the
+    one-camera ``fleet_forward``, and each camera's map of the fleet."""
+    _, td = _dets(27)
+    grids = _grids(28)
+    frames = _trace(29, n_steps=1)[0]
+    flat_g = [g for gs in grids.values() for g in gs]
+    flat_f = [f for fs in frames.values() for f in fs]
+    fused = td.fleet_forward(flat_f, flat_g)
+    layers = td.fleet_forward_layers(flat_f, flat_g)
+    for c, (f, g) in enumerate(zip(flat_f, flat_g)):
+        one = td.roi_forward(f, g)
+        assert torch.equal(fused[c], layers[c]), c
+        assert torch.equal(one, td.roi_forward_layers(f, g)), c
+        assert torch.equal(one, td.fleet_forward([f], [g])[0]), c
+        assert torch.equal(one, fused[c]), c
+
+
+def test_roi_forward_ragged_frame_is_padded_to_its_grid():
+    """A 1080-px-style frame (the last tile row partial) runs on both
+    paths: the tiles are computed on the frame zero-padded to the grid,
+    as on the fleet canvas, and the map is cropped to the frame."""
+    _, td = _dets(30)
+    rng = np.random.default_rng(31)
+    grid = rng.random((5, 4)) < 0.6
+    grid[-1] = True                        # the partial row is active
+    x = rng.normal(size=(5 * T - 3, 4 * T - 5, 3)).astype(np.float32)
+    padded = np.zeros((5 * T, 4 * T, 3), np.float32)
+    padded[:x.shape[0], :x.shape[1]] = x
+    want = td.roi_forward(padded, grid)[:x.shape[0], :x.shape[1]]
+    for path in (td.roi_forward, td.roi_forward_layers):
+        got = path(x, grid)
+        assert tuple(got.shape) == x.shape[:2] + (10,)
+        assert torch.equal(got, want)
+
+
+def test_single_camera_empty_mask_launches_nothing():
+    _, td = _dets(32)
+    grid, x = _camera(33)
+    empty = np.zeros_like(grid)
+    for path in (td.roi_forward, td.roi_forward_layers, td.forward):
+        with tdet.kops.count_kernels() as c:
+            out = path(x, empty)
+        assert c == {} and tuple(out.shape) == x.shape[:2] + (10,)
+        assert float(out.abs().sum()) == 0
+    with tdet.kops.count_kernels() as c:
+        outs = td.fleet_forward_layers([x, x], [empty, empty])
+    assert c == {} and all(float(h.abs().sum()) == 0 for h in outs)
+
+
+def test_roi_conv_batched_equals_per_frame():
+    """``roi_conv_batched``: B frames sharing one mask in one dispatch,
+    equal to B8 frame by frame bitwise."""
+    _, td = _dets(34)
+    grid, _ = _camera(35)
+    rng = np.random.default_rng(36)
+    xs = torch.as_tensor(rng.normal(size=(4,) + (grid.shape[0] * T,
+                                                 grid.shape[1] * T, 3))
+                         .astype(np.float32))
+    idx, _, _ = td._mask_tables(grid)
+    w = td.weights[0]
+    with tdet.kops.count_kernels() as c:
+        batch = tdet.kops.roi_conv_batched(xs, w, idx, T, T)
+    assert c == {"roi_conv": 1}
+    for b in range(4):
+        assert torch.equal(batch[b], tdet.kops.roi_conv(xs[b], w, idx, T, T))

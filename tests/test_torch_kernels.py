@@ -1,4 +1,4 @@
-"""The port's four kernels against the JAX package's oracles.
+"""The port's kernels against the JAX package's oracles.
 
 On the CPU every wrapper takes its plain version (``repro_torch.kernels
 .ref``); those are held here against ``repro.kernels.ref``: the gate stats
@@ -177,3 +177,151 @@ def test_launchers_refuse_other_devices():
     with pytest.raises(ValueError):
         sbnet.sbnet_scatter_fleet(torch.zeros((1, 8, 8, 3), device=m), idx,
                                   frames)
+
+
+# ---------------------------------------------------------------------------
+# the per-layer chain and the single-camera path: B6-B9
+# ---------------------------------------------------------------------------
+
+def test_packed_layer_plain_matches_reference():
+    """B6: one packed layer (no ReLU) against the scatter / SAME conv /
+    gather oracle, camera by camera; the stack equals B6 + ReLU per layer
+    bitwise."""
+    rng, grids, idx, nbr, _, _ = _fleet(20)
+    n = idx.shape[0]
+    packed = np.maximum(rng.normal(size=(n, TH, TW, 8)), 0).astype(np.float32)
+    ws = [(rng.normal(size=(3, 3, ci, co)) / np.sqrt(9 * ci))
+          .astype(np.float32) for ci, co in [(8, 16), (16, 16)]]
+    got = roi_conv.roi_conv_packed(_t(packed), _t(ws[0]), _t(nbr)).numpy()
+    assert got.min() < 0                    # no ReLU
+    for c, g in enumerate(grids):
+        rows = idx[:, 0] == c
+        want = jref.roi_conv_packed(jnp.asarray(packed[rows]),
+                                    jnp.asarray(idx[rows, 1:]), g.shape,
+                                    jnp.asarray(ws[0]))
+        np.testing.assert_allclose(got[rows], np.asarray(want), atol=1e-5,
+                                   rtol=0)
+    p = _t(packed)
+    for w in ws:
+        p = torch.relu(roi_conv.roi_conv_packed(p, _t(w), _t(nbr)))
+    assert torch.equal(p, roi_conv.roi_conv_stack(
+        _t(packed), [_t(w) for w in ws], _t(nbr)))
+
+
+def test_roi_conv_plain_matches_reference():
+    """B8: one camera's gather + conv (no ReLU) against ``ref.roi_conv``;
+    a batch of frames sharing the rows equals B8 frame by frame."""
+    rng = np.random.default_rng(21)
+    grid = rng.random((4, 5)) < 0.6
+    rows = tops.mask_to_indices(grid)
+    frames = rng.normal(size=(3, 4 * TH, 5 * TW, 3)).astype(np.float32)
+    w = (rng.normal(size=(3, 3, 3, 8)) / np.sqrt(27)).astype(np.float32)
+    got = roi_conv.roi_conv(_t(frames[0]), _t(w), _t(rows), TH, TW)
+    want = jref.roi_conv(jnp.asarray(frames[0]), jnp.asarray(w),
+                         jnp.asarray(rows), TH, TW)
+    assert got.shape == (rows.shape[0], TH, TW, 8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+    batch = tops.roi_conv_batched(_t(frames), _t(w), _t(rows), TH, TW)
+    assert batch.shape == (3, rows.shape[0], TH, TW, 8)
+    for b in range(3):
+        assert torch.equal(batch[b], roi_conv.roi_conv(
+            _t(frames[b]), _t(w), _t(rows), TH, TW))
+
+
+def test_fleet_conv_plain_matches_reference():
+    """B7: the fleet gather + conv without ReLU against ``ref.roi_conv``
+    per camera; its ReLU is B2 bitwise."""
+    rng, _, idx, _, H, W = _fleet(22)
+    C = len(SHAPES)
+    x = rng.normal(size=(C, H, W, 3)).astype(np.float32)
+    w = (rng.normal(size=(3, 3, 3, 8)) / np.sqrt(27)).astype(np.float32)
+    got = roi_conv.roi_conv_fleet(_t(x), _t(w), _t(idx), TH, TW)
+    for c in range(C):
+        rows = idx[:, 0] == c
+        want = jref.roi_conv(jnp.asarray(x[c]), jnp.asarray(w),
+                             jnp.asarray(idx[rows, 1:]), TH, TW)
+        np.testing.assert_allclose(got[rows].numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=0)
+    assert torch.equal(torch.relu(got), roi_conv.roi_conv_entry(
+        _t(x), _t(w), _t(idx), TH, TW))
+
+
+def test_gather_scatter_plain_bit_exact():
+    """B9: one camera's gather and in-place scatter against
+    ``ref.sbnet_gather`` / ``ref.sbnet_scatter``, bit-exact."""
+    rng = np.random.default_rng(23)
+    grid = rng.random((5, 4)) < 0.5
+    rows = tops.mask_to_indices(grid)
+    C = 10
+    x = rng.normal(size=(5 * TH, 4 * TW, C)).astype(np.float32)
+    got = sbnet.sbnet_gather(_t(x), _t(rows), TH, TW)
+    want = jref.sbnet_gather(jnp.asarray(x), jnp.asarray(rows), TH, TW)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    packed = rng.normal(size=(rows.shape[0], TH, TW, C)).astype(np.float32)
+    base = rng.normal(size=x.shape).astype(np.float32)
+    tb = _t(base.copy())
+    assert sbnet.sbnet_scatter(_t(packed), _t(rows), tb) is tb
+    want = jref.sbnet_scatter(jnp.asarray(packed), jnp.asarray(rows),
+                              jnp.asarray(base), TH, TW)
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(want))
+    assert torch.equal(sbnet.sbnet_gather(tb, _t(rows), TH, TW),
+                       _t(packed))
+
+
+def test_slice_wrappers_count_dispatches_and_skip_empty_sets():
+    """The B6-B9 wrappers count under their own names, ``roi_conv_batched``
+    as one ``roi_conv``; zero rows are no dispatch."""
+    rng, _, idx, nbr, H, W = _fleet(24)
+    x = _t(rng.normal(size=(len(SHAPES), H, W, 3)).astype(np.float32))
+    w0 = _t(rng.normal(size=(3, 3, 3, 8)).astype(np.float32))
+    w1 = _t(rng.normal(size=(3, 3, 8, 16)).astype(np.float32))
+    e2 = torch.zeros((0, 2), dtype=torch.int32)
+    e3 = torch.zeros((0, 3), dtype=torch.int32)
+    frame = x[0].contiguous()
+    with tops.count_kernels() as c:
+        assert tops.roi_conv_fleet(x, w0, e3, TH, TW).shape == (0, TH, TW, 8)
+        assert tops.roi_conv(frame, w0, e2, TH, TW).shape == (0, TH, TW, 8)
+        assert tops.roi_conv_batched(x, w0, e2, TH, TW).shape \
+            == (len(SHAPES), 0, TH, TW, 8)
+        assert tops.roi_conv_packed(torch.zeros((0, TH, TW, 8)), w1,
+                                    torch.zeros((0, 8), dtype=torch.int32)) \
+            .shape == (0, TH, TW, 16)
+        assert tops.sbnet_gather(frame, e2, TH, TW).shape == (0, TH, TW, 3)
+        base = torch.zeros((H, W, 3))
+        assert tops.sbnet_scatter(torch.zeros((0, TH, TW, 3)), e2, base) \
+            is base
+    assert c == {}
+    rows = _t(idx[idx[:, 0] == 0, 1:])
+    with tops.count_kernels() as c:
+        p = tops.roi_conv_fleet(x, w0, _t(idx), TH, TW)
+        tops.roi_conv_packed(p, w1, _t(nbr))
+        tops.roi_conv(frame, w0, rows, TH, TW)
+        tops.roi_conv_batched(x, w0, rows, TH, TW)
+        tiles = tops.sbnet_gather(frame, rows, TH, TW)
+        tops.sbnet_scatter(tiles, rows, base)
+    assert c == {"roi_conv_fleet": 1, "roi_conv_packed": 1, "roi_conv": 2,
+                 "sbnet_gather": 1, "sbnet_scatter": 1}
+
+
+def test_slice_launchers_refuse_other_devices():
+    """B6-B9's launchers refuse a tensor that is neither on the CPU nor
+    on a CUDA card: no plain-version fallback off the CPU."""
+    m = torch.device("meta")
+    idx2 = torch.zeros((1, 2), dtype=torch.int32, device=m)
+    idx3 = torch.zeros((1, 3), dtype=torch.int32, device=m)
+    w = torch.zeros((3, 3, 3, 8), device=m)
+    frame = torch.zeros((8, 8, 3), device=m)
+    with pytest.raises(ValueError):
+        roi_conv.roi_conv_fleet(frame[None], w, idx3, 8, 8)
+    with pytest.raises(ValueError):
+        roi_conv.roi_conv(frame, w, idx2, 8, 8)
+    with pytest.raises(ValueError):
+        roi_conv.roi_conv_packed(torch.zeros((1, 8, 8, 8), device=m),
+                                 torch.zeros((3, 3, 8, 8), device=m),
+                                 torch.zeros((1, 8), dtype=torch.int32,
+                                             device=m))
+    with pytest.raises(ValueError):
+        sbnet.sbnet_gather(frame, idx2, 8, 8)
+    with pytest.raises(ValueError):
+        sbnet.sbnet_scatter(torch.zeros((1, 8, 8, 3), device=m), idx2, frame)
