@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and drive its fleet paths on one NVIDIA card.
+"""Build the port's CUDA kernels and drive its fleet and serving paths on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -18,7 +19,13 @@ is non-zero:
    events, median of 7) beside the plain version's and its bound.  B5's
    stats also equal B1's on the same content, B10's rows B1's body
    columns, camera by camera; ReLU of B7 is B2 and B8 is B7's rows of its
-   camera, bit for bit;
+   camera, bit for bit.  B12, the packed attention, at the test suite's
+   shapes (f32 within 2e-5, bf16 within 0.05 on real rows) and at the
+   serving slice's (the fleet's 9,472-token packed patch stream, 48 heads
+   of 128, bf16): skipped and exhaustive walks bitwise equal on real
+   rows, visited counts equal to ``attention_visit_bound``, an
+   all-padding stream 0 visits and zeros; times beside the plain version
+   and ``scaled_dot_product_attention`` with the boolean mask;
 3. the main path at full size -- the 4-group x 5-camera fleet at the
    paper's camera sizes (four 1920x1080 legs and one 1280x960 centre
    camera per group), default detector (channels (8, 16, 16), tile 16, 2
@@ -57,10 +64,19 @@ is non-zero:
    gather taking the RoI tiles of a full-frame SAME conv (``F.conv2d``,
    no TF32), within 1e-4 of B8, and of each ``roi_forward`` map, bitwise
    equal to the packed head rows;
+3e. the serving path at full width, after the fleet's tensors are freed:
+   internvl2-26b (48 layers, d_model 6144, 48/8 heads of 128, d_ff
+   16384; bf16 weights drawn on the card from a seeded generator) serves
+   4 requests, each one frame's fleet patch stream (9,360 tokens, 3,268
+   kept by the RoI masks, packed to 9,472) through ``serve`` with 8
+   greedy steps; the last kept row's logits against a dense prefill of
+   the kept patches alone (the pruned-prompt identity); B12 through its
+   entry point on the engine's own layer-0 and last-layer q/k/v, against
+   its plain version and the engine's ``blockwise_attention``;
 4. a ``kernels`` JSON line with each kernel's launches on its path (B1-B5
    on the fleet path of phases 3 and 3b, B10 and B11 on the rate-control
-   loop, B6-B9 on phase 3d's paths), each path driven with the counts set
-   to 0.
+   loop, B6-B9 on phase 3d's paths, B12 on the engine's tensors in 3e),
+   each path driven with the counts set to 0.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the ``src/repro_torch`` package beside this file, it exits
@@ -87,7 +103,32 @@ MASK_DENSITY = 0.35            # offline 64-px grid, expanded x4 to tiles
 PATCH = 64
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12         # float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # bfloat16 on the tensor cores, dense
 CONV_TOL = 1e-4
+# B12 against its plain version on real rows, as tests/test_kernels.py
+# holds the JAX kernel: f32 2e-5, bf16 0.05 (one bf16 step at |x| ~ 4-8)
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 0.05}
+# ... and per element relative to the value it is held against, since on
+# the serving slice most |out| are under 0.05: |got - want| <= 2^-7 |want|
+# + 1e-3, one to two bf16 steps of |want| (both sides round one f32 value
+# to bf16) plus room for f32 sums over thousands of keys
+ATTN_REL, ATTN_ABS = 2.0 ** -7, 1e-3
+# the pruned-prompt identity at full width, relative to the largest |logit|:
+# both sides round the residual stream to bf16 at every layer, through 48
+# layers with other KV chunks (4 rows for the 3,268-token prompt, 256 for
+# the 9,472-row packed one); the first H100 run gave 0.0208 of a 3.95
+# scale (5 bf16 steps), so the bar is 0.05
+PRUNED_REL_TOL = 0.05
+# the serving phase: internvl2-26b at full width, 4 fleet requests of one
+# frame each (one patch token per offline 64-px cell of the 20 cameras)
+ARCH = "internvl2-26b"
+N_REQUESTS = 4
+DECODE_STEPS = 8
+SLICE_HEADS, SLICE_HEAD_DIM = 48, 128      # internvl2-26b's attention
+# the fleet's stream: 4 x (4 legs of 17 x 30 cells + one of 15 x 20) =
+# 9,360 tokens, packed to 74 blocks of 128; the masks keep 52,288 / 16 =
+# 3,268, so 26 q-blocks hold real rows and visit 26 * 27 / 2 block pairs
+FLEET_KEPT, FLEET_PACKED, FLEET_PAIRS = 3268, 9472, 351
 
 CSRC = "src/repro_torch/kernels/csrc/"
 GATE_CU = CSRC + "tile_delta_gate.cu"
@@ -109,6 +150,8 @@ KERNELS = {
     "roi_conv": (ENTRY_CU, "src/repro/kernels/roi_conv.py:68"),
     "sbnet_gather": (SBNET_CU, "src/repro/kernels/sbnet.py:35"),
     "sbnet_scatter": (SBNET_CU, "src/repro/kernels/sbnet.py:58"),
+    "roi_attention": (CSRC + "roi_attention.cu",
+                      "src/repro/kernels/roi_attention.py:99"),
 }
 
 
@@ -140,10 +183,10 @@ def nvidia_smi():
                           text=True, timeout=60).stdout.strip().splitlines()
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
     """(least time in ms, what bounds it) for this work on the card."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / F32_FLOP_PER_S * 1e3
+    t_f = flops / flop_rate * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -830,6 +873,317 @@ def layer_paths(torch, det, frames, grids):
         f"the packed head rows bitwise: True")
     return walls
 
+# ---------------------------------------------------------------------------
+# B12 and the serving path: the fleet's patch stream
+# ---------------------------------------------------------------------------
+
+def fleet_keep(grids):
+    """The RoI keep-list of one frame's fleet patch stream: one token per
+    offline 64-px cell (the coarse grid under each camera's x4 tile
+    expansion), the 20 cameras in camera order."""
+    return np.concatenate([g[::4, ::4].reshape(-1) for g in flat(grids)])
+
+
+def attn_err(got, want):
+    """(max |got - want|, the largest share of the relative bar
+    |got - want| / (ATTN_REL |want| + ATTN_ABS) -- at most 1 to pass --,
+    median |want|) over the given rows."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    return (float(d.max()), float((d / (ATTN_REL * w.abs() + ATTN_ABS)).max()),
+            float(w.abs().median()))
+
+
+def attention_case(torch, dev, S, H, D, bq, bk, positions, dtype, seed):
+    """q, k, v from a seeded generator on the card; B12 with and without
+    the skip and its plain version.  Returns ((max error, share of the
+    relative bar, median |want|) on real rows against the plain version,
+    skip == exhaustive bitwise on real rows, visited ==
+    attention_visit_bound for every head, the tensors)."""
+    from repro_torch.kernels import ops, ref, roi_attention
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((S, H, D), generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    pos = torch.as_tensor(positions, dtype=torch.int32, device=dev)
+    n_real = int((pos != roi_attention.PAD_POS).sum())
+    out, vis = roi_attention.roi_attention(q, k, v, pos, bq, bk, True)
+    full, vis_full = roi_attention.roi_attention(q, k, v, pos, bq, bk, False)
+    want, want_vis = ref.roi_attention(q, k, v, pos, bq, bk, True)
+    torch.cuda.synchronize()
+    real = pos != roi_attention.PAD_POS
+    errs = attn_err(out[real], want[real]) if n_real \
+        else (float(out.float().abs().max()), 0.0, 0.0)
+    same = bool(torch.equal(out[real], full[real]))
+    bound_rows = ops.attention_visit_bound(np.asarray(positions), bq, bk)
+    vis_ok = (np.array_equal(vis.cpu().numpy(),
+                             np.broadcast_to(bound_rows, (H, S // bq)))
+              and torch.equal(vis, want_vis)
+              and bool((vis_full == S // bk).all()))
+    return errs, same, vis_ok, (q, k, v, pos, out, vis)
+
+
+def check_attention(torch, dev, grids, results):
+    """Phase 2 for B12: the shapes of tests/test_kernels.py and
+    tests/test_packed_path.py, then the serving slice's (the fleet's
+    9,472-token packed stream, 48 heads of 128, bf16) with times."""
+    from repro_torch.kernels import ops, ref, roi_attention
+    PAD = roi_attention.PAD_POS
+    rng = np.random.default_rng(SEED + 4)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for S, H, D, bq, bk in ((128, 2, 32, 64, 64), (256, 4, 64, 128, 128),
+                                (256, 1, 128, 64, 128)):
+            pos = np.full(S, PAD, np.int32)
+            n = int(0.8 * S)
+            pos[:n] = np.sort(rng.choice(4 * S, n, replace=False))
+            cases.append((S, H, D, bq, bk, pos, dtype))
+    for frac in (0.25, 0.6):                       # the block-skip tests
+        pos = np.full(256, PAD, np.int32)
+        n = int(frac * 256)
+        pos[:n] = np.sort(rng.choice(1024, n, replace=False))
+        cases.append((256, 2, 32, 32, 32, pos, torch.float32))
+    pos = np.full(512, PAD, np.int32)
+    pos[:128] = np.arange(128) * 3
+    cases.append((512, 1, 16, 64, 64, pos, torch.float32))
+    worst = {}
+    for i, (S, H, D, bq, bk, pos, dtype) in enumerate(cases):
+        (err, use, _), same, vis_ok, _ = attention_case(
+            torch, dev, S, H, D, bq, bk, pos, dtype, SEED + 10 + i)
+        tol = ATTN_TOL[str(dtype).split(".")[-1]]
+        ok = err <= tol and use <= 1.0 and same and vis_ok
+        w = worst.get(str(dtype), (0.0, 0.0))
+        worst[str(dtype)] = (max(w[0], err), max(w[1], use))
+        if not ok:
+            raise AssertionError(
+                f"roi_attention case {(S, H, D, bq, bk, str(dtype))}: "
+                f"err {err} (tol {tol}), relative bar share {use}, skip == "
+                f"exhaustive {same}, visited == bound {vis_ok}")
+    # an all-padding stream visits nothing and gives exact zeros
+    zpos = torch.full((128,), PAD, dtype=torch.int32, device=dev)
+    zq = torch.ones((128, 1, 16), device=dev)
+    zout, zvis = roi_attention.roi_attention(zq, zq, zq, zpos, 64, 64, True)
+    zero_ok = int(zvis.sum()) == 0 and float(zout.abs().max()) == 0.0
+    say(f"[kernels] roi_attention: {len(cases)} test shapes, (max error, "
+        f"largest share of the relative bar) on real rows {worst}, skip == "
+        f"exhaustive bitwise and visited == attention_visit_bound on all; "
+        f"all-padding stream: 0 visits, zeros: {zero_ok}")
+    assert zero_ok
+
+    # the serving slice: the fleet stream's packed positions, in f32 at
+    # 2e-5 and in bf16 (timed) at 0.05 and the relative bar
+    keep = fleet_keep(grids)
+    _, positions, n_kept = ops.pack_tokens(
+        torch.arange(keep.size, device=dev), torch.as_tensor(keep,
+                                                             device=dev))
+    pos_np = positions.cpu().numpy()
+    S, H, D, blk = pos_np.size, SLICE_HEADS, SLICE_HEAD_DIM, 128
+    (err32, _, med32), same32, vis_ok32, _ = attention_case(
+        torch, dev, S, H, D, blk, blk, pos_np, torch.float32, SEED + 6)
+    say(f"[kernels] roi_attention f32 S={S} H={H} D={D} blocks {blk}: max "
+        f"error on real rows {err32} (bar {ATTN_TOL['float32']}, median "
+        f"|want| {med32:.5f}); skip == exhaustive bitwise {same32}; visited "
+        f"== bound {vis_ok32}")
+    if not (err32 <= ATTN_TOL["float32"] and same32 and vis_ok32):
+        raise AssertionError("roi_attention f32 at the serving slice "
+                             "disagrees with its plain version")
+    (err, use, med), same, vis_ok, (q, k, v, pos, out, vis) = attention_case(
+        torch, dev, S, H, D, blk, blk, pos_np, torch.bfloat16, SEED + 5)
+    pairs = int(vis[0].sum())
+    nq = S // blk
+    ok = err <= ATTN_TOL["bfloat16"] and use <= 1.0 and same and vis_ok
+    mask = pos[:, None] >= pos[None, :]
+    qh, kh, vh = (t.permute(1, 0, 2)[None] for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = sdpa(qh, kh, vh, attn_mask=mask)[0].permute(1, 0, 2)
+    lib_err = float((lib[:n_kept].float() - out[:n_kept].float()).abs().max())
+    exhaustive_ms = time_ms(torch, lambda: roi_attention.roi_attention(
+        q, k, v, pos, blk, blk, False))
+    ms = time_ms(torch, lambda: roi_attention.roi_attention(
+        q, k, v, pos, blk, blk, True))
+    plain_ms = time_ms(torch, lambda: ref.roi_attention(
+        q, k, v, pos, blk, blk, True), reps=5)
+    lib_ms = time_ms(torch, lambda: sdpa(qh, kh, vh, attn_mask=mask))
+    # the bound counts the work the function needs: 4*D FLOP per head for
+    # each visible (real query, real key) pair, pos_k <= pos_q, and the
+    # bytes of the real rows' q, k, v, the positions, and the whole output
+    # and visited counts written once
+    real_pos = np.sort(pos_np[pos_np != PAD])
+    needed = int(np.searchsorted(real_pos, real_pos, side="right").sum())
+    nbytes = ((3 * real_pos.size + S) * H * D * q.element_size() + S * 4
+              + H * nq * 4)
+    flops = 4 * D * H * needed
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    visited_ms, _ = bound(nbytes, 4 * blk * blk * D * pairs * H,
+                          BF16_FLOP_PER_S)
+    check = (f"bf16 S={S} H={H} D={D} blocks {blk}, n_kept={n_kept}; atol "
+             f"{ATTN_TOL['bfloat16']} and per element 2^-7|want| + 1e-3 on "
+             f"real rows (largest share of that bar {use:.4f}, median |want| "
+             f"{med:.5f}); skip == exhaustive bitwise {same}; visited "
+             f"{pairs} of {nq * nq} block pairs per head == bound {vis_ok}; "
+             f"exhaustive ms {exhaustive_ms:.4f}; SDPA (bool mask) vs kernel "
+             f"on real rows {lib_err}; bound: 4*D FLOP per head for each of "
+             f"the {needed} visible real (q, k) pairs per head at 989 TFLOP/s "
+             f"(bf16), the {real_pos.size} real rows' q, k, v, positions, "
+             f"out and visited once at 3.35 TB/s (4*bq*bk*D per visited "
+             f"block pair would give {visited_ms:.4f} ms)")
+    results["roi_attention"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, check=check)
+    say(f"[kernels] roi_attention: {check} max_abs_err={err} ok={ok} "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+        f"library_ms={lib_ms}")
+    if not ok:
+        raise AssertionError("roi_attention disagrees with its plain version")
+    return keep
+
+
+def serve_phase(torch, dev, keep, cfg):
+    """Phase 3e: internvl2-26b at full width serving the fleet's patch
+    stream -- 4 requests of one frame each through ``serve`` with 8
+    greedy steps; B12 on the engine's own layer-0 and last-layer q/k/v;
+    the pruned-prompt identity.  Returns the engine-tensor B12 calls'
+    launches, counted from 0."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import forward as F, layers as L, model as M
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    torch.cuda.synchronize()
+    n_params = count_params(params)
+    say(f"[serve] {cfg.name}: {cfg.num_layers} layers (full depth), d_model "
+        f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"frontend {cfg.frontend_dim}; {n_params / 1e9:.3f} B parameters "
+        f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB, {cfg.dtype}) "
+        f"drawn in {time.perf_counter() - t0:.1f} s")
+    S, n_kept = keep.size, int(keep.sum())
+    streams = [np.random.default_rng((SEED, 100 + f)).standard_normal(
+        (S, cfg.frontend_dim), dtype=np.float32) for f in range(N_REQUESTS)]
+    engine = ServingEngine(cfg, ServeConfig(roi_sparsity=True), params)
+
+    # host-clock timings of each prefill and decode step, ending in a
+    # synchronize; the first prefill's logits for the identity below
+    prefill_ms, decode_ms, first = [], [], {}
+    roi_prefill, decode_group = engine.roi_prefill, engine._decode_group
+
+    def timed_prefill(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = roi_prefill(*a, **kw)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t) * 1e3)
+        first.setdefault("res", res)
+        return res
+
+    def timed_decode(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = decode_group(*a)
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    engine.roi_prefill, engine._decode_group = timed_prefill, timed_decode
+    reqs = [Request(i, tokens=x, keep=keep, max_new_tokens=DECODE_STEPS)
+            for i, x in enumerate(streams)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = engine.serve(reqs, greedy_steps=DECODE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    res0 = first["res"]
+    Sp = -(-S // 128) * 128
+    ok = (res0.n_kept == n_kept and sorted(out) == list(range(N_REQUESTS))
+          and all(t.shape == (DECODE_STEPS,) and (t >= 0).all()
+                  and (t < cfg.vocab_size).all() for t in out.values()))
+    say(f"[serve] {N_REQUESTS} requests of S={S} patch tokens, n_kept="
+        f"{res0.n_kept} (packed length {Sp}): serve wall {wall * 1e3:.1f} ms;"
+        f" roi_prefill ms {np.round(prefill_ms, 3).tolist()}; decode ms per "
+        f"step {np.round(decode_ms, 3).tolist()}; ring_rebuilds "
+        f"{engine.ring_rebuilds}; peak memory {peak:.2f} GiB; tokens "
+        f"{ {k: v.tolist() for k, v in out.items()} }")
+    assert ok and n_kept == FLEET_KEPT and Sp == FLEET_PACKED, (n_kept, Sp)
+    assert engine.ring_rebuilds == 1 and len(decode_ms) == DECODE_STEPS
+
+    # the pruned-prompt identity: the last kept row's logits equal a dense
+    # prefill of the kept patches alone at their original positions
+    kept = np.nonzero(keep)[0]
+    empty = torch.zeros((1, 0), dtype=torch.long, device=dev)
+    dense, _ = M.prefill(
+        params, cfg, {"tokens": empty,
+                      "patches": torch.as_tensor(streams[0][kept],
+                                                 device=dev)[None]},
+        M.init_cache(cfg, 1, n_kept, dev),
+        positions=torch.as_tensor(kept, dtype=torch.int32, device=dev)[None])
+    got, want = res0.logits[0, -1].float(), dense[0, -1].float()
+    scale = float(want.abs().max())
+    rel = float((got - want).abs().max()) / scale
+    same_top = int(got.argmax()) == int(want.argmax())
+    say(f"[serve] pruned-prompt identity: max |logit| {scale:.4f}, max "
+        f"error {rel * scale:.5f} = {rel:.5f} of the scale; same argmax "
+        f"{same_top}")
+    assert torch.isfinite(got).all() and rel <= PRUNED_REL_TOL
+    del dense, res0, first
+
+    # B12 on the engine's own tensors: layer 0's and the last layer's q
+    # and repeat_kv'd k, v of request 0's packed stream
+    packed, positions, _ = ops.pack_tokens(
+        torch.as_tensor(streams[0], device=dev), torch.as_tensor(keep,
+                                                                 device=dev))
+    pos = positions[None]
+    x = M._front(params, cfg, {"tokens": empty, "patches": packed[None]})
+    rope = F._rope(cfg, Sp, positions=pos, device=dev)
+    stack = F._sub(params, "blocks_")
+    G = cfg.num_heads // cfg.num_kv_heads
+    taps = {}
+    for i in range(cfg.num_layers):
+        lp = F.layer_params(stack, i)
+        if i in (0, cfg.num_layers - 1):
+            h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+            q, k, v = F.project_qkv(h, lp, cfg, rope)
+            k, v = L.repeat_kv(k, G), L.repeat_kv(v, G)
+            o = L.blockwise_attention(q, k, v, q_positions=pos,
+                                      kv_positions=pos)
+            taps[i] = [t[0].contiguous() for t in (q, k, v, o)]
+        x, _ = F.dense_block(x, lp, cfg, rope_sincos=rope, positions=pos)
+    del x, h, q, k, v, o, packed
+
+    def engine_attention():
+        return [ops.roi_attention(q, k, v, positions, return_stats=True)
+                for q, k, v, _ in taps.values()]
+
+    got, launches, disp, _ = run_path(torch, engine_attention)
+    bound_rows = ops.attention_visit_bound(positions.cpu().numpy())
+    for (layer, (q, k, v, o)), (out_k, vis) in zip(taps.items(), got):
+        full = ops.roi_attention(q, k, v, positions, causal_skip=False)
+        want = ref.roi_attention(q, k, v, positions)[0]
+        e_plain, u_plain, med = attn_err(out_k[:n_kept], want[:n_kept])
+        e_block, u_block, _ = attn_err(out_k[:n_kept], o[:n_kept])
+        same = torch.equal(out_k[:n_kept], full[:n_kept])
+        vis_ok = np.array_equal(vis.cpu().numpy(), np.broadcast_to(
+            bound_rows, vis.shape))
+        pairs = int(vis[0].sum())
+        say(f"[serve] B12 on layer {layer}'s q/k/v (S={Sp}, H="
+            f"{q.shape[1]}, D={q.shape[2]}, {q.dtype}), on {n_kept} real "
+            f"rows (median |want| {med:.5f}): max error vs plain {e_plain} "
+            f"({u_plain:.4f} of the relative bar), vs the engine's "
+            f"blockwise_attention {e_block} ({u_block:.4f} of it); skip == "
+            f"exhaustive bitwise {same}; visited {pairs} of "
+            f"{(Sp // 128) ** 2} block pairs per head == bound {vis_ok}")
+        assert e_plain <= ATTN_TOL["bfloat16"] and u_plain <= 1.0 and \
+            e_block <= ATTN_TOL["bfloat16"] and u_block <= 1.0 and \
+            same and vis_ok
+        assert pairs == FLEET_PAIRS, pairs
+    say(f"[serve] B12 entry point on the engine's tensors: dispatches "
+        f"{disp}; launches {launches}")
+    return launches
+
 
 def run_path(torch, fn, *args):
     """Drive one path with every count set to 0 just before it; returns
@@ -847,6 +1201,7 @@ def run_path(torch, fn, *args):
 
 # the path each kernel's ``launches`` is read from
 PATH_OF = {"tile_delta": "rate", "tile_delta_halo": "rate",
+           "roi_attention": "serve",
            **{k: "layers" for k in ("roi_conv_packed", "roi_conv_fleet",
                                     "roi_conv", "sbnet_gather",
                                     "sbnet_scatter")}}
@@ -888,6 +1243,8 @@ def main() -> int:
     results = check_kernels(torch, det, frames, nxt, grids)
     del nxt
     torch.cuda.empty_cache()
+    keep = check_attention(torch, dev, grids, results)
+    torch.cuda.empty_cache()
 
     from repro_torch.serving.detector import PackedActivationCache
     caches = {"canvas": PackedActivationCache(),
@@ -913,6 +1270,10 @@ def main() -> int:
         torch, layer_paths, torch, det, frames, grids)
     say(f"[main] per-layer and single-camera paths: dispatches {disp}; "
         f"launches {launches['layers']}; peak memory {peak:.2f} GiB")
+    del det, frames, grids, rng, gen
+    torch.cuda.empty_cache()
+    from repro_torch.configs import get_config
+    launches["serve"] = serve_phase(torch, dev, keep, get_config(ARCH))
 
     rows = []
     for kname, (source, replaces) in KERNELS.items():

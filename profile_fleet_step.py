@@ -15,7 +15,12 @@ step's gate stats (no launch); and the detector's fused and per-layer
 paths (``chip_smoke.py`` phase 3d): ``fleet_forward`` and
 ``fleet_forward_layers`` over the fleet, ``roi_forward`` and
 ``roi_forward_layers`` on one 1920x1080 leg, its tables cached, after a
-``cProfile`` of the first ``roi_forward`` call, which builds them.  For
+``cProfile`` of the first ``roi_forward`` call, which builds them; then,
+the fleet freed, the serving path of ``chip_smoke.py`` phase 3e at full
+width (internvl2-26b, bf16 weights drawn on the card): one
+``roi_prefill`` of one frame's fleet patch stream (after a warm-up
+prefill), B12 on that stream's layer-0 q/k/v (its CUDA-event span beside
+its device time), and one greedy decode step of a 4-request group.  For
 each it prints the step's
 wall time (host clock around work that ends in a synchronize), the
 device busy time (the sum of the kernel, copy and fill durations the
@@ -36,7 +41,7 @@ import numpy as np
 import chip_smoke as cs
 
 
-def profile_step(torch, step_fn, label):
+def profile_step(torch, step_fn, label, top=8):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -55,7 +60,7 @@ def profile_step(torch, step_fn, label):
     cs.say(f"[{label}] wall_ms={wall_us / 1e3:.3f} "
            f"device_busy_ms={busy_us / 1e3:.3f} "
            f"idle_share={1 - busy_us / wall_us:.3f}")
-    for name, us in by_kernel.most_common(8):
+    for name, us in by_kernel.most_common(top):
         cs.say(f"[{label}]   device {us / 1e3:8.3f} ms  {name[:90]}")
     host = sorted(prof.key_averages(), key=lambda k: -k.self_cpu_time_total)
     for k in host[:8]:
@@ -161,7 +166,63 @@ def main() -> int:
     profile_step(torch, lambda: det.roi_forward(leg, leg_grid), "roi")
     profile_step(torch, lambda: det.roi_forward_layers(leg, leg_grid),
                  "roi-layers")
+    keep = cs.fleet_keep(grids)
+    del det, cache, packed, state, frames, prev, triples, st, fl_f, leg
+    torch.cuda.empty_cache()
+    profile_serving(torch, dev, keep)
     return 0
+
+
+def profile_serving(torch, dev, keep):
+    """One full-width ``roi_prefill``, B12 on its layer-0 tensors, and one
+    4-request decode step, each under ``torch.profiler``."""
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import forward as F, layers as L, model as M
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config(cs.ARCH)
+    params = init_params(cfg, torch.Generator(device=dev)
+                         .manual_seed(cs.SEED), dev)
+    engine = ServingEngine(cfg, ServeConfig(roi_sparsity=True), params)
+    stream = np.random.default_rng((cs.SEED, 100)).standard_normal(
+        (keep.size, cfg.frontend_dim), dtype=np.float32)
+    packed, positions, _ = ops.pack_tokens(
+        torch.as_tensor(stream, device=dev), torch.as_tensor(keep,
+                                                             device=dev))
+    pos = positions[None]
+    x = M._front(params, cfg, {"tokens": torch.zeros((1, 0), dtype=torch.long,
+                                                     device=dev),
+                               "patches": packed[None]})
+    lp = F.layer_params(F._sub(params, "blocks_"), 0)
+    rope = F._rope(cfg, x.shape[1], positions=pos, device=dev)
+    q, k, v = F.project_qkv(L.rmsnorm(x, lp["ln1"], cfg.norm_eps), lp, cfg,
+                            rope)
+    G = cfg.num_heads // cfg.num_kv_heads
+    q, k, v = (t[0].contiguous() for t in (q, L.repeat_kv(k, G),
+                                           L.repeat_kv(v, G)))
+    del x, packed
+    # B12 first: on an H100 with torch 2.11, a short session right after
+    # the prefill's ~34k traced launches recorded no device activity
+    span = cs.time_ms(torch, lambda: ops.roi_attention(q, k, v, positions))
+    cs.say(f"[serve-b12] CUDA-event span {span:.4f} ms (median of 7)")
+    profile_step(torch, lambda: ops.roi_attention(q, k, v, positions),
+                 "serve-b12")
+    del q, k, v
+
+    engine.roi_prefill(stream, keep)                  # warm-up
+    profile_step(torch, lambda: engine.roi_prefill(stream, keep),
+                 "serve-prefill", top=14)
+
+    n_req, n_kept = cs.N_REQUESTS, int(keep.sum())
+    ring = M.init_cache(cfg, n_req, positions.shape[0] + cs.DECODE_STEPS,
+                        dev)
+    tok = torch.zeros((n_req, 1), dtype=torch.long, device=dev)
+    at = torch.full((n_req,), n_kept, device=dev)
+    engine._decode_group(tok, ring, at)               # warm-up
+    profile_step(torch, lambda: engine._decode_group(tok, ring, at + 1),
+                 "serve-decode")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""CrossRoI's online fleet step in PyTorch, with hand-written CUDA kernels
-for the NVIDIA H100 (``sm_90a``).
+"""CrossRoI's online fleet step and its RoI-packed transformer serving in
+PyTorch, with hand-written CUDA kernels for the NVIDIA H100 (``sm_90a``).
 
 The package runs the delta-gated fleet step: the cold super-launch
 (``fleet.runtime.fleet_inference_step``) and the warm, changed-tiles-only
@@ -8,8 +8,12 @@ canvas or in packed per-tile windows; and the edge rate-control loop
 around it (``net``: static-tile fractions, the rate controller, the
 per-camera gate-threshold schedule); and the detector's single-camera path
 (``RoIDetector.roi_forward``, ``forward``) and per-layer chains
-(``roi_forward_layers``, ``fleet_forward_layers``).  Twelve CUDA kernels
-carry them, built from ``kernels/csrc`` with ``nvcc`` at first use:
+(``roi_forward_layers``, ``fleet_forward_layers``); and the RoI-packed
+serving engine (``serving.engine.ServingEngine``: packed prefill of the
+kept patch tokens, batched greedy decode over a persistent cache ring)
+for the dense/vlm model family (``configs``, ``models``; internvl2-26b).
+Thirteen CUDA kernels carry them, built from ``kernels/csrc`` with
+``nvcc`` at first use:
 
 * ``tile_delta_gate_canvas`` / ``tile_delta_gate`` -- per-tile delta
   stats against the reference canvas / packed reference windows (the
@@ -23,14 +27,19 @@ carry them, built from ``kernels/csrc`` with ``nvcc`` at first use:
   ``roi_conv_packed`` -- one later layer, no ReLU (the per-layer chain);
 * ``sbnet_scatter_fleet`` -- packed head tiles into the (C, H, W, A)
   canvas; ``sbnet_scatter`` / ``sbnet_gather`` -- one camera's tiles
-  into / out of an (H, W, C) frame.
+  into / out of an (H, W, C) frame;
+* ``roi_attention`` -- flash attention over RoI-packed tokens, causal on
+  their original positions, with the causal block skip
+  (``kernels.ops.roi_attention``; the engine's prefill runs the layers'
+  ``blockwise_attention``, as the JAX engine does).
 
 Entry points run on ``torch.device("cuda")`` unless the caller passes
 ``device="cpu"``; on a CPU tensor every kernel wrapper takes its plain
 PyTorch version (``kernels/ref.py``).  Public layouts follow the JAX
 package ``repro``: frames NHWC, weights HWIO, head (C_last, A), index
-tables (n, 3) and (n, 8) int32.  This package imports neither ``jax`` nor
-anything of ``repro``.
+tables (n, 3) and (n, 8) int32, packed tokens (S, H, D), model
+parameters as stacked ``(L, ...)`` tensors under the JAX names.  This
+package imports neither ``jax`` nor anything of ``repro``.
 """
 import torch
 

@@ -1,0 +1,133 @@
+"""Config dataclasses: the port's copy of ``ModelConfig`` (every field of
+the JAX package's, so that configurations read the same) and
+``ServeConfig``.  Parameter counts cover the families the port runs,
+dense and vlm.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    # identity ---------------------------------------------------------------
+    name: str
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
+    source: str = ""  # provenance note: [arXiv/hf ref; verification tier]
+
+    # trunk ------------------------------------------------------------------
+    num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0  # 0 => attention-free trunk
+    num_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    norm_eps: float = 1e-6
+    rope_theta: float = 10_000.0
+    act: str = "silu"  # silu (SwiGLU) | gelu (plain MLP, whisper)
+    tie_embeddings: bool = True
+
+    # attention pattern -------------------------------------------------------
+    window_size: int = 0  # 0 => full attention everywhere
+    global_every: int = 0  # gemma3: one global layer per this many layers
+    logit_softcap: float = 0.0  # gemma-style attn logit soft-capping
+
+    # moe ---------------------------------------------------------------------
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0  # per-(routed)-expert hidden dim
+    num_shared_experts: int = 0
+    shared_d_ff: int = 0  # total hidden dim of the shared-expert MLP
+    first_dense_layers: int = 0  # deepseek-moe: leading dense layers
+    router_aux_coef: float = 0.001
+    capacity_factor: float = 1.25
+
+    # ssm (mamba2 / rwkv6) ----------------------------------------------------
+    ssm_state_dim: int = 0
+    ssm_num_heads: int = 0
+    ssm_head_dim: int = 0
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    ssm_conv_width: int = 4
+    attn_every: int = 0  # zamba2: shared attention block every N ssm blocks
+    num_shared_attn_blocks: int = 0  # zamba2: how many distinct shared blocks
+
+    # encoder-decoder ---------------------------------------------------------
+    encoder_layers: int = 0
+    decoder_layers: int = 0
+    max_target_len: int = 448
+
+    # modality frontend (a stub: inputs carry precomputed embeddings)
+    frontend: str = "none"  # none | conv_audio | vit_patch
+    frontend_dim: int = 0  # dim of precomputed frame/patch embeddings
+
+    # numerics ----------------------------------------------------------------
+    dtype: str = "bfloat16"
+    # perf variants (defaults = the paper-era baseline)
+    decode_grouped_attn: bool = False  # GQA decode without repeat_kv blowup
+    kv_cache_dtype: str = "bfloat16"   # | float8_e4m3fn (halves cache bytes)
+
+    # --- derived -------------------------------------------------------------
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
+    def ssm_inner(self) -> int:
+        return self.ssm_num_heads * self.ssm_head_dim
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    # parameter counting (for 6·N·D roofline cross-checks) -------------------
+    def param_count(self) -> int:
+        return sum(int(x) for x in _param_counts(self).values())
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top-k experts only)."""
+        counts = _param_counts(self)
+        total = sum(int(v) for v in counts.values())
+        if self.num_experts and self.experts_per_token:
+            routed = counts["moe_routed"]
+            total -= int(routed)
+            total += int(routed * self.experts_per_token / self.num_experts)
+        return int(total)
+
+
+def _param_counts(cfg: ModelConfig) -> dict:
+    """Analytic per-component parameter counts (``models/params.py``)."""
+    if cfg.family not in ("dense", "vlm"):
+        raise NotImplementedError(
+            f"parameter counts of the {cfg.family!r} family are not ported "
+            f"yet (ROADMAP.md)")
+    d = cfg.d_model
+    counts: dict = {"embed": cfg.vocab_size * d}
+    if not cfg.tie_embeddings:
+        counts["unembed"] = cfg.vocab_size * d
+    attn = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
+    if cfg.act in ("silu", "gelu_glu"):       # GLU family: 3 mats, no bias
+        mlp = 3 * d * cfg.d_ff
+    else:                                     # plain gelu mlp with biases
+        mlp = 2 * d * cfg.d_ff + cfg.d_ff + d
+    counts["attn"] = cfg.num_layers * attn
+    counts["mlp"] = cfg.num_layers * mlp
+    counts["norms"] = cfg.num_layers * 2 * d + d
+    if cfg.frontend == "vit_patch":
+        counts["frontend_proj"] = cfg.frontend_dim * d + d
+    return counts
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    """Knobs for the serving engine."""
+    max_batch: int = 128
+    max_seq: int = 32_768
+    roi_sparsity: bool = False  # CrossRoI token-RoI packed prefill
+    kv_seq_shard: bool = False  # shard the KV cache's sequence dim (data)
+    decode_attn_impl: str = "full"  # full | banded (for SWA archs)

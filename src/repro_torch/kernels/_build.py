@@ -30,7 +30,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("tile_delta_gate.cu", "tile_delta.cu", "roi_conv_entry.cu",
-           "roi_conv_packed.cu", "roi_conv_stack.cu", "sbnet.cu")
+           "roi_conv_packed.cu", "roi_conv_stack.cu", "sbnet.cu",
+           "roi_attention.cu")
 HEADERS = ("tile_delta_common.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -77,13 +78,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     # packed, idx, base / x, idx, out; n, th, tw, A, H, W, stream
     for f in (lib.sbnet_scatter_launch, lib.sbnet_gather_launch):
         f.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    # q, k, v, positions, kmin, out, visited, S, H, D, bq, bk, causal_skip,
+    # bf16, scale, stream
+    lib.roi_attention_launch.argtypes = \
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
     for f in (lib.tile_delta_gate_canvas_launch, lib.tile_delta_gate_launch,
               lib.tile_delta_launch, lib.tile_delta_halo_launch,
               lib.roi_conv_entry_launch, lib.roi_conv_fleet_launch,
               lib.roi_conv_launch, lib.roi_conv_packed_launch,
               lib.roi_conv_packed_smem_bytes, lib.roi_conv_stack_launch,
               lib.roi_conv_stack_smem_bytes, lib.sbnet_scatter_fleet_launch,
-              lib.sbnet_scatter_launch, lib.sbnet_gather_launch):
+              lib.sbnet_scatter_launch, lib.sbnet_gather_launch,
+              lib.roi_attention_launch):
         f.restype = ctypes.c_int
     lib.repro_cuda_error_name.argtypes = [_I]
     lib.repro_cuda_error_name.restype = ctypes.c_char_p

@@ -2,7 +2,9 @@
 
 Host side (numpy, static per mask): mask -> index-list conversion, the
 (n, 8) neighbour table of the packed conv chain, the fleet-flat super-launch
-tables, and the delta gate's changed-set dilation and compaction.
+tables, the delta gate's changed-set dilation and compaction, and the
+attention's visit bound.  Token packing for the RoI-packed prefill
+(``pack_tokens``/``unpack_tokens``) is plain tensor indexing.
 
 Every public kernel wrapper counts its dispatch under a name from
 ``KERNEL_NAMES`` before it launches, so tests and runs can assert the
@@ -21,9 +23,11 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import roi_attention as _roi_attention
 from repro_torch.kernels import roi_conv as _roi_conv
 from repro_torch.kernels import sbnet as _sbnet
 from repro_torch.kernels import tile_delta as _tile_delta
+from repro_torch.kernels.roi_attention import PAD_POS
 from repro_torch.kernels.roi_conv import NEIGHBOR_OFFSETS
 from repro_torch.kernels.tile_delta import (COEF_BITS, GATE_BODY_BYTES,
                                             GATE_BODY_NNZ, GATE_BODY_RUNS,
@@ -373,6 +377,71 @@ def tile_delta_halo(cur: torch.Tensor, prev: torch.Tensor,
                                        coef_bits, run_bits)
 
 
+def pack_tokens(x: torch.Tensor, keep: torch.Tensor, block: int = 128):
+    """Pack the kept rows of (S, ...) ``x`` into a dense prefix padded to
+    ``block``.  keep: (S,) bool.  Returns (packed (round_up(S, block),
+    ...), positions (same length,) int32, n_kept int): the kept rows in
+    their original order, then the dropped rows, then zero rows; positions
+    hold the kept rows' original indices and ``PAD_POS`` everywhere else.
+    The positions are monotone over real rows, the invariant the
+    attention's causal block skip uses."""
+    S = x.shape[0]
+    Sp = -(-S // block) * block
+    keep = keep.to(torch.bool)
+    order = torch.sort((~keep).to(torch.uint8), stable=True).indices
+    n_kept = int(keep.sum())
+    packed = x.new_zeros((Sp,) + tuple(x.shape[1:]))
+    packed[:S] = x[order]
+    positions = torch.full((Sp,), PAD_POS, dtype=torch.int32,
+                           device=x.device)
+    positions[:n_kept] = order[:n_kept].to(torch.int32)
+    return packed, positions, n_kept
+
+
+def unpack_tokens(packed: torch.Tensor, positions: torch.Tensor, S: int,
+                  fill: float = 0.0) -> torch.Tensor:
+    """Inverse of ``pack_tokens``: the real rows back to their original
+    places of an (S, ...) tensor of ``fill``; padding rows are dropped."""
+    out = packed.new_full((S,) + tuple(packed.shape[1:]), fill)
+    real = positions < S
+    out[positions[real].long()] = packed[real]
+    return out
+
+
+def roi_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  positions: torch.Tensor, block_q: int = 128,
+                  block_k: int = 128, causal_skip: bool = True,
+                  return_stats: bool = False):
+    """Packed-prefill attention over (S, H, D) with original-position
+    causality; S must already be block-padded (``pack_tokens`` does
+    this).  ``causal_skip`` bounds the k-block walk at the causal frontier
+    (exact: real rows unchanged); ``return_stats`` also returns the (H, S
+    // block_q) visited-k-block counts."""
+    record_dispatch("roi_attention")
+    out, visited = _roi_attention.roi_attention(q, k, v, positions, block_q,
+                                                block_k, causal_skip)
+    return (out, visited) if return_stats else out
+
+
+def attention_visit_bound(positions: np.ndarray, block_q: int = 128,
+                          block_k: int = 128) -> np.ndarray:
+    """Host mirror of the attention's causal bound: visited k-blocks per
+    q-block, (S // block_q,) int64, for FLOP accounting without a
+    launch."""
+    positions = np.asarray(positions)
+    S = positions.shape[0]
+    kmin = positions.reshape(S // block_k, block_k).min(axis=1)
+    out = np.zeros(S // block_q, np.int64)
+    for qi in range(S // block_q):
+        pq = positions[qi * block_q:(qi + 1) * block_q]
+        real = pq[pq != PAD_POS]
+        if real.size == 0:
+            continue
+        hits = np.nonzero(kmin <= real.max())[0]
+        out[qi] = 0 if hits.size == 0 else int(hits[-1]) + 1
+    return out
+
+
 __all__ = ["KERNEL_NAMES", "KERNEL_COUNTS", "record_dispatch",
            "count_kernels", "NEIGHBOR_OFFSETS", "COEF_BITS", "RUN_BITS",
            "STATS_WIDTH", "GATE_BODY_BYTES", "GATE_BODY_NNZ",
@@ -385,4 +454,5 @@ __all__ = ["KERNEL_NAMES", "KERNEL_COUNTS", "record_dispatch",
            "sbnet_gather", "sbnet_scatter", "sbnet_scatter_fleet",
            "sbnet_scatter_changed", "tile_delta_gate_canvas",
            "tile_delta_gate", "gather_windows", "tile_delta",
-           "tile_delta_halo"]
+           "tile_delta_halo", "PAD_POS", "pack_tokens", "unpack_tokens",
+           "roi_attention", "attention_visit_bound"]

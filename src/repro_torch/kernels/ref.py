@@ -1,11 +1,14 @@
 """Plain PyTorch versions of the port's CUDA kernels.
 
-Each function computes what its kernel computes, in float32, from
-elementwise tensor operations only: no cuDNN convolution and no cuBLAS
-product, so ``torch.backends.cudnn.allow_tf32`` and
-``torch.backends.cuda.matmul.allow_tf32`` cannot change a bit of them on
-the card.  The kernel wrappers use these for CPU tensors; ``chip_smoke.py``
-holds every kernel against them on the card.
+Each function computes what its kernel computes, in float32.  The tile
+kernels' versions use elementwise tensor operations only: no cuDNN
+convolution and no cuBLAS product, so ``torch.backends.cudnn.allow_tf32``
+and ``torch.backends.cuda.matmul.allow_tf32`` cannot change a bit of them
+on the card.  The attention's version takes its two products with
+``torch.matmul`` in float32 (an elementwise (S, S, D) product would not
+fit at the serving shapes); on the card its callers set
+``allow_tf32 = False``.  The kernel wrappers use these for CPU tensors;
+``chip_smoke.py`` holds every kernel against them on the card.
 
 The 3x3 convolutions accumulate their taps in the kernels' fixed order
 (``dy``, then ``dx``, then input channel ``ci``), one multiply and one add
@@ -261,3 +264,50 @@ def sbnet_scatter(packed: torch.Tensor, idx: torch.Tensor,
     ``base``."""
     sbnet_scatter_fleet(packed, _cam0(idx), base[None])
     return base
+
+
+def roi_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  positions: torch.Tensor, block_q: int = 128,
+                  block_k: int = 128, causal_skip: bool = True):
+    """RoI-packed attention: q, k, v (S, H, D) packed tokens, positions (S,)
+    int32 original positions (``PAD_POS`` on padding rows).  Query i
+    attends key j iff positions[i] >= positions[j], as the JAX package's
+    ``ref.roi_attention`` computes it: float32 logits scaled by
+    1/sqrt(D), masked to -1e30, a softmax over each whole row, in q's
+    dtype.  Like the kernel, a q-block attends only the k-blocks below its
+    visit bound ``hi`` (every k-block without ``causal_skip``), and a
+    q-block with ``hi == 0`` -- no real row -- gives zeros; real rows are
+    unchanged by either rule.  Returns (out, visited (H, S // block_q)
+    int32 the ``hi`` of each q-block).  One head's (S, S) logits at a
+    time."""
+    from repro_torch.kernels.roi_attention import (PAD_POS,
+                                                   block_min_positions)
+    S, H, D = q.shape
+    dev = q.device
+    nq, nk = S // block_q, S // block_k
+    if causal_skip:
+        kmin = block_min_positions(positions, block_k)
+        pos_q = positions.reshape(nq, block_q)
+        pmax = torch.where(pos_q != PAD_POS, pos_q, -1).amax(dim=1)
+        hits = kmin[None, :] <= pmax[:, None]
+        j = torch.arange(1, nk + 1, device=dev)
+        hi = torch.where(hits, j, 0).amax(dim=1)
+    else:
+        hi = torch.full((nq,), nk, device=dev)
+    hi_row = hi.repeat_interleave(block_q)
+    kblock = torch.arange(S, device=dev) // block_k
+    visible = (positions[:, None] >= positions[None, :]) \
+        & (kblock[None, :] < hi_row[:, None])
+    scale = 1.0 / D ** 0.5
+    out = torch.empty((S, H, D), dtype=torch.float32, device=dev)
+    for h in range(H):
+        logits = (q[:, h].float() @ k[:, h].float().T) * scale
+        logits.masked_fill_(~visible, -1e30)
+        p = (logits - logits.amax(dim=1, keepdim=True)).exp_()
+        del logits
+        denom = p.sum(dim=1, keepdim=True).clamp_min_(1e-30)
+        out[:, h] = p.div_(denom) @ v[:, h].float()
+        del p
+    out[hi_row == 0] = 0.0
+    visited = hi.to(torch.int32)[None].expand(H, nq).contiguous()
+    return out.to(q.dtype), visited

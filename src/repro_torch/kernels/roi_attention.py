@@ -1,0 +1,74 @@
+"""RoI-packed prefill attention (CUDA kernel in ``csrc/roi_attention.cu``).
+
+Flash attention over the tokens ``ops.pack_tokens`` packs: causality
+follows the tokens' ORIGINAL positions (``pos_q >= pos_k``), padding rows
+carry ``PAD_POS`` (never attended by a real row), and with ``causal_skip``
+each q-block walks only the k-blocks up to the last one whose minimum
+position can be attended -- the bound ``block_min_positions`` feeds.
+Skipped and exhaustive walks are bitwise equal on real rows; the visited
+counts per (head, q-block) come back beside the output.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+PAD_POS = 2 ** 31 - 1          # INT32_MAX, on padding rows
+HEAD_DIMS = (16, 32, 64, 128)
+BLOCKS_Q = (32, 64, 128)
+SUB_CHUNK = 32                 # the kernel's keys per online-softmax step
+
+
+def block_min_positions(positions: torch.Tensor,
+                        block_k: int) -> torch.Tensor:
+    """Per-k-block minimum original position, (S // block_k,) int32.
+    For the packed layout it is ``positions[::block_k]``; the segment
+    minimum stays right for any position vector."""
+    S = positions.shape[0]
+    return positions.reshape(S // block_k, block_k).amin(dim=1)
+
+
+def roi_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  positions: torch.Tensor, block_q: int = 128,
+                  block_k: int = 128, causal_skip: bool = True):
+    """q, k, v: (S, H, D) float32 or bfloat16 packed tokens; positions:
+    (S,) int32 original positions (``PAD_POS`` on padding rows).  Returns
+    (out (S, H, D) in q's dtype, visited (H, S // block_q) int32).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    if q.device.type == "cpu":
+        return ref.roi_attention(q, k, v, positions, block_q, block_k,
+                                 causal_skip)
+    name = "roi_attention"
+    dev = _build.cuda_device(name, q, k, v, positions)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: q must be float32 or bfloat16, "
+                        f"got {q.dtype}")
+    _build.expect(name, "q", q, q.dtype, (None,) * 3)
+    S, H, D = q.shape
+    _build.expect(name, "k", k, q.dtype, (S, H, D))
+    _build.expect(name, "v", v, q.dtype, (S, H, D))
+    _build.expect(name, "positions", positions, torch.int32, (S,))
+    if D not in HEAD_DIMS or block_q not in BLOCKS_Q \
+            or block_k % SUB_CHUNK or block_k <= 0:
+        raise ValueError(f"{name}: takes head_dim in {HEAD_DIMS}, block_q in "
+                         f"{BLOCKS_Q} and block_k a multiple of {SUB_CHUNK}; "
+                         f"got D={D}, block_q={block_q}, block_k={block_k}")
+    if S % block_q or S % block_k:
+        raise ValueError(f"{name}: S={S} must divide by block_q={block_q} "
+                         f"and block_k={block_k} (pack_tokens pads)")
+    out = torch.empty_like(q)
+    visited = torch.empty((H, S // block_q), dtype=torch.int32, device=dev)
+    if S:
+        kmin = block_min_positions(positions, block_k).contiguous()
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            err = lib.roi_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                positions.data_ptr(), kmin.data_ptr(), out.data_ptr(),
+                visited.data_ptr(), S, H, D, block_q, block_k,
+                int(causal_skip), int(q.dtype == torch.bfloat16),
+                1.0 / D ** 0.5, _build.stream_handle(dev))
+        _build.check(err, name)
+        _build.LAUNCHES[name] += 1
+    return out, visited

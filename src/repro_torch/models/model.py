@@ -1,0 +1,79 @@
+"""Model API of the families the port runs (dense and vlm):
+
+  init_cache(cfg, batch, max_seq, device)         -> {"blocks": (k, v)}
+  prefill(params, cfg, batch, caches, ...)        -> (last_logits, caches)
+  decode_step(params, cfg, tokens, caches, pos)   -> (logits, caches)
+
+Batch schemas: dense ``{tokens (B, S)}``; vlm ``{tokens (B, S_txt),
+patches (B, S_img, frontend_dim)}``, the projected patches ahead of the
+text tokens.  ``decode_step`` takes ``pos`` as a scalar or a (B,) vector
+of per-sequence positions: the batch dimension written out where the JAX
+engine vmaps per-request scalars.  Caches are written in place.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import forward as F
+from repro_torch.models import layers as L
+
+
+def _families(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "vlm"):
+        raise NotImplementedError(
+            f"the {cfg.family!r} family is not ported yet (ROADMAP.md)")
+
+
+def _front(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    if cfg.family == "vlm":
+        tok = F._embed(params, cfg, batch["tokens"])
+        patches, w = batch["patches"], params["frontend_w"]
+        # jnp's promotion: a float32 patch stream meets bf16 weights in f32
+        dt = torch.promote_types(patches.dtype, w.dtype)
+        patch = patches.to(dt) @ w.to(dt) + params["frontend_b"]
+        return torch.cat([patch.to(tok.dtype), tok], dim=1)
+    return F._embed(params, cfg, batch["tokens"])
+
+
+def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None):
+    """Zeroed KV caches for a serving session: {"blocks": (k, v)}, each
+    (L, B, max_seq, KH, Dh) in ``cfg.kv_cache_dtype``."""
+    _families(cfg)
+    if cfg.global_every > 1 or cfg.window_size:
+        raise NotImplementedError(
+            "ring-buffer caches of windowed layers come with the "
+            "danube3/gemma3 slice (ROADMAP.md)")
+    shape = (cfg.num_layers, B, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    dt = getattr(torch, cfg.kv_cache_dtype)
+    return {"blocks": (torch.zeros(shape, dtype=dt, device=device),
+                       torch.zeros(shape, dtype=dt, device=device))}
+
+
+def prefill(params, cfg: ModelConfig, batch, caches, *, positions=None,
+            last_index=None):
+    """Process the whole prompt, fill the caches, return the logits of the
+    last row -- or of row ``last_index``: an RoI-packed prompt ends at its
+    last KEPT row, not its last padded one."""
+    _families(cfg)
+    x = _front(params, cfg, batch)
+    x, caches = F.dense_trunk(params, cfg, x, mode="prefill", caches=caches,
+                              positions=positions)
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    if last_index is None:
+        xe = x[:, -1:]
+    else:                             # clamped, as dynamic_slice clamps
+        i = min(max(int(last_index), 0), x.shape[1] - 1)
+        xe = x[:, i:i + 1]
+    return F._unembed(params, cfg, xe), caches
+
+
+def decode_step(params, cfg: ModelConfig, tokens, caches, pos):
+    """tokens: (B, 1), each sequence's token at position ``pos`` (scalar
+    or (B,))."""
+    _families(cfg)
+    x = F._embed(params, cfg, tokens)
+    x, caches = F.dense_trunk(params, cfg, x, mode="decode", caches=caches,
+                              pos=pos)
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return F._unembed(params, cfg, x), caches

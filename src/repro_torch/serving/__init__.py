@@ -1,1 +1,2 @@
-"""The online server model: the RoI detector and its reuse cache."""
+"""The online server models: the RoI detector and its reuse cache, and the
+RoI-packed transformer serving engine."""

@@ -1,0 +1,303 @@
+"""Batched serving engine with RoI-packed prefill and batched decode, the
+port's copy of ``repro.serving.engine``.
+
+When a prompt is a multi-camera patch stream (VLM), the offline set-cover
+mask gives a keep-list.  The engine packs the kept tokens into a dense
+prefix (``kernels.ops.pack_tokens``), prefills only the packed rows, and
+decodes against the packed KV cache: positions travel with the tokens
+(RoPE at original positions, causality in original order), so attention
+stays right.
+
+Decode is batched across a request group: prefills stay per request
+(keep-lists are ragged), each into its slot of one persistent group cache
+ring, and each greedy step is one batched ``decode_step`` over the group,
+with per-request positions as a (G,) vector -- so RoI-packed (start =
+n_kept) and dense (start = S) requests share a batch.
+
+Differences from the JAX engine: ring slots are views of the ring that
+prefill writes in place (the JAX engine donates the ring to a jitted
+update); the obs spans and metrics come with the obs slice.  The prefill
+runs the layers' ``blockwise_attention``, as the JAX engine does, not
+the B12 kernel (``kernels.ops.roi_attention``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, ServeConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models import model as M
+
+
+@dataclass
+class Request:
+    rid: int
+    tokens: Optional[np.ndarray] = None          # (S,) int prompt, or the
+    #                                              (S, D) VLM patch stream
+    patches: Optional[np.ndarray] = None         # (S_img, D) VLM stream
+    keep: Optional[np.ndarray] = None            # (S,) bool RoI keep-list
+    max_new_tokens: int = 16
+    # deadline-batched serving (serve_deadline): the request's camera
+    # group, and when it arrived at the server
+    group: Optional[int] = None
+    arrival_s: float = 0.0
+
+
+@dataclass
+class ServeReport:
+    """Accounting from ``serve_deadline``: how request groups formed."""
+    complete_flushes: int = 0        # group reached its expected size
+    deadline_flushes: int = 0        # released early by the deadline
+    straggler_requests: int = 0      # arrived after their group released
+    release_s: Dict[int, float] = field(default_factory=dict)  # rid -> t
+
+    def wait_s(self, req: "Request") -> float:
+        """Batching delay this request paid in the group former."""
+        return self.release_s[req.rid] - req.arrival_s
+
+
+@dataclass
+class RoIPrefillResult:
+    logits: torch.Tensor
+    caches: Any
+    n_kept: int
+    n_total: int
+
+    @property
+    def compute_fraction(self) -> float:
+        return self.n_kept / max(self.n_total, 1)
+
+
+def _round_up(x: int, block: int) -> int:
+    return -(-x // block) * block
+
+
+class ServingEngine:
+    """``params`` live on the device the engine serves from (the card in
+    production; tests pass CPU parameters)."""
+
+    def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params: Dict):
+        self.cfg = cfg
+        self.scfg = scfg
+        self.params = params
+        self.device = params["embed"].device
+        # the group decode step: one batched dispatch for the whole group
+        self._decode_group = lambda t, c, pos: M.decode_step(
+            self.params, cfg, t, c, pos)
+        # the persistent group cache ring: {"blocks": (k, v)} of (L, G,
+        # Smax, KH, Dh), reused across flushes.  Stale slot contents are
+        # harmless: decode attends only rows this request's prefill and
+        # decode wrote (rows past the current position are masked).
+        self._ring = None
+        self._ring_sig: Optional[Tuple[int, int]] = None
+        self.ring_rebuilds = 0          # ring (re)allocations
+        self.cache_stack_count = 0      # decode_tokens_group's stacks
+
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device)
+
+    # -- plain prefill -----------------------------------------------------
+    def prefill(self, batch: Dict, max_seq: Optional[int] = None,
+                caches=None):
+        """``caches`` (optional) supplies preallocated caches: ``serve``
+        passes a slot of the persistent ring."""
+        batch = {k: self._tensor(v) for k, v in batch.items()}
+        B = next(iter(batch.values())).shape[0]
+        max_seq = max_seq or self.scfg.max_seq
+        if caches is None:
+            caches = M.init_cache(self.cfg, B, max_seq, self.device)
+        return M.prefill(self.params, self.cfg, batch, caches)
+
+    # -- RoI-packed prefill --------------------------------------------------
+    def roi_prefill(self, tokens, keep, block: int = 128,
+                    max_seq: Optional[int] = None,
+                    caches=None) -> RoIPrefillResult:
+        """tokens: (S,) or (S, D) stream; keep: (S,) bool.  Packs the kept
+        tokens and prefills the packed prefix at their original positions.
+        ``max_seq`` sizes the KV cache (>= the packed length; decode masks
+        slots past the current position, so a longer cache is safe)."""
+        tokens, keep = self._tensor(tokens), self._tensor(keep)
+        S = tokens.shape[0]
+        packed, positions, n_kept = kops.pack_tokens(tokens, keep, block)
+        Sp = packed.shape[0]
+        # padding rows carry PAD_POS: no real row attends them, their own
+        # rows are discarded, and decode masks cache slots >= n_kept
+        if packed.ndim == 1:
+            batch = {"tokens": packed[None]}
+        else:                         # a patch stream: the VLM frontend
+            batch = {"tokens": torch.zeros((1, 0), dtype=torch.long,
+                                           device=self.device),
+                     "patches": packed[None]}
+        if caches is None:
+            caches = M.init_cache(self.cfg, 1, max(max_seq or Sp, Sp, 1),
+                                  self.device)
+        logits, caches = M.prefill(self.params, self.cfg, batch, caches,
+                                   positions=positions[None],
+                                   last_index=n_kept - 1)
+        return RoIPrefillResult(logits, caches, n_kept, S)
+
+    # -- decode ---------------------------------------------------------------
+    def decode_tokens(self, caches, first_token: torch.Tensor, start_pos: int,
+                      n_steps: int) -> Tuple[np.ndarray, Any]:
+        B = first_token.shape[0]
+        out = []
+        tok = first_token.reshape(B, 1)
+        for i in range(n_steps):
+            logits, caches = M.decode_step(self.params, self.cfg, tok, caches,
+                                           start_pos + i)
+            tok = torch.argmax(logits[:, -1], dim=-1).reshape(B, 1)
+            out.append(tok.to(torch.int32).cpu().numpy())
+        return np.concatenate(out, axis=1), caches
+
+    def decode_tokens_group(self, caches_list: List[Any],
+                            first_tokens: List[torch.Tensor],
+                            start_pos: List[int],
+                            n_steps: int) -> Tuple[np.ndarray, Any]:
+        """Greedy-decode G same-shape requests together.  caches_list:
+        per-request caches (B = 1, allocated at a group-common max_seq).
+        Returns (G, n_steps) tokens.  Stacks the per-request caches on
+        every call (counted in ``cache_stack_count``); ``serve`` prefills
+        straight into the persistent ring instead."""
+        self.cache_stack_count += 1
+        caches = {"blocks": tuple(
+            torch.cat([c["blocks"][j] for c in caches_list], dim=1)
+            for j in range(2))}
+        return self._decode_stacked(caches, first_tokens, start_pos, n_steps)
+
+    def _decode_stacked(self, caches, first_tokens, start_pos,
+                        n_steps: int) -> Tuple[np.ndarray, Any]:
+        tok = torch.stack([self._tensor(t).reshape(1)
+                           for t in first_tokens])            # (G, 1)
+        pos0 = torch.as_tensor(start_pos, dtype=torch.int64,
+                               device=self.device)            # (G,)
+        out = []
+        for i in range(n_steps):
+            logits, caches = self._decode_group(tok, caches, pos0 + i)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]      # (G, 1)
+            out.append(tok[:, 0].to(torch.int32).cpu().numpy())
+        return np.stack(out, axis=1), caches
+
+    # -- persistent group cache ring ------------------------------------------
+    def _ensure_ring(self, G: int, max_seq: int):
+        """(Re)allocate the group ring only when a flush needs a different
+        group size or a longer sequence than it holds."""
+        if (self._ring is None or self._ring_sig[0] != G
+                or self._ring_sig[1] < max_seq):
+            self._ring = None           # free the old ring first
+            self._ring = M.init_cache(self.cfg, G, max_seq, self.device)
+            self._ring_sig = (G, max_seq)
+            self.ring_rebuilds += 1
+        return self._ring
+
+    # -- batched request driver ----------------------------------------------
+    def serve(self, requests: List[Request], greedy_steps: int = 8
+              ) -> Dict[int, np.ndarray]:
+        """Group requests to ``max_batch``, prefill each (RoI-packed when
+        it has a keep-list and ``roi_sparsity`` is on) into its slot of
+        the persistent ring, then greedy-decode the group in lockstep, one
+        batched step each.  Returns {rid: generated tokens}."""
+        results: Dict[int, np.ndarray] = {}
+        group: List[Request] = []
+        for r in requests:
+            group.append(r)
+            if len(group) >= self.scfg.max_batch:
+                self._flush_group(group, greedy_steps, results)
+                group = []
+        self._flush_group(group, greedy_steps, results)
+        return results
+
+    def _flush_group(self, group: List[Request], greedy_steps: int,
+                     results: Dict[int, np.ndarray]) -> None:
+        """Prefill every request of ``group`` into the ring and decode the
+        batch in lockstep (``serve`` and the deadline former)."""
+        if not group:
+            return
+        pack_block = 128
+        steps = [min(r.max_new_tokens, greedy_steps) for r in group]
+        gsteps = max(steps)
+        # group-common cache length: every packed or dense prompt plus the
+        # GROUP's decode steps (a shorter budget must not let KV writes
+        # clamp onto the cache end)
+        need = []
+        for r in group:
+            if r.keep is not None and self.scfg.roi_sparsity:
+                need.append(_round_up(len(r.tokens), pack_block) + gsteps)
+            else:
+                need.append(len(r.tokens) + gsteps)
+        ring = self._ensure_ring(len(group), max(need))
+        rk, rv = ring["blocks"]
+        firsts, starts = [], []
+        for gi, r in enumerate(group):   # ragged per-request packing
+            slot = {"blocks": (rk[:, gi:gi + 1], rv[:, gi:gi + 1])}
+            if r.keep is not None and self.scfg.roi_sparsity:
+                res = self.roi_prefill(r.tokens, r.keep, block=pack_block,
+                                       caches=slot)
+                firsts.append(torch.argmax(res.logits[:, -1], dim=-1))
+                starts.append(res.n_kept)
+            else:
+                batch = {"tokens": np.asarray(r.tokens)[None]}
+                logits, _ = self.prefill(batch, caches=slot)
+                firsts.append(torch.argmax(logits[:, -1], dim=-1))
+                starts.append(len(r.tokens))
+        toks, _ = self._decode_stacked(ring, firsts, starts, gsteps)
+        for gi, (r, ns) in enumerate(zip(group, steps)):
+            results[r.rid] = toks[gi, :ns]
+
+    # -- deadline-based group forming -----------------------------------------
+    def serve_deadline(self, requests: List[Request],
+                       group_sizes: Dict[int, int],
+                       deadline_s: float, greedy_steps: int = 8
+                       ) -> Tuple[Dict[int, np.ndarray], ServeReport]:
+        """Deadline-based group former over a timestamped request stream.
+        Requests carry ``(group, arrival_s)``; a group flushes the moment
+        ``group_sizes[gid]`` members are pending, or when its oldest
+        pending member has waited ``deadline_s`` on the stream clock,
+        which advances with each arrival.  Members that show up after
+        their batch left are stragglers: they ride the group's next flush
+        and are counted.  Each flush is one lockstep batch, as ``serve``'s."""
+        results: Dict[int, np.ndarray] = {}
+        report = ServeReport()
+        pending: Dict[int, List[Request]] = {}
+        # after a deadline flush releases k of a group's N members, the
+        # next N - k arrivals of that group are that cycle's stragglers;
+        # a complete flush clears the quota
+        late_quota: Dict[int, int] = {}
+
+        def flush(gid: int, now: float, by_deadline: bool) -> None:
+            members = pending.pop(gid, [])
+            if not members:
+                return
+            self._flush_group(members, greedy_steps, results)
+            for r in members:
+                report.release_s[r.rid] = now
+            if by_deadline:
+                report.deadline_flushes += 1
+                late_quota[gid] = (group_sizes.get(gid, self.scfg.max_batch)
+                                   - len(members))
+            else:
+                report.complete_flushes += 1
+                late_quota[gid] = 0
+
+        for r in sorted(requests, key=lambda r: r.arrival_s):
+            now = r.arrival_s
+            # deadlines that expired while the stream was quiet
+            for gid in list(pending):
+                oldest = min(m.arrival_s for m in pending[gid])
+                if now - oldest >= deadline_s:
+                    flush(gid, oldest + deadline_s, by_deadline=True)
+            gid = r.group if r.group is not None else -1
+            if late_quota.get(gid, 0) > 0:
+                report.straggler_requests += 1
+                late_quota[gid] -= 1
+            pending.setdefault(gid, []).append(r)
+            if len(pending[gid]) >= group_sizes.get(gid,
+                                                    self.scfg.max_batch):
+                flush(gid, now, by_deadline=False)
+        for gid in list(pending):
+            oldest = min(m.arrival_s for m in pending[gid])
+            flush(gid, oldest + deadline_s, by_deadline=True)
+        return results, report

@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.fleet import runtime as trt
 from repro_torch.kernels import _build, ops as tops, ref as tref
-from repro_torch.kernels import roi_conv, sbnet, tile_delta
+from repro_torch.kernels import roi_attention, roi_conv, sbnet, tile_delta
 from repro_torch.net import encoder as tenc
 from repro_torch.serving import detector as tdet
 
@@ -324,3 +324,85 @@ def test_cuda_fused_equals_per_layer_bitwise(cuda, tile):
         assert torch.equal(one, det.roi_forward_layers(f, g)), c
         assert torch.equal(one, det.fleet_forward([f], [g])[0]), c
         assert torch.equal(one, fused[c]), c
+
+
+def _packed_positions(rng, S, n_kept, span=4):
+    pos = np.full(S, roi_attention.PAD_POS, np.int32)
+    pos[:n_kept] = np.sort(rng.choice(span * S, n_kept, replace=False))
+    return pos
+
+
+# the sweep of tests/test_kernels.py and the block-skip shapes of
+# tests/test_packed_path.py (bq = bk = 32, 25% and 60% kept)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 0.05)])
+@pytest.mark.parametrize("S,H,D,bq,bk,keep", [
+    (128, 2, 32, 64, 64, 0.8), (256, 4, 64, 128, 128, 0.8),
+    (256, 1, 128, 64, 128, 0.8), (256, 2, 32, 32, 32, 0.25),
+    (256, 2, 32, 32, 32, 0.6), (512, 3, 16, 128, 64, 0.5)])
+def test_cuda_roi_attention_matches_plain_version(cuda, dtype, tol, S, H, D,
+                                                  bq, bk, keep):
+    """B12 against its plain version on real rows; the skipped and the
+    exhaustive walk bitwise equal on real rows; visited counts equal to
+    the host bound (every block without the skip)."""
+    rng = np.random.default_rng(S + D + bq)
+    n_kept = int(keep * S)
+    pos = _packed_positions(rng, S, n_kept)
+    q, k, v = (torch.as_tensor(rng.normal(size=(S, H, D)), dtype=dtype,
+                               device=cuda) for _ in range(3))
+    p = torch.as_tensor(pos, device=cuda)
+    before = _build.LAUNCHES["roi_attention"]
+    out, vis = tops.roi_attention(q, k, v, p, bq, bk, return_stats=True)
+    full, vis_full = tops.roi_attention(q, k, v, p, bq, bk,
+                                        causal_skip=False, return_stats=True)
+    want, want_vis = tref.roi_attention(q, k, v, p, bq, bk)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["roi_attention"] == before + 2
+    assert out.dtype == dtype and out.shape == (S, H, D)
+    err = (out[:n_kept].float() - want[:n_kept].float()).abs().max().item()
+    assert err <= tol
+    # rows the kernel defines on padding too: the mixed q-block's, equal
+    # to the plain version's (which mirrors its visit bound)
+    assert (out.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(out[:n_kept], full[:n_kept])
+    bound = tops.attention_visit_bound(pos, bq, bk)
+    np.testing.assert_array_equal(vis.cpu().numpy(),
+                                  np.broadcast_to(bound, (H, S // bq)))
+    assert torch.equal(vis, want_vis)
+    assert (vis_full == S // bk).all()
+
+
+@pytest.mark.cuda
+def test_cuda_roi_attention_all_padding_and_dense(cuda):
+    """An all-padding stream visits nothing and gives exact zeros; keep-all
+    positions give plain causal attention."""
+    S = 128
+    pos = torch.full((S,), roi_attention.PAD_POS, dtype=torch.int32,
+                     device=cuda)
+    q = torch.ones((S, 1, 16), device=cuda)
+    out, vis = tops.roi_attention(q, q, q, pos, 64, 64, return_stats=True)
+    assert int(vis.sum()) == 0 and float(out.abs().max()) == 0.0
+    rng = np.random.default_rng(21)
+    q, k, v = (torch.as_tensor(rng.normal(size=(S, 2, 32)),
+                               dtype=torch.float32, device=cuda)
+               for _ in range(3))
+    ar = torch.arange(S, dtype=torch.int32, device=cuda)
+    out = tops.roi_attention(q, k, v, ar, 64, 64)
+    logits = torch.einsum("qhd,khd->hqk", q, k) / np.sqrt(32)
+    logits = logits.masked_fill(~torch.ones(S, S, dtype=torch.bool,
+                                            device=cuda).tril(), -1e30)
+    want = torch.einsum("hqk,khd->qhd", logits.softmax(-1), v)
+    assert (out - want).abs().max().item() <= 2e-5
+
+
+@pytest.mark.cuda
+def test_cuda_roi_attention_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((96, 1, 32), device=cuda)
+    pos = torch.zeros(96, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        roi_attention.roi_attention(q, q, q, pos, 64, 64)     # S % 64
+    q = torch.zeros((128, 1, 24), device=cuda)
+    pos = torch.zeros(128, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        roi_attention.roi_attention(q, q, q, pos, 64, 64)     # D = 24
