@@ -1,0 +1,96 @@
+#!/usr/bin/env python3
+"""Time B3 (``roi_conv_stack``) and B12 (``roi_attention``, bf16) of two
+checkouts of this repository in turns, on one card.
+
+    python3 ab_kernels.py --other DIR
+
+``DIR`` is another checkout (for example the parent commit, unpacked with
+``git archive``).  Each turn is its own process, which builds that
+checkout's kernels under its own ``build/`` and times, with CUDA events
+(median of 7 after a warm-up), at the main paths' shapes:
+
+* B3 on the 4x5 fleet of ``chip_smoke.py`` (52,288 tiles of 16x16, the
+  default (8, 16, 16) detector), on the plain entry output;
+* B12 at the serving slice (the fleet stream's 9,472 packed positions,
+  48 heads of 128, bf16, blocks of 128), with and without the causal skip.
+
+The turns run other, this, this, other; the script prints each turn's
+times as a JSON line, then the card's name and power limit.  With
+``--turn`` it runs one turn for the checkout it lives in (or ``--root``).
+"""
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+
+def turn(root: Path) -> dict:
+    sys.path[:0] = [str(root / "src"), str(root)]
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import ops, ref, roi_attention, roi_conv
+
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_kernels: no CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    _, _, grids, frames = cs.build_fleet(torch, dev)
+    det = cs.build_detector(dev)
+    _, _, idx, nbr = det._fleet_tables(cs.flat(grids))
+    x, _, _ = det._stack_frames(cs.flat(frames), cs.flat(grids))
+    e_p = ref.roi_conv_entry(x, det.weights[0], idx, cs.TILE, cs.TILE)
+    ws = det.weights[1:]
+    b3 = cs.time_ms(torch, lambda: roi_conv.roi_conv_stack(e_p, ws, nbr))
+    keep = cs.fleet_keep(grids)
+    del x, e_p, frames, det
+    _, pos, _ = ops.pack_tokens(torch.arange(keep.size, device=dev),
+                                torch.as_tensor(keep, device=dev))
+    S, H, D = pos.shape[0], cs.SLICE_HEADS, cs.SLICE_HEAD_DIM
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 5)
+    q, k, v = (torch.randn((S, H, D), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    b12 = cs.time_ms(torch, lambda: roi_attention.roi_attention(
+        q, k, v, pos, 128, 128, True))
+    b12_exh = cs.time_ms(torch, lambda: roi_attention.roi_attention(
+        q, k, v, pos, 128, 128, False))
+    return {"root": str(root), "n_tiles": int(idx.shape[0]),
+            "roi_conv_stack_ms": b3, "roi_attention_ms": b12,
+            "roi_attention_exhaustive_ms": b12_exh,
+            "device": torch.cuda.get_device_name(0)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", type=Path, help="another checkout to compare")
+    ap.add_argument("--turn", action="store_true", help="run one turn")
+    ap.add_argument("--root", type=Path, default=ROOT,
+                    help="the checkout a turn times (default: this one)")
+    args = ap.parse_args()
+    if args.turn:
+        print(json.dumps(turn(args.root.resolve())), flush=True)
+        return 0
+    if args.other is None:
+        ap.error("give --other DIR, or --turn")
+    other = args.other.resolve()
+    for root in (other, ROOT, ROOT, other):
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                              "--turn", "--root", str(root)],
+                             capture_output=True, text=True, timeout=900)
+        if out.returncode:
+            sys.stderr.write(out.stdout + out.stderr)
+            return out.returncode
+        print(out.stdout.strip().splitlines()[-1], flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,7 +7,9 @@ NVIDIA card.
 Phases, each printing its own lines; any failure raises and the exit code
 is non-zero:
 
-1. the card (``nvidia-smi`` name and power limit) and the kernel build;
+1. the card (``nvidia-smi`` name and power limit) and the kernel build,
+   with ptxas's registers, static shared memory and spills for each
+   instance of B3 and B12;
 2. every kernel against its plain PyTorch version on the card, at the
    main paths' shapes: the delta kernels (the canvas gate B1, the packed
    gate B5 with its windows, the per-camera tile and halo pricing B10 and
@@ -25,7 +27,8 @@ is non-zero:
    of 128, bf16): skipped and exhaustive walks bitwise equal on real
    rows, visited counts equal to ``attention_visit_bound``, an
    all-padding stream 0 visits and zeros; times beside the plain version
-   and ``scaled_dot_product_attention`` with the boolean mask;
+   and ``scaled_dot_product_attention`` with the boolean mask; B3's and
+   B12's achieved TFLOP/s and share of the bound;
 3. the main path at full size -- the 4-group x 5-camera fleet at the
    paper's camera sizes (four 1920x1080 legs and one 1280x960 centre
    camera per group), default detector (channels (8, 16, 16), tile 16, 2
@@ -183,6 +186,27 @@ def nvidia_smi():
                           text=True, timeout=60).stdout.strip().splitlines()
 
 
+def demangle(names):
+    """The kernels' C++ names through ``c++filt`` where it is installed,
+    without the anonymous namespace; else as the compiler mangled them."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        plain = out.stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return names
+    if out.returncode or len(plain) != len(names):
+        return names
+    return [n.replace("(anonymous namespace)::", "").split("(")[0]
+            for n in plain]
+
+
+def rate_line(name, flops, ms, b_ms, what):
+    """Achieved TFLOP/s and the share of the bound for one timed kernel."""
+    say(f"[kernels] {name}: {flops / ms / 1e9:.2f} TFLOP/s of {what}; "
+        f"{b_ms / ms:.4f} of the bound ({b_ms:.4f} ms in {ms:.4f} ms)")
+
+
 def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
     """(least time in ms, what bounds it) for this work on the card."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
@@ -194,18 +218,26 @@ def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
 # the fleet: masks, frames, detector
 # ---------------------------------------------------------------------------
 
-def build_fleet(torch, dev):
-    rng = np.random.default_rng(SEED)
-    grids, frames = {}, {}
-    gen = torch.Generator(device=dev).manual_seed(SEED)
+def fleet_grids(rng):
+    """The fleet's tile masks: per camera a coarse 64-px grid of density
+    ``MASK_DENSITY`` drawn from ``rng``, expanded x4 to 16-px tiles."""
+    grids = {}
     for g in range(GROUPS):
-        grids[g], frames[g] = [], []
+        grids[g] = []
         for c in range(CAMS):
             h, w = CENTER_HW if c == CAMS - 1 else LEG_HW
             coarse = rng.random((-(-h // 64), -(-w // 64))) < MASK_DENSITY
             grids[g].append(np.kron(coarse, np.ones((4, 4), bool)))
-            frames[g].append(torch.randn((h, w, 3), generator=gen,
-                                         device=dev))
+    return grids
+
+
+def build_fleet(torch, dev):
+    rng = np.random.default_rng(SEED)
+    grids = fleet_grids(rng)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    frames = {g: [torch.randn((*(CENTER_HW if c == CAMS - 1 else LEG_HW), 3),
+                              generator=gen, device=dev)
+                  for c in range(CAMS)] for g in range(GROUPS)}
     return rng, gen, grids, frames
 
 
@@ -404,6 +436,9 @@ def check_kernels(torch, det, frames, frames_next, grids):
            + sum(w.numel() for w in ws) * 4, flops,
            check=f"atol {CONV_TOL}")
     del s_k
+    r = results["roi_conv_stack"]
+    rate_line("roi_conv_stack", flops, r["ms"], r["bound_ms"],
+              "tile-body FLOPs (the recomputed ring not counted)")
 
     # B6: each later layer of the per-layer chain on the plain ReLU'd
     # input, within CONV_TOL; timed as the chain's launches for all of them
@@ -1032,6 +1067,12 @@ def check_attention(torch, dev, grids, results):
     say(f"[kernels] roi_attention: {check} max_abs_err={err} ok={ok} "
         f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
         f"library_ms={lib_ms}")
+    rate_line("roi_attention", flops, ms, b_ms,
+              "needed FLOPs (visible real pairs)")
+    rate_line("roi_attention", 4 * blk * blk * D * pairs * H, ms, visited_ms,
+              "visited-block FLOPs")
+    say(f"[kernels] roi_attention: kernel {ms:.4f} ms against SDPA "
+        f"{lib_ms:.4f} ms: {lib_ms / ms:.2f}x, faster: {ms < lib_ms}")
     if not ok:
         raise AssertionError("roi_attention disagrees with its plain version")
     return keep
@@ -1230,6 +1271,11 @@ def main() -> int:
     _build.library()
     say(f"[build] kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
+    report = _build.ptxas_report()
+    names = demangle([r[0] for r in report])
+    for (_, regs, smem, st, ld), kname in zip(report, names):
+        say(f"[build] ptxas {kname}: {regs} registers, {smem} bytes static "
+            f"shared memory, spill stores {st} B, spill loads {ld} B")
 
     dev = torch.device("cuda")
     rng, gen, grids, frames = build_fleet(torch, dev)

@@ -20,6 +20,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -36,6 +37,9 @@ HEADERS = ("tile_delta_common.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# sources whose ptxas report (registers, shared memory, spills per kernel
+# instance) is kept beside the library as ``ptxas.log``
+PTXAS_VERBOSE = ("roi_attention.cu", "roi_conv_stack.cu")
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -126,16 +130,21 @@ def _compile(out_dir: Path) -> None:
         obj = out_dir / (Path(name).stem + ".o")
         cmd = [nvcc, *ARCH_FLAGS, *CFLAGS, "-c", str(CSRC / name),
                "-o", str(obj)]
+        if name in PTXAS_VERBOSE:
+            cmd.insert(1, "-Xptxas=-v")
         procs.append((name, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
-    failed = []
+    failed, reports = [], []
     for name, p in procs:
         log, _ = p.communicate()
         if p.returncode != 0:
             failed.append(f"--- {name}\n{log}")
+        elif name in PTXAS_VERBOSE:
+            reports.append(log)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    (out_dir / "ptxas.log").write_text("".join(reports))
     objs = [str(out_dir / (Path(n).stem + ".o")) for n in SOURCES]
     link = subprocess.run(
         [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out_dir / "libkernels.so"),
@@ -168,6 +177,29 @@ def library() -> ctypes.CDLL:
         _declare(lib)
         _LIB = lib
         return lib
+
+
+def ptxas_report() -> list:
+    """(kernel, registers, static shared-memory bytes, spill-store bytes,
+    spill-load bytes) for each kernel instance of ``PTXAS_VERBOSE``, from
+    the ptxas log the build kept; names as the compiler mangled them."""
+    library()
+    rows, name, spills = [], None, (0, 0)
+    log = BUILD_ROOT / _digest() / "ptxas.log"
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), int(m.group(2) or 0),
+                         *spills))
+            name, spills = None, (0, 0)
+    return rows
 
 
 def check(err: int, name: str) -> None:

@@ -1,4 +1,5 @@
-"""RoI-packed prefill attention (CUDA kernel in ``csrc/roi_attention.cu``).
+"""RoI-packed prefill attention (CUDA kernel in ``csrc/roi_attention.cu``:
+bf16 on the tensor cores, f32 on the CUDA cores).
 
 Flash attention over the tokens ``ops.pack_tokens`` packs: causality
 follows the tokens' ORIGINAL positions (``pos_q >= pos_k``), padding rows
@@ -17,7 +18,7 @@ from repro_torch.kernels import _build, ref
 PAD_POS = 2 ** 31 - 1          # INT32_MAX, on padding rows
 HEAD_DIMS = (16, 32, 64, 128)
 BLOCKS_Q = (32, 64, 128)
-SUB_CHUNK = 32                 # the kernel's keys per online-softmax step
+SUB_CHUNK = 32                 # block_k must be a multiple of this
 
 
 def block_min_positions(positions: torch.Tensor,
@@ -57,6 +58,11 @@ def roi_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if S % block_q or S % block_k:
         raise ValueError(f"{name}: S={S} must divide by block_q={block_q} "
                          f"and block_k={block_k} (pack_tokens pads)")
+    if q.dtype == torch.bfloat16 and \
+            any(t.data_ptr() % 16 for t in (q, k, v, positions)):
+        raise ValueError(f"{name}: bfloat16 q, k, v and positions must start "
+                         f"on a 16-byte boundary (the kernel copies 16-byte "
+                         f"rows)")
     out = torch.empty_like(q)
     visited = torch.empty((H, S // block_q), dtype=torch.int32, device=dev)
     if S:

@@ -147,6 +147,9 @@ def roi_conv_stack(packed: torch.Tensor, ws: Sequence[torch.Tensor],
     _build.expect(name, "packed", packed, torch.float32, (None,) * 4)
     n, th, tw, c0 = packed.shape
     _build.expect(name, "nbr", nbr, torch.int32, (n, 8))
+    if packed.data_ptr() % 16:
+        raise ValueError(f"{name}: packed must start on a 16-byte boundary "
+                         f"(the detector's instance reads 16-byte vectors)")
     L = len(ws)
     if not 1 <= L <= min(th, tw, 8):
         raise ValueError(f"{name}: {L} layers; the kernel takes 1 to "

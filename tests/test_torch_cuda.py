@@ -326,6 +326,72 @@ def test_cuda_fused_equals_per_layer_bitwise(cuda, tile):
         assert torch.equal(one, fused[c]), c
 
 
+# B3's persistent grid at the launch sizes that stress it: one tile, fewer
+# tiles than one wave of CTAs, and a count that is no multiple of the grid
+# (1,621 is prime); the detector's widths (the compiled-in instance) and
+# odd widths (the generic one)
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 200, 1621])
+@pytest.mark.parametrize("channels", [(8, 16, 16), (6, 12, 10, 5)])
+def test_cuda_stack_launch_sizes(cuda, n, channels):
+    """B3 within 1e-4 of its plain version and bitwise equal to the
+    per-layer chain (B6 + ReLU per layer) on a grid of exactly n active
+    tiles of 16x16."""
+    tile = 16
+    rng = np.random.default_rng(n + len(channels))
+    shape = (1, 1) if n == 1 else (40, 50) if n > 200 else (10, 25)
+    grid = np.zeros(shape[0] * shape[1], bool)
+    grid[rng.permutation(grid.size)[:n]] = True
+    grid = grid.reshape(shape)
+    nbr = _t(tops.fleet_neighbor_table([grid])).to(cuda)
+    packed = torch.relu(_t(rng.normal(size=(n, tile, tile, channels[0]))
+                           .astype(np.float32)).to(cuda))
+    ws = [_t((rng.normal(size=(3, 3, ci, co)) / np.sqrt(9 * ci))
+             .astype(np.float32)).to(cuda)
+          for ci, co in zip(channels[:-1], channels[1:])]
+    before = _build.LAUNCHES["roi_conv_stack"]
+    got = roi_conv.roi_conv_stack(packed, ws, nbr)
+    want = tref.roi_conv_stack(packed, ws, nbr)
+    chain = packed
+    for w in ws:
+        chain = torch.relu(roi_conv.roi_conv_packed(chain, w, nbr))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["roi_conv_stack"] == before + 1
+    assert got.shape == (n, tile, tile, channels[-1])
+    assert (got - want).abs().max().item() <= 1e-4
+    assert torch.equal(got, chain)
+
+
+@pytest.mark.cuda
+def test_cuda_alignment_checks(cuda):
+    """B3 and B12's bf16 instance read 16-byte vectors, so a contiguous view
+    that starts off a 16-byte boundary raises; B12's f32 instance reads
+    scalars and takes one."""
+    n, tile = 4, 16
+    grid = np.ones((2, 2), bool)
+    nbr = _t(tops.fleet_neighbor_table([grid])).to(cuda)
+    flat = torch.ones(n * tile * tile * 8 + 1, device=cuda)
+    packed = flat[1:].view(n, tile, tile, 8)
+    ws = [torch.zeros((3, 3, 8, 16), device=cuda),
+          torch.zeros((3, 3, 16, 16), device=cuda)]
+    with pytest.raises(ValueError):
+        roi_conv.roi_conv_stack(packed, ws, nbr)
+    S, H, D = 128, 2, 32
+    rng = np.random.default_rng(5)
+    pos = _t(_packed_positions(rng, S, 100)).to(cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        flat = _t(rng.normal(size=S * H * D + 1).astype(np.float32)) \
+            .to(cuda, dtype)
+        q = flat[1:].view(S, H, D)
+        if dtype == torch.bfloat16:
+            with pytest.raises(ValueError):
+                roi_attention.roi_attention(q, q, q, pos, 64, 64)
+        else:
+            got, _ = roi_attention.roi_attention(q, q, q, pos, 64, 64)
+            want, _ = tref.roi_attention(q, q, q, pos, 64, 64)
+            assert (got - want)[:100].abs().max().item() <= 2e-5
+
+
 def _packed_positions(rng, S, n_kept, span=4):
     pos = np.full(S, roi_attention.PAD_POS, np.int32)
     pos[:n_kept] = np.sort(rng.choice(span * S, n_kept, replace=False))
@@ -362,6 +428,12 @@ def test_cuda_roi_attention_matches_plain_version(cuda, dtype, tol, S, H, D,
     assert out.dtype == dtype and out.shape == (S, H, D)
     err = (out[:n_kept].float() - want[:n_kept].float()).abs().max().item()
     assert err <= tol
+    if dtype == torch.bfloat16:
+        # per element: one to two bf16 steps of |want| plus room for f32
+        # sums, the bar of chip_smoke.py (ATTN_REL, ATTN_ABS)
+        g, w = out[:n_kept].float(), want[:n_kept].float()
+        share = ((g - w).abs() / (2.0 ** -7 * w.abs() + 1e-3)).max().item()
+        assert share <= 1.0
     # rows the kernel defines on padding too: the mixed q-block's, equal
     # to the plain version's (which mirrors its visit bound)
     assert (out.float() - want.float()).abs().max().item() <= tol
