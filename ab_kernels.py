@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time B3 (``roi_conv_stack``) and B12 (``roi_attention``, bf16) of two
-checkouts of this repository in turns, on one card.
+"""Time B3 (``roi_conv_stack``), B6 (``roi_conv_packed``) and B12
+(``roi_attention``, bf16) of two checkouts of this repository in turns, on
+one card.
 
     python3 ab_kernels.py --other DIR
 
@@ -11,6 +12,8 @@ checkout's kernels under its own ``build/`` and times, with CUDA events
 
 * B3 on the 4x5 fleet of ``chip_smoke.py`` (52,288 tiles of 16x16, the
   default (8, 16, 16) detector), on the plain entry output;
+* B6 on the same fleet, each of the detector's two later layers (8 -> 16
+  on the plain entry output, 16 -> 16 on the plain first layer's ReLU);
 * B12 at the serving slice (the fleet stream's 9,472 packed positions,
   48 heads of 128, bf16, blocks of 128), with and without the causal skip.
 
@@ -47,8 +50,11 @@ def turn(root: Path) -> dict:
     e_p = ref.roi_conv_entry(x, det.weights[0], idx, cs.TILE, cs.TILE)
     ws = det.weights[1:]
     b3 = cs.time_ms(torch, lambda: roi_conv.roi_conv_stack(e_p, ws, nbr))
+    h = torch.relu(ref.roi_conv_packed(e_p, ws[0], nbr))
+    b6 = [cs.time_ms(torch, lambda a=a, w=w: roi_conv.roi_conv_packed(
+        a, w, nbr)) for a, w in ((e_p, ws[0]), (h, ws[1]))]
     keep = cs.fleet_keep(grids)
-    del x, e_p, frames, det
+    del x, e_p, h, frames, det
     _, pos, _ = ops.pack_tokens(torch.arange(keep.size, device=dev),
                                 torch.as_tensor(keep, device=dev))
     S, H, D = pos.shape[0], cs.SLICE_HEADS, cs.SLICE_HEAD_DIM
@@ -60,7 +66,8 @@ def turn(root: Path) -> dict:
     b12_exh = cs.time_ms(torch, lambda: roi_attention.roi_attention(
         q, k, v, pos, 128, 128, False))
     return {"root": str(root), "n_tiles": int(idx.shape[0]),
-            "roi_conv_stack_ms": b3, "roi_attention_ms": b12,
+            "roi_conv_stack_ms": b3, "roi_conv_packed_ms": b6,
+            "roi_attention_ms": b12,
             "roi_attention_exhaustive_ms": b12_exh,
             "device": torch.cuda.get_device_name(0)}
 

@@ -9,7 +9,8 @@ is non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build,
    with ptxas's registers, static shared memory and spills for each
-   instance of B3 and B12;
+   instance of ``roi_conv_stack.cu`` (B3's ring and layer-by-layer routes,
+   B6) and of B12;
 2. every kernel against its plain PyTorch version on the card, at the
    main paths' shapes: the delta kernels (the canvas gate B1, the packed
    gate B5 with its windows, the per-camera tile and halo pricing B10 and
@@ -28,7 +29,13 @@ is non-zero:
    rows, visited counts equal to ``attention_visit_bound``, an
    all-padding stream 0 visits and zeros; times beside the plain version
    and ``scaled_dot_product_attention`` with the boolean mask; B3's and
-   B12's achieved TFLOP/s and share of the bound;
+   B12's achieved TFLOP/s and share of the bound, B6's per layer and for
+   both.  B3's layer-by-layer route: at the fleet's 2 layers bitwise equal
+   to the ring route, and at 9 layers (8 -> 16, then 16 -> 16 eight times,
+   past the ring's depth) one launch bitwise equal to nine B6 + ReLU
+   launches and within 1e-4 of the plain version, timed.  B12 at head dim
+   120 (zero-padded to 128) on the serving slice's positions, f32 and bf16,
+   within the same bars, skip == exhaustive bitwise;
 3. the main path at full size -- the 4-group x 5-camera fleet at the
    paper's camera sizes (four 1920x1080 legs and one 1280x960 centre
    camera per group), default detector (channels (8, 16, 16), tile 16, 2
@@ -128,6 +135,10 @@ ARCH = "internvl2-26b"
 N_REQUESTS = 4
 DECODE_STEPS = 8
 SLICE_HEADS, SLICE_HEAD_DIM = 48, 128      # internvl2-26b's attention
+PADDED_HEAD_DIM = 120          # h2o-danube3-4b's: the kernel pads it to 128
+# B3's layer-by-layer route on the fleet: 9 layers (8 -> 16, then 16 -> 16
+# eight times), past the ring route's depth of 8
+DEEP_CHANNELS = (8,) + (16,) * 9
 # the fleet's stream: 4 x (4 legs of 17 x 30 cells + one of 15 x 20) =
 # 9,360 tokens, packed to 74 blocks of 128; the masks keep 52,288 / 16 =
 # 3,268, so 26 q-blocks hold real rows and visit 26 * 27 / 2 block pairs
@@ -147,7 +158,7 @@ KERNELS = {
     "roi_conv_stack": (CSRC + "roi_conv_stack.cu",
                        "src/repro/kernels/roi_conv.py:435"),
     "sbnet_scatter_fleet": (SBNET_CU, "src/repro/kernels/sbnet.py:109"),
-    "roi_conv_packed": (CSRC + "roi_conv_packed.cu",
+    "roi_conv_packed": (CSRC + "roi_conv_stack.cu",
                         "src/repro/kernels/roi_conv.py:519"),
     "roi_conv_fleet": (ENTRY_CU, "src/repro/kernels/roi_conv.py:160"),
     "roi_conv": (ENTRY_CU, "src/repro/kernels/roi_conv.py:68"),
@@ -296,7 +307,8 @@ def flat(d):
 # ---------------------------------------------------------------------------
 
 def check_kernels(torch, det, frames, frames_next, grids):
-    from repro_torch.kernels import ops, ref, roi_conv, sbnet, tile_delta
+    from repro_torch.kernels import _build, ops, ref, roi_conv, sbnet, \
+        tile_delta
     from repro_torch.net.encoder import pad_to_grid
     from repro_torch.serving.detector import _head_rows
 
@@ -435,6 +447,15 @@ def check_kernels(torch, det, frames, frames_next, grids):
            n * t * t * (chans[0] + chans[-1]) * 4 + n * 8 * 4
            + sum(w.numel() for w in ws) * 4, flops,
            check=f"atol {CONV_TOL}")
+    # the layer-by-layer route where the ring route also applies: the same
+    # bits, in one launch
+    before = _build.LAUNCHES["roi_conv_stack"]
+    same = torch.equal(roi_conv.roi_conv_stack_layers(e_p, ws, nbr), s_k)
+    torch.cuda.synchronize()
+    one = _build.LAUNCHES["roi_conv_stack"] == before + 1
+    say(f"[kernels] roi_conv_stack layer-by-layer route at {len(ws)} layers "
+        f"== the ring route bitwise: {same}; one launch: {one}")
+    assert same and one
     del s_k
     r = results["roi_conv_stack"]
     rate_line("roi_conv_stack", flops, r["ms"], r["bound_ms"],
@@ -442,6 +463,7 @@ def check_kernels(torch, det, frames, frames_next, grids):
 
     # B6: each later layer of the per-layer chain on the plain ReLU'd
     # input, within CONV_TOL; timed as the chain's launches for all of them
+    # and layer by layer, each beside its own bound
     ins = [e_p]
     for w in ws[:-1]:
         ins.append(torch.relu(ref.roi_conv_packed(ins[-1], w, nbr)))
@@ -449,9 +471,15 @@ def check_kernels(torch, det, frames, frames_next, grids):
     for a, w in zip(ins, ws):
         err = max(err, float((roi_conv.roi_conv_packed(a, w, nbr)
                               - ref.roi_conv_packed(a, w, nbr)).abs().max()))
-    layer_ms = [time_ms(torch, lambda a=a, w=w:
-                        roi_conv.roi_conv_packed(a, w, nbr))
-                for a, w in zip(ins, ws)]
+    per_layer = []
+    for a, w in zip(ins, ws):
+        ci, co = w.shape[2], w.shape[3]
+        l_ms = time_ms(torch, lambda a=a, w=w:
+                       roi_conv.roi_conv_packed(a, w, nbr))
+        l_flops = 2 * 9 * ci * co * t * t * n
+        l_bound, l_by = bound(n * t * t * (ci + co) * 4 + n * 8 * 4
+                              + w.numel() * 4, l_flops)
+        per_layer.append((ci, co, l_ms, l_bound, l_by, l_flops))
     record("roi_conv_packed", err, err <= CONV_TOL,
            lambda: [roi_conv.roi_conv_packed(a, w, nbr)
                     for a, w in zip(ins, ws)],
@@ -459,9 +487,51 @@ def check_kernels(torch, det, frames, frames_next, grids):
            sum(n * t * t * (ci + co) * 4 + n * 8 * 4 + w.numel() * 4
                for ci, co, w in zip(chans[:-1], chans[1:], ws)), flops,
            check=f"atol {CONV_TOL}, {len(ws)} layers "
-                 f"{chans[0]}->{'->'.join(map(str, chans[1:]))}, per layer "
-                 f"ms {[round(v, 4) for v in layer_ms]}")
-    del ins, e_p
+                 f"{chans[0]}->{'->'.join(map(str, chans[1:]))}")
+    for ci, co, l_ms, l_bound, l_by, l_flops in per_layer:
+        rate_line(f"roi_conv_packed {ci}->{co}", l_flops, l_ms, l_bound,
+                  f"one layer's FLOPs ({l_by}-bound)")
+    r = results["roi_conv_packed"]
+    rate_line("roi_conv_packed (both layers)", flops, r["ms"], r["bound_ms"],
+              "both layers' FLOPs")
+    del ins
+
+    # B3's layer-by-layer route past the ring's depth: DEEP_CHANNELS on the
+    # fleet's tiles in one launch, bitwise equal to nine B6 + ReLU launches,
+    # within CONV_TOL of the plain version
+    prng = np.random.default_rng(SEED + 7)
+    deep = [torch.as_tensor(prng.normal(size=(3, 3, ci, co))
+                            / np.sqrt(9 * ci), dtype=torch.float32,
+                            device=dev)
+            for ci, co in zip(DEEP_CHANNELS[:-1], DEEP_CHANNELS[1:])]
+    assert roi_conv.stack_route(len(deep), t, t) == "layers"
+    before = _build.LAUNCHES["roi_conv_stack"]
+    d_k = roi_conv.roi_conv_stack(e_p, deep, nbr)
+    torch.cuda.synchronize()
+    one = _build.LAUNCHES["roi_conv_stack"] == before + 1
+    chain = e_p
+    for w in deep:
+        chain = torch.relu(roi_conv.roi_conv_packed(chain, w, nbr))
+    same = torch.equal(d_k, chain)
+    del chain
+    err = float((d_k - ref.roi_conv_stack(e_p, deep, nbr)).abs().max())
+    del d_k
+    d_ms = time_ms(torch, lambda: roi_conv.roi_conv_stack(e_p, deep, nbr))
+    d_flops = sum(2 * 9 * ci * co * t * t * n for ci, co in
+                  zip(DEEP_CHANNELS[:-1], DEEP_CHANNELS[1:]))
+    d_bound, d_by = bound(n * t * t * (DEEP_CHANNELS[0] + DEEP_CHANNELS[-1])
+                          * 4 + n * 8 * 4 + sum(w.numel() for w in deep) * 4,
+                          d_flops)
+    say(f"[kernels] roi_conv_stack layer-by-layer route, {len(deep)} layers "
+        f"{'->'.join(map(str, DEEP_CHANNELS))} over {n} tiles: one launch "
+        f"{one}; == {len(deep)} x (B6 + ReLU) bitwise {same}; max_abs_err "
+        f"vs plain {err} (bar {CONV_TOL}); ms={d_ms:.4f} "
+        f"bound_ms={d_bound:.4f} ({d_by})")
+    rate_line("roi_conv_stack (layer by layer)", d_flops, d_ms, d_bound,
+              "the layers' FLOPs")
+    if not (one and same and err <= CONV_TOL):
+        raise AssertionError("the layer-by-layer stack disagrees")
+    del deep, e_p
 
     # B4: the scatter of head tiles into a fresh canvas, bit-exact; the
     # library yardstick is one index_put_ with precomputed pixel indices
@@ -1075,6 +1145,28 @@ def check_attention(torch, dev, grids, results):
         f"{lib_ms:.4f} ms: {lib_ms / ms:.2f}x, faster: {ms < lib_ms}")
     if not ok:
         raise AssertionError("roi_attention disagrees with its plain version")
+    del q, k, v, pos, out, vis, qh, kh, vh, mask, lib
+
+    # a head dim with no instance of its own (h2o-danube3-4b's 120), which
+    # the wrapper zero-pads to 128, on the same positions, in f32 and bf16
+    Dp = PADDED_HEAD_DIM
+    for dtype, seed in ((torch.float32, SEED + 8), (torch.bfloat16, SEED + 9)):
+        (err, use, med), same, vis_ok, (q, k, v, pos, *_) = attention_case(
+            torch, dev, S, H, Dp, blk, blk, pos_np, dtype, seed)
+        name = str(dtype).split(".")[-1]
+        ms = time_ms(torch, lambda: roi_attention.roi_attention(
+            q, k, v, pos, blk, blk, True))
+        ok = (err <= ATTN_TOL[name] and same and vis_ok
+              and (dtype == torch.float32 or use <= 1.0))
+        say(f"[kernels] roi_attention {name} S={S} H={H} D={Dp} (padded to "
+            f"128) blocks {blk}: max error on real rows {err} (bar "
+            f"{ATTN_TOL[name]}), largest share of the per-element bar "
+            f"{use:.4f} (median |want| {med:.5f}); skip == exhaustive "
+            f"bitwise {same}; visited == bound {vis_ok}; ms={ms:.4f}")
+        if not ok:
+            raise AssertionError(f"roi_attention at D={Dp} ({name}) "
+                                 f"disagrees with its plain version")
+        del q, k, v, pos
     return keep
 
 

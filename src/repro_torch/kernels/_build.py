@@ -31,8 +31,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("tile_delta_gate.cu", "tile_delta.cu", "roi_conv_entry.cu",
-           "roi_conv_packed.cu", "roi_conv_stack.cu", "sbnet.cu",
-           "roi_attention.cu")
+           "roi_conv_stack.cu", "sbnet.cu", "roi_attention.cu")
 HEADERS = ("tile_delta_common.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -66,16 +65,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     for f in (lib.roi_conv_entry_launch, lib.roi_conv_fleet_launch,
               lib.roi_conv_launch):
         f.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
-    # packed, w, nbr, out, n, th, tw, Cin, Cout, stream
-    lib.roi_conv_packed_launch.argtypes = \
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-    # th, tw, Cin, Cout -> bytes of shared memory per CTA
-    lib.roi_conv_packed_smem_bytes.argtypes = [_I, _I, _I, _I]
-    # packed, wcat, chans (host int array), nbr, out, n, th, tw, L, stream
+    # packed, wcat, chans (host int array), nbr, out, n, th, tw, L,
+    # relu_last, stream
     lib.roi_conv_stack_launch.argtypes = \
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    # packed, wcat, chans (host int array), chans (on the card), nbr, act0,
+    # act1, out, n, th, tw, L, stream
+    lib.roi_conv_layers_launch.argtypes = \
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
     # chans (host int array), L, th, tw -> bytes of shared memory per CTA
-    lib.roi_conv_stack_smem_bytes.argtypes = [_P, _I, _I, _I]
+    for f in (lib.roi_conv_stack_smem_bytes, lib.roi_conv_layers_smem_bytes):
+        f.argtypes = [_P, _I, _I, _I]
     # packed, idx, base, n, th, tw, A, C, H, W, stream
     lib.sbnet_scatter_fleet_launch.argtypes = \
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
@@ -89,9 +89,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     for f in (lib.tile_delta_gate_canvas_launch, lib.tile_delta_gate_launch,
               lib.tile_delta_launch, lib.tile_delta_halo_launch,
               lib.roi_conv_entry_launch, lib.roi_conv_fleet_launch,
-              lib.roi_conv_launch, lib.roi_conv_packed_launch,
-              lib.roi_conv_packed_smem_bytes, lib.roi_conv_stack_launch,
-              lib.roi_conv_stack_smem_bytes, lib.sbnet_scatter_fleet_launch,
+              lib.roi_conv_launch, lib.roi_conv_stack_launch,
+              lib.roi_conv_stack_smem_bytes, lib.roi_conv_layers_launch,
+              lib.roi_conv_layers_smem_bytes, lib.sbnet_scatter_fleet_launch,
               lib.sbnet_scatter_launch, lib.sbnet_gather_launch,
               lib.roi_attention_launch):
         f.restype = ctypes.c_int

@@ -29,8 +29,8 @@
 // depend on the number of tiles in the launch, on which other tiles are in
 // it or on the instance, so a compact launch and a full launch give the
 // same bits for the tiles they share, the three instances agree bit for
-// bit up to the ReLU, and roi_conv_packed.cu and roi_conv_stack.cu, which
-// use the same order, continue the chain bit for bit.
+// bit up to the ReLU, and roi_conv_stack.cu (B3 and B6), which uses the
+// same order, continues the chain bit for bit.
 #include <cuda_runtime.h>
 
 namespace {

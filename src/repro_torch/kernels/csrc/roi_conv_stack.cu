@@ -1,8 +1,10 @@
-// roi_conv_stack: every layer after the entry (3x3 conv + ReLU each) over
-// the packed tiles, in one launch.
+// roi_conv_stack: the 3x3 conv layers over the packed tiles -- B3's stack
+// (every layer after the entry, conv + ReLU each, in one launch) and B6's
+// single layer (no ReLU) -- on one register-blocked layer body.
 //
-// Replaces the TPU kernel repro/kernels/roi_conv.py::roi_conv_stack (body
-// _roi_conv_stack_kernel, rim seed assemble_rims).  Semantics: at every
+// Replaces the TPU kernels repro/kernels/roi_conv.py::roi_conv_stack (body
+// _roi_conv_stack_kernel, rim seed assemble_rims) and ::roi_conv_packed
+// (body _roi_conv_packed_kernel, strips _halo_strip).  Semantics: at every
 // layer a tile's halo comes from its 8 neighbours through the (n, 8) slot
 // table (NW, N, NE, W, E, SW, S, SE) and is zero where the slot is -1 --
 // the same as scattering the packed tiles onto zeros, running a SAME conv
@@ -10,22 +12,31 @@
 //
 // The TPU design does not carry over: it runs the grid in order, phase axis
 // outer, and keeps activations and rims in memory across grid steps.  CTAs
-// have no order.  Here a tile never needs another tile's result: its CTA
-// loads the tile plus an L-pixel ring of the entry output from its
-// neighbours (L = number of layers here), then recomputes the ring layer by
-// layer -- each layer shrinks it by one pixel -- zeroing after every layer
-// the ring pixels of neighbours whose slot is -1 (inactive or off the
-// frame), exactly as the scatter onto zeros does.  The last layer computes
-// the tile body only.  Exact while L <= the tile size, so the ring only
-// reaches the 8 immediate neighbours; the wrapper refuses anything else.
+// have no order.  Two routes, one layer body (conv_layer):
+// * The ring route (roi_conv_stack_kernel).  A tile never needs another
+//   tile's result: its CTA loads the tile plus an L-pixel ring of the input
+//   from its neighbours (L = number of layers), then recomputes the ring
+//   layer by layer -- each layer shrinks it by one pixel -- zeroing after
+//   every layer the ring pixels of neighbours whose slot is -1 (inactive or
+//   off the frame), exactly as the scatter onto zeros does.  The last layer
+//   computes the tile body only.  Exact while L <= the tile size, so the
+//   ring only reaches the 8 immediate neighbours; L <= kMaxLayers besides.
+//   B6 is this route at L = 1 with the last layer's ReLU off.
+// * The layer-by-layer route (roi_conv_layers_kernel), for deeper stacks:
+//   the TPU kernel's own order.  A cooperative persistent grid runs the
+//   one-layer body over every tile of layer l into one of two global
+//   ping-pong buffers, waits at a grid-wide barrier, then runs layer l + 1;
+//   the last layer writes the output.  One launch at any depth.
 //
 // What bounds it on the H100: float32 operations.  For the default (8, 16,
-// 16) detector a 16x16 tile does 1.9 MFLOP with the recomputed ring against
-// 8 KB read and 16 KB written, ~80 FLOP per byte, far above the float32
-// line of ~20.  So the design is about keeping the FMA pipes fed:
+// 16) detector a 16x16 tile of the two-layer ring does 1.9 MFLOP against
+// 8 KB read and 16 KB written, ~80 FLOP per byte; one 16 -> 16 layer (B6)
+// 1.18 MFLOP against 16 KB read and 16 KB written, ~36, and 8 -> 16 ~24:
+// all above the float32 line of ~20.  So the design is about keeping the
+// FMA pipes fed:
 // * Register blocking.  Each thread computes P pixels x 16 output channels
-//   (P = 3 on the ring layer, 2 on the body), so one (dy, dx, ci) tap costs
-//   four float4 weight loads (the same address across the warp: a
+//   (P = 3 on the ring layer, 2 on a 16x16 body), so one (dy, dx, ci) tap
+//   costs four float4 weight loads (the same address across the warp: a
 //   broadcast) and P activation loads for 16 P FMAs -- 4.8 to 6.9 FMAs per
 //   shared-memory load, against one in the first design.
 // * Channel-major planes.  Activations sit in shared memory as one (h, w)
@@ -34,38 +45,47 @@
 //   Each pixel's plane offset costs one division, once per layer.
 // * An even split: 128 threads cover the 18x18 ring layer in one round of
 //   3 pixels (84% of the slots used) and the 16x16 body in one round of 2.
-// * Persistent CTAs: as many as fit on the card (4 per SM at 47 KB of
-//   shared memory), each loading every layer's weights once -- padded to
-//   whole 16-channel groups with zeros -- and looping over tiles.
-// * Compile-time extents: the detector's widths, tile 16, are one template
-//   instance, so loops unroll and indices fold; any other widths, tiles and
-//   layer counts take one generic instance of the same code.
-// * cudaFuncSetAttribute runs once per instance and device, not per launch.
+// * Persistent CTAs: as many as fit on the card (4 per SM), each loading its
+//   weights once -- padded to whole 16-channel groups with zeros -- and
+//   looping over tiles.  On the layer-by-layer route each layer's weights
+//   are loaded once per CTA at the start of the layer.
+// * Compile-time extents: the detector's widths at tile 16 -- the (8, 16,
+//   16) stack, and B6's 8 -> 16 and 16 -> 16 layers -- are template
+//   instances, so loops unroll, indices fold and the halo loads are float4;
+//   any other widths, tiles and depths take the generic code.
+// * cudaFuncSetAttribute runs once per kernel and device, not per launch.
 //
 // Every output element starts at 0.f and accumulates its taps by explicit
 // fmaf in the order dy, dx, then input channel -- the order of
-// roi_conv_packed.cu -- and depends only on this tile's ring, so the stack
-// equals the per-layer chain (B6 + ReLU) bit for bit, and a compact launch
-// and a full launch give the same bits for the tiles they share.  Blocking
-// over pixels and channels changes no output's order.  Built without
-// --use_fast_math.
+// roi_conv_entry.cu -- and depends only on its own inputs, so B6 + ReLU per
+// layer, the ring route and the layer-by-layer route give the same bits,
+// and a compact launch and a full launch give the same bits for the tiles
+// they share.  Blocking over pixels and channels changes no output's order.
+// Built without --use_fast_math.
 #include <atomic>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kCo = 16;                      // output channels per pass
-constexpr int kMaxLayers = 8;
+constexpr int kMaxLayers = 8;                // the ring route's depth
 
 struct StackParams {
-  int n, th, tw, L;
+  int n, th, tw, L, relu_last;
   int chans[kMaxLayers + 1];
-  int cop[kMaxLayers];                       // C_{l+1} padded to kCo
   int woff[kMaxLayers];                      // layer l's weights, in floats
   int buf_floats[2];                         // the two activation buffers
   int w_floats;
+};
+
+struct LayersParams {
+  int n, th, tw, L;
+  int win_floats;                            // the window, then the weights
 };
 
 __host__ __device__ constexpr int pad_co(int c) {
@@ -87,22 +107,89 @@ __device__ __forceinline__ bool live_at(const int* slot_of, int y, int x,
   return slot_of[ry * 3 + rx] >= 0;
 }
 
-// One 3x3 conv + ReLU layer over the CTA's region.  ``in``: cin planes of
+// slot_of[(dy+1)*3 + (dx+1)]: the packed slot of each tile of the 3x3
+// region around ``tile`` (the centre is the tile itself).
+__device__ __forceinline__ void load_slots(int* slot_of,
+                                           const int* __restrict__ nbr,
+                                           int tile, int n) {
+  if (threadIdx.x < 9) {
+    const int code = threadIdx.x;
+    int s = tile;
+    if (code != 4)
+      s = nbr[8 * static_cast<size_t>(tile) + (code < 4 ? code : code - 1)];
+    if (s >= n) __trap();                    // a slot outside the launch
+    slot_of[code] = s;
+  }
+}
+
+// One layer's (3, 3, cin, cout) weights into ``dst`` as (3, 3, cin, cop),
+// zeros past cout.
+__device__ __forceinline__ void load_weights(float* dst,
+                                             const float* __restrict__ src,
+                                             int cin, int cout) {
+  const int cop = pad_co(cout), total = 9 * cin * cop;
+  for (int i = threadIdx.x; i < total; i += kThreads) {
+    const int tc = i / cop, co = i - tc * cop;
+    dst[i] = co < cout ? src[tc * cout + co] : 0.f;
+  }
+}
+
+// The tile plus an R-pixel ring of ``src`` (n, th, tw, c0) into c0
+// channel-major planes of (th + 2R) x (tw + 2R) at ``dst``, zero where the
+// slot is -1.
+template <int C0, int TILE>
+__device__ __forceinline__ void load_ring(float* dst, const float* src,
+                                          int c0_rt, int R, int th_rt,
+                                          int tw_rt, const int* slot_of) {
+  const int c0 = pick<C0>(c0_rt), th = pick<TILE>(th_rt),
+            tw = pick<TILE>(tw_rt);
+  const int win = tw + 2 * R, plane = (th + 2 * R) * win;
+  for (int e = threadIdx.x; e < plane; e += kThreads) {
+    const int py = e / win;
+    const int yy = py - R, xx = e - py * win - R;
+    const int ry = yy < 0 ? 0 : (yy < th ? 1 : 2);
+    const int rx = xx < 0 ? 0 : (xx < tw ? 1 : 2);
+    const int s = slot_of[ry * 3 + rx];
+    if (s >= 0) {
+      const int ly = yy - (ry - 1) * th, lx = xx - (rx - 1) * tw;
+      const float* px =
+          src + ((static_cast<size_t>(s) * th + ly) * tw + lx) * c0;
+      if constexpr (C0 % 4 == 0 && C0 != 0) {
+#pragma unroll
+        for (int c4 = 0; c4 < C0 / 4; ++c4) {
+          const float4 v = reinterpret_cast<const float4*>(px)[c4];
+          dst[(4 * c4 + 0) * plane + e] = v.x;
+          dst[(4 * c4 + 1) * plane + e] = v.y;
+          dst[(4 * c4 + 2) * plane + e] = v.z;
+          dst[(4 * c4 + 3) * plane + e] = v.w;
+        }
+      } else {
+        for (int ci = 0; ci < c0; ++ci) dst[ci * plane + e] = px[ci];
+      }
+    } else {
+      for (int ci = 0; ci < c0; ++ci) dst[ci * plane + e] = 0.f;
+    }
+  }
+}
+
+// One 3x3 conv layer over the CTA's region.  ``in``: cin planes of
 // (ho + 2) x win, channel-major; the output is ho x wo (wo = win - 2).  Not
-// last: cout planes of ho x wo into ``nxt``, zero on ring pixels (r_out
-// from the tile body) whose slot is -1.  Last: NHWC rows of the tile into
-// ``out``.  ``w``: (3, 3, cin, cop) with zeros past cout.  Each thread takes
-// P pixels (j, j + kThreads, ...) of the flattened output at a time.
+// last: conv + ReLU, cout planes of ho x wo into ``nxt``, zero on ring
+// pixels (r_out from the tile body) whose slot is -1.  Last: NHWC rows of
+// the tile into ``out``, ReLU'd when ``relu``.  ``w``: (3, 3, cin, cop)
+// with zeros past cout.  Each thread takes P pixels (j, j + kThreads, ...)
+// of the flattened output at a time.
 template <int P, int CIN, int COUT, int WIN, int HO>
 __device__ __forceinline__ void conv_layer(
     const float* __restrict__ in, const float* __restrict__ w,
     float* __restrict__ nxt, float* __restrict__ out,
     const int* __restrict__ slot_of, int cin_rt, int cout_rt, int win_rt,
-    int ho_rt, int r_out, int th, int tw, bool last) {
+    int ho_rt, int r_out, int th, int tw, bool last, bool relu) {
   const int cin = pick<CIN>(cin_rt), cout = pick<COUT>(cout_rt);
   const int cop = COUT ? pad_co(COUT) : pad_co(cout_rt);
   const int win = pick<WIN>(win_rt), ho = pick<HO>(ho_rt);
   const int wo = win - 2, plane = (ho + 2) * win, pixels = ho * wo;
+  auto act = [relu](float v) { return relu ? fmaxf(v, 0.f) : v; };
   for (int co0 = 0; co0 < cop; co0 += kCo) {
     for (int base = threadIdx.x; base < pixels; base += kThreads * P) {
       int off[P];
@@ -123,7 +210,10 @@ __device__ __forceinline__ void conv_layer(
         for (int dx = 0; dx < 3; ++dx) {
           const float* src = in + dy * win + dx;
           const float* wt = w + (dy * 3 + dx) * cin * cop + co0;
-#pragma unroll 8
+          // 8 input channels at a time; 4 for B6's 8 -> 16 body (P = 2),
+          // whose whole 72-tap unroll spills registers and runs many
+          // times slower
+#pragma unroll (CIN == 8 && P == 2 ? 4 : 8)
           for (int ci = 0; ci < cin; ++ci) {
             float4 wv[kCo / 4];
 #pragma unroll
@@ -157,14 +247,14 @@ __device__ __forceinline__ void conv_layer(
 #pragma unroll
             for (int c4 = 0; c4 < kCo / 4; ++c4)
               reinterpret_cast<float4*>(o)[c4] = make_float4(
-                  fmaxf(acc[k][4 * c4 + 0], 0.f),
-                  fmaxf(acc[k][4 * c4 + 1], 0.f),
-                  fmaxf(acc[k][4 * c4 + 2], 0.f),
-                  fmaxf(acc[k][4 * c4 + 3], 0.f));
+                  act(acc[k][4 * c4 + 0]),
+                  act(acc[k][4 * c4 + 1]),
+                  act(acc[k][4 * c4 + 2]),
+                  act(acc[k][4 * c4 + 3]));
           } else {
 #pragma unroll
             for (int c = 0; c < kCo; ++c)
-              if (c < nc) o[c] = fmaxf(acc[k][c], 0.f);
+              if (c < nc) o[c] = act(acc[k][c]);
           }
         } else {
           // ring pixels of an inactive or off-frame neighbour are zero at
@@ -180,8 +270,11 @@ __device__ __forceinline__ void conv_layer(
   }
 }
 
-// C0..C2 and TILE fix the detector's (C0 -> C1 -> C2) two-layer stack on
-// TILE x TILE tiles; all 0: the generic instance, everything from P.
+// The ring route.  C0..C2 and TILE fix a compile-time instance on TILE x
+// TILE tiles: the detector's (C0 -> C1 -> C2) two-layer stack with its last
+// ReLU, or with C2 = 0 the one layer C0 -> C1 without it (B6's two
+// shapes); all 0: the generic instance, everything from P.  (A runtime
+// ReLU flag in the fixed stack slowed it on the fleet.)
 template <int C0, int C1, int C2, int TILE>
 __global__ void __launch_bounds__(kThreads, 4)
 roi_conv_stack_kernel(const float* __restrict__ packed,
@@ -193,90 +286,107 @@ roi_conv_stack_kernel(const float* __restrict__ packed,
   __shared__ int slot_of[9];                 // 3x3 region -> packed slot
   float* buf[2] = {smem, smem + P.buf_floats[0]};
   float* w_s = buf[1] + P.buf_floats[1];
-  const int L = kFixed ? 2 : P.L;
+  const int L = kFixed ? (C2 ? 2 : 1) : P.L;
   const int th = pick<TILE>(P.th), tw = pick<TILE>(P.tw);
-  const int c0 = pick<C0>(P.chans[0]);
+  const bool relu_last = kFixed ? C2 != 0 : P.relu_last != 0;
 
-  // every layer's weights, once per CTA, padded to whole kCo groups
+  // every layer's weights, once per CTA
   for (int l = 0, src = 0; l < L; ++l) {
-    const int cout = P.chans[l + 1], cop = P.cop[l];
-    const int total = 9 * P.chans[l] * cop;
-    for (int i = threadIdx.x; i < total; i += kThreads) {
-      const int tc = i / cop, co = i - tc * cop;
-      w_s[P.woff[l] + i] = co < cout ? wcat[src + tc * cout + co] : 0.f;
-    }
-    src += 9 * P.chans[l] * cout;
+    load_weights(w_s + P.woff[l], wcat + src, P.chans[l], P.chans[l + 1]);
+    src += 9 * P.chans[l] * P.chans[l + 1];
   }
 
   for (int tile = blockIdx.x; tile < P.n; tile += gridDim.x) {
     __syncthreads();                         // the last tile is consumed
-    if (threadIdx.x < 9) {
-      const int code = threadIdx.x;          // (dy+1)*3 + (dx+1)
-      int s = tile;
-      if (code != 4)
-        s = nbr[8 * static_cast<size_t>(tile) + (code < 4 ? code : code - 1)];
-      if (s >= P.n) __trap();                // a slot outside the launch
-      slot_of[code] = s;
-    }
+    load_slots(slot_of, nbr, tile, P.n);
     __syncthreads();
-
-    // stack input: the tile plus an L-pixel ring, c0 planes
-    {
-      const int R = L, win = tw + 2 * R, plane = (th + 2 * R) * win;
-      for (int e = threadIdx.x; e < plane; e += kThreads) {
-        const int py = e / win;
-        const int yy = py - R, xx = e - py * win - R;
-        const int ry = yy < 0 ? 0 : (yy < th ? 1 : 2);
-        const int rx = xx < 0 ? 0 : (xx < tw ? 1 : 2);
-        const int s = slot_of[ry * 3 + rx];
-        if (s >= 0) {
-          const int ly = yy - (ry - 1) * th, lx = xx - (rx - 1) * tw;
-          const float* px =
-              packed + ((static_cast<size_t>(s) * th + ly) * tw + lx) * c0;
-          if (C0 % 4 == 0 && C0 != 0) {
-#pragma unroll
-            for (int c4 = 0; c4 < C0 / 4; ++c4) {
-              const float4 v = reinterpret_cast<const float4*>(px)[c4];
-              buf[0][(4 * c4 + 0) * plane + e] = v.x;
-              buf[0][(4 * c4 + 1) * plane + e] = v.y;
-              buf[0][(4 * c4 + 2) * plane + e] = v.z;
-              buf[0][(4 * c4 + 3) * plane + e] = v.w;
-            }
-          } else {
-            for (int ci = 0; ci < c0; ++ci) buf[0][ci * plane + e] = px[ci];
-          }
-        } else {
-          for (int ci = 0; ci < c0; ++ci) buf[0][ci * plane + e] = 0.f;
-        }
-      }
-    }
+    load_ring<C0, TILE>(buf[0], packed, P.chans[0], L, th, tw, slot_of);
     __syncthreads();
 
     float* o = out + static_cast<size_t>(tile) * th * tw * P.chans[L];
-    if (kFixed) {
+    if constexpr (kFixed && C2 != 0) {
       conv_layer<3, C0, C1, TILE + 4, TILE + 2>(
           buf[0], w_s + P.woff[0], buf[1], o, slot_of, 0, 0, 0, 0, 1, TILE,
-          TILE, false);
+          TILE, false, true);
       __syncthreads();
       conv_layer<2, C1, C2, TILE + 2, TILE>(
           buf[1], w_s + P.woff[1], nullptr, o, slot_of, 0, 0, 0, 0, 0, TILE,
-          TILE, true);
+          TILE, true, relu_last);
+    } else if constexpr (kFixed) {
+      conv_layer<2, C0, C1, TILE + 2, TILE>(
+          buf[0], w_s, nullptr, o, slot_of, 0, 0, 0, 0, 0, TILE, TILE, true,
+          relu_last);
     } else {
       for (int l = 0; l < L; ++l) {
         const int r_out = L - l - 1;
         conv_layer<3, 0, 0, 0, 0>(
             buf[l % 2], w_s + P.woff[l], buf[(l + 1) % 2], o, slot_of,
             P.chans[l], P.chans[l + 1], tw + 2 * r_out + 2, th + 2 * r_out,
-            r_out, th, tw, l == L - 1);
+            r_out, th, tw, l == L - 1, relu_last);
         __syncthreads();
       }
     }
   }
 }
 
-// Lays out the shared memory for ``chans`` (L + 1 widths): the two
-// activation buffers (layer l reads buffer l % 2, channel-major planes) and
-// every layer's weights, padded to whole kCo output groups.
+// One tile of one layer on the layer-by-layer route: the tile + 1-pixel
+// ring of ``in`` into ``win``, then conv + ReLU into the tile's NHWC rows
+// ``o``.  The instances <8, 16, 16> and <16, 16, 16> are B6's.
+template <int CIN, int COUT, int TILE>
+__device__ __forceinline__ void layer_tile(const float* in,
+                                           const float* w_s, float* win,
+                                           float* o, const int* slot_of,
+                                           int cin, int cout, int th,
+                                           int tw) {
+  load_ring<CIN, TILE>(win, in, cin, 1, th, tw, slot_of);
+  __syncthreads();
+  conv_layer<TILE ? 2 : 3, CIN, COUT, TILE ? TILE + 2 : 0, TILE>(
+      win, w_s, nullptr, o, slot_of, cin, cout, tw + 2, th, 0, th, tw, true,
+      true);
+}
+
+// The layer-by-layer route, launched cooperatively (every CTA resident).
+// ``chans``: the L + 1 widths, on the card.  Layer l < L - 1 writes
+// (n, th, tw, C_{l+1}) to act0 (l even) or act1 (l odd).  ``packed`` and
+// the activations are not __restrict__: the activations are written in
+// this launch, so no load of them may take the read-only path.
+__global__ void __launch_bounds__(kThreads, 4)
+roi_conv_layers_kernel(const float* packed, const float* __restrict__ wcat,
+                       const int* __restrict__ nbr,
+                       const int* __restrict__ chans, float* act0,
+                       float* act1, float* out, LayersParams P) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int slot_of[9];
+  float* win = smem;
+  float* w_s = smem + P.win_floats;
+  cg::grid_group grid = cg::this_grid();
+  const bool tile16 = P.th == 16 && P.tw == 16;
+  for (int l = 0, woff = 0; l < P.L; ++l) {
+    const int cin = chans[l], cout = chans[l + 1];
+    const float* in = l == 0 ? packed : (l % 2 ? act0 : act1);
+    float* dst = l == P.L - 1 ? out : (l % 2 ? act1 : act0);
+    load_weights(w_s, wcat + woff, cin, cout);
+    woff += 9 * cin * cout;
+    for (int tile = blockIdx.x; tile < P.n; tile += gridDim.x) {
+      __syncthreads();             // the weights are in, the last tile used
+      load_slots(slot_of, nbr, tile, P.n);
+      __syncthreads();
+      float* o = dst + static_cast<size_t>(tile) * P.th * P.tw * cout;
+      if (tile16 && cin == 8 && cout == 16)
+        layer_tile<8, 16, 16>(in, w_s, win, o, slot_of, cin, cout, 16, 16);
+      else if (tile16 && cin == 16 && cout == 16)
+        layer_tile<16, 16, 16>(in, w_s, win, o, slot_of, cin, cout, 16, 16);
+      else
+        layer_tile<0, 0, 0>(in, w_s, win, o, slot_of, cin, cout, P.th,
+                            P.tw);
+    }
+    if (l + 1 < P.L) grid.sync();  // layer l is written on every tile
+  }
+}
+
+// Lays out the ring route's shared memory for ``chans`` (L + 1 widths):
+// the two activation buffers (layer l reads buffer l % 2, channel-major
+// planes) and every layer's weights, padded to whole kCo output groups.
 void plan(const int* chans, int L, int th, int tw, StackParams* P) {
   *P = StackParams{};
   P->th = th;
@@ -288,9 +398,8 @@ void plan(const int* chans, int L, int th, int tw, StackParams* P) {
     const int in = (th + 2 * r) * (tw + 2 * r) * chans[l];
     int& b = P->buf_floats[l % 2];
     b = b > in ? b : in;
-    P->cop[l] = pad_co(chans[l + 1]);
     P->woff[l] = P->w_floats;
-    P->w_floats += 9 * chans[l] * P->cop[l];
+    P->w_floats += 9 * chans[l] * pad_co(chans[l + 1]);
   }
   // the weights start 16-byte aligned: float4 loads
   for (int i = 0; i < 2; ++i) P->buf_floats[i] = (P->buf_floats[i] + 3) / 4 * 4;
@@ -301,21 +410,34 @@ size_t smem_bytes(const StackParams& P) {
          static_cast<size_t>(P.buf_floats[0] + P.buf_floats[1] + P.w_floats);
 }
 
-// One instance's launch: shared memory opted in once per device, then a
-// persistent grid of as many CTAs as fit on the card, at most one per tile.
-template <int C0, int C1, int C2, int TILE>
-int launch(const float* packed, const float* wcat, const int* nbr, float* out,
-           const StackParams& P, cudaStream_t stream) {
-  static std::atomic<uint32_t> opted{0};
-  auto kernel = roi_conv_stack_kernel<C0, C1, C2, TILE>;
-  const size_t smem = smem_bytes(P);
+// The layer-by-layer route's shared memory: the widest layer's window and
+// the largest layer's padded weights.  Returns its size in bytes.
+size_t plan_layers(const int* chans, int L, int th, int tw,
+                   LayersParams* P) {
+  *P = LayersParams{0, th, tw, L, 0};
+  size_t w_floats = 0;
+  for (int l = 0; l < L; ++l) {
+    const int in = (th + 2) * (tw + 2) * chans[l];
+    const size_t w = 9 * static_cast<size_t>(chans[l]) * pad_co(chans[l + 1]);
+    P->win_floats = P->win_floats > in ? P->win_floats : in;
+    w_floats = w_floats > w ? w_floats : w;
+  }
+  P->win_floats = (P->win_floats + 3) / 4 * 4;   // the weights: float4 loads
+  return sizeof(float) * (P->win_floats + w_floats);
+}
+
+// Opts ``kernel`` in, once per device, to all the shared memory a CTA may
+// hold beside its static slot table (so any plan fits without asking
+// again), then sizes the persistent grid: as many CTAs of ``smem`` bytes
+// as fit on the card at once, at most ``n``.
+template <typename K>
+cudaError_t persistent_grid(K kernel, std::atomic<uint32_t>& opted,
+                            size_t smem, int n, int* grid) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (e != cudaSuccess) return e;
   const uint32_t bit = 1u << (dev & 31);
   if (!(opted.load(std::memory_order_acquire) & bit)) {
-    // all a CTA may hold beside the static slot table, so any plan of this
-    // instance fits without asking again
     int optin = 0;
     cudaFuncAttributes fa;
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
@@ -325,24 +447,38 @@ int launch(const float* packed, const float* wcat, const int* nbr, float* out,
       e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
           optin - static_cast<int>(fa.sharedSizeBytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) return e;
     opted.fetch_or(bit, std::memory_order_release);
   }
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                    smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long fit = static_cast<long long>(sms) * per_sm;
-  const int grid = static_cast<int>(P.n < fit ? P.n : fit);
+  *grid = static_cast<int>(n < fit ? n : fit);
+  return cudaSuccess;
+}
+
+// One ring-route instance's launch on its persistent grid.
+template <int C0, int C1, int C2, int TILE>
+int launch(const float* packed, const float* wcat, const int* nbr, float* out,
+           const StackParams& P, cudaStream_t stream) {
+  static std::atomic<uint32_t> opted{0};
+  auto kernel = roi_conv_stack_kernel<C0, C1, C2, TILE>;
+  const size_t smem = smem_bytes(P);
+  int grid = 0;
+  cudaError_t e = persistent_grid(kernel, opted, smem, P.n, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<grid, kThreads, smem, stream>>>(packed, wcat, nbr, out, P);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Shared memory one CTA needs for ``chans`` (L + 1 widths), in bytes.
+// Shared memory one ring-route CTA needs for ``chans`` (L + 1 widths), in
+// bytes; -1 past the ring route's depth.
 extern "C" int roi_conv_stack_smem_bytes(const int* chans, int L, int th,
                                          int tw) {
   if (L < 1 || L > kMaxLayers) return -1;
@@ -351,21 +487,72 @@ extern "C" int roi_conv_stack_smem_bytes(const int* chans, int L, int th,
   return static_cast<int>(smem_bytes(P));
 }
 
+// The ring route: L conv layers, each with its ReLU but the last one's
+// when ``relu_last`` is 0 (B6 is L = 1 without it).
 extern "C" int roi_conv_stack_launch(const void* packed, const void* wcat,
                                      const int* chans, const void* nbr,
                                      void* out, int n, int th, int tw, int L,
-                                     void* stream) {
+                                     int relu_last, void* stream) {
   if (L < 1 || L > kMaxLayers) return static_cast<int>(cudaErrorInvalidValue);
   StackParams P;
   plan(chans, L, th, tw, &P);
   P.n = n;
+  P.relu_last = relu_last;
   const float* x = static_cast<const float*>(packed);
   const float* w = static_cast<const float*>(wcat);
   const int* nb = static_cast<const int*>(nbr);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (L == 2 && th == 16 && tw == 16 && chans[0] == 8 && chans[1] == 16 &&
-      chans[2] == 16)
-    return launch<8, 16, 16, 16>(x, w, nb, o, P, st);   // the detector
+  if (th == 16 && tw == 16) {
+    if (relu_last && L == 2 && chans[0] == 8 && chans[1] == 16 &&
+        chans[2] == 16)
+      return launch<8, 16, 16, 16>(x, w, nb, o, P, st);   // the detector
+    if (!relu_last && L == 1 && chans[0] == 8 && chans[1] == 16)
+      return launch<8, 16, 0, 16>(x, w, nb, o, P, st);    // B6's layers
+    if (!relu_last && L == 1 && chans[0] == 16 && chans[1] == 16)
+      return launch<16, 16, 0, 16>(x, w, nb, o, P, st);
+  }
   return launch<0, 0, 0, 0>(x, w, nb, o, P, st);
+}
+
+// Shared memory one layer-by-layer CTA needs, in bytes.
+extern "C" int roi_conv_layers_smem_bytes(const int* chans, int L, int th,
+                                          int tw) {
+  if (L < 1) return -1;
+  LayersParams P;
+  return static_cast<int>(plan_layers(chans, L, th, tw, &P));
+}
+
+// The layer-by-layer route: L conv + ReLU layers in one cooperative launch.
+// ``chans`` on the host, ``chans_dev`` the same L + 1 ints on the card;
+// act0 / act1 hold (n, th, tw, max inner width) floats each (act1 unused
+// below 3 layers, both below 2).  A refused cooperative launch (too many
+// CTAs, no support) returns its error.
+extern "C" int roi_conv_layers_launch(const void* packed, const void* wcat,
+                                      const int* chans, const void* chans_dev,
+                                      const void* nbr, void* act0, void* act1,
+                                      void* out, int n, int th, int tw, int L,
+                                      void* stream) {
+  if (L < 1) return static_cast<int>(cudaErrorInvalidValue);
+  static std::atomic<uint32_t> opted{0};
+  LayersParams P;
+  const size_t smem = plan_layers(chans, L, th, tw, &P);
+  P.n = n;
+  int grid = 0;
+  cudaError_t e = persistent_grid(roi_conv_layers_kernel, opted, smem, n,
+                                  &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const float* x = static_cast<const float*>(packed);
+  const float* w = static_cast<const float*>(wcat);
+  const int* nb = static_cast<const int*>(nbr);
+  const int* ch = static_cast<const int*>(chans_dev);
+  float* a0 = static_cast<float*>(act0);
+  float* a1 = static_cast<float*>(act1);
+  float* o = static_cast<float*>(out);
+  void* args[] = {&x, &w, &nb, &ch, &a0, &a1, &o, &P};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(&roi_conv_layers_kernel), dim3(grid),
+      dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }

@@ -268,13 +268,15 @@ def sbnet_scatter(packed: torch.Tensor, idx: torch.Tensor,
 
 def roi_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   positions: torch.Tensor, block_q: int = 128,
-                  block_k: int = 128, causal_skip: bool = True):
+                  block_k: int = 128, causal_skip: bool = True,
+                  scale: float | None = None):
     """RoI-packed attention: q, k, v (S, H, D) packed tokens, positions (S,)
     int32 original positions (``PAD_POS`` on padding rows).  Query i
     attends key j iff positions[i] >= positions[j], as the JAX package's
-    ``ref.roi_attention`` computes it: float32 logits scaled by
-    1/sqrt(D), masked to -1e30, a softmax over each whole row, in q's
-    dtype.  Like the kernel, a q-block attends only the k-blocks below its
+    ``ref.roi_attention`` computes it: float32 logits scaled by ``scale``
+    (default 1/sqrt(D); ``pad_head_dim`` gives the unpadded D's for
+    zero-padded inputs), masked to -1e30, a softmax over each whole row,
+    in q's dtype.  Like the kernel, a q-block attends only the k-blocks below its
     visit bound ``hi`` (every k-block without ``causal_skip``), and a
     q-block with ``hi == 0`` -- no real row -- gives zeros; real rows are
     unchanged by either rule.  Returns (out, visited (H, S // block_q)
@@ -298,7 +300,8 @@ def roi_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kblock = torch.arange(S, device=dev) // block_k
     visible = (positions[:, None] >= positions[None, :]) \
         & (kblock[None, :] < hi_row[:, None])
-    scale = 1.0 / D ** 0.5
+    if scale is None:
+        scale = 1.0 / D ** 0.5
     out = torch.empty((S, H, D), dtype=torch.float32, device=dev)
     for h in range(H):
         logits = (q[:, h].float() @ k[:, h].float().T) * scale

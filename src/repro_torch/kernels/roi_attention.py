@@ -7,7 +7,9 @@ carry ``PAD_POS`` (never attended by a real row), and with ``causal_skip``
 each q-block walks only the k-blocks up to the last one whose minimum
 position can be attended -- the bound ``block_min_positions`` feeds.
 Skipped and exhaustive walks are bitwise equal on real rows; the visited
-counts per (head, q-block) come back beside the output.
+counts per (head, q-block) come back beside the output.  The kernel has
+instances for the head dims ``HEAD_DIMS``; any other head dim up to 128
+runs zero-padded to the next one (``pad_head_dim``).
 """
 from __future__ import annotations
 
@@ -30,13 +32,31 @@ def block_min_positions(positions: torch.Tensor,
     return positions.reshape(S // block_k, block_k).amin(dim=1)
 
 
+def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q, k, v (S, H, D) zero-padded on the last axis to the next kernel
+    instance in ``HEAD_DIMS`` (fresh contiguous tensors; as given where D
+    is one), and the softmax scale 1/sqrt(D) of the original D.  Exact:
+    the zero columns add zero products to every q.k and give zero output
+    columns, which the caller drops.  Raises for D outside 1..128."""
+    D = q.shape[-1]
+    if not 1 <= D <= HEAD_DIMS[-1]:
+        raise ValueError(f"roi_attention: takes head_dim 1 to "
+                         f"{HEAD_DIMS[-1]}, got D={D}")
+    width = min(d for d in HEAD_DIMS if d >= D)
+    if width != D:
+        q, k, v = (torch.nn.functional.pad(t, (0, width - D))
+                   for t in (q, k, v))
+    return q, k, v, 1.0 / D ** 0.5
+
+
 def roi_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   positions: torch.Tensor, block_q: int = 128,
                   block_k: int = 128, causal_skip: bool = True):
-    """q, k, v: (S, H, D) float32 or bfloat16 packed tokens; positions:
-    (S,) int32 original positions (``PAD_POS`` on padding rows).  Returns
-    (out (S, H, D) in q's dtype, visited (H, S // block_q) int32).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    """q, k, v: (S, H, D) float32 or bfloat16 packed tokens, D at most
+    128; positions: (S,) int32 original positions (``PAD_POS`` on padding
+    rows).  Returns (out (S, H, D) in q's dtype, visited (H, S // block_q)
+    int32).  CPU tensors take the plain version; CUDA tensors launch the
+    kernel (at the padded head dim where D is not an instance's)."""
     if q.device.type == "cpu":
         return ref.roi_attention(q, k, v, positions, block_q, block_k,
                                  causal_skip)
@@ -50,14 +70,14 @@ def roi_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.expect(name, "k", k, q.dtype, (S, H, D))
     _build.expect(name, "v", v, q.dtype, (S, H, D))
     _build.expect(name, "positions", positions, torch.int32, (S,))
-    if D not in HEAD_DIMS or block_q not in BLOCKS_Q \
-            or block_k % SUB_CHUNK or block_k <= 0:
-        raise ValueError(f"{name}: takes head_dim in {HEAD_DIMS}, block_q in "
-                         f"{BLOCKS_Q} and block_k a multiple of {SUB_CHUNK}; "
-                         f"got D={D}, block_q={block_q}, block_k={block_k}")
+    if block_q not in BLOCKS_Q or block_k % SUB_CHUNK or block_k <= 0:
+        raise ValueError(f"{name}: takes block_q in {BLOCKS_Q} and block_k a "
+                         f"multiple of {SUB_CHUNK}; got block_q={block_q}, "
+                         f"block_k={block_k}")
     if S % block_q or S % block_k:
         raise ValueError(f"{name}: S={S} must divide by block_q={block_q} "
                          f"and block_k={block_k} (pack_tokens pads)")
+    q, k, v, scale = pad_head_dim(q, k, v)
     if q.dtype == torch.bfloat16 and \
             any(t.data_ptr() % 16 for t in (q, k, v, positions)):
         raise ValueError(f"{name}: bfloat16 q, k, v and positions must start "
@@ -72,9 +92,11 @@ def roi_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             err = lib.roi_attention_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 positions.data_ptr(), kmin.data_ptr(), out.data_ptr(),
-                visited.data_ptr(), S, H, D, block_q, block_k,
-                int(causal_skip), int(q.dtype == torch.bfloat16),
-                1.0 / D ** 0.5, _build.stream_handle(dev))
+                visited.data_ptr(), S, H, q.shape[-1], block_q, block_k,
+                int(causal_skip), int(q.dtype == torch.bfloat16), scale,
+                _build.stream_handle(dev))
         _build.check(err, name)
         _build.LAUNCHES[name] += 1
+    if out.shape[-1] != D:
+        out = out[..., :D].contiguous()
     return out, visited

@@ -4,13 +4,14 @@
 straight off the frames on the active tiles only: ``roi_conv_entry`` (the
 fused backbone's entry, with ReLU), ``roi_conv_fleet`` (the per-layer
 chain's entry, without) and ``roi_conv`` (one camera's (ty, tx) rows, or
-a batch of frames sharing them).  ``roi_conv_packed``
-(``csrc/roi_conv_packed.cu``) is one later layer over the packed tiles,
-each tile's halo coming from its neighbours through the (n, 8) neighbour
-table; ``roi_conv_stack`` (``csrc/roi_conv_stack.cu``) runs every later
-layer, each with its ReLU, in one launch.  All accumulate their taps in
-the same fixed order, so the fused stack and the per-layer chain give the
-same bits.
+a batch of frames sharing them).  ``csrc/roi_conv_stack.cu`` holds the
+layers over the packed tiles, each tile's halo coming from its neighbours
+through the (n, 8) neighbour table, on one layer body:
+``roi_conv_stack`` runs every later layer, each with its ReLU, in one
+launch (by the ring route, or layer by layer past it: ``stack_route``),
+and ``roi_conv_packed`` is one later layer without the ReLU.  All
+accumulate their taps in the same fixed order, so the fused stack and the
+per-layer chain give the same bits.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ NEIGHBOR_OFFSETS = ((-1, -1), (-1, 0), (-1, 1), (0, -1),
                     (0, 1), (1, -1), (1, 0), (1, 1))
 
 _SMEM_LIMIT = 227 * 1024          # shared memory one H100 CTA may hold
+RING_MAX_LAYERS = 8               # the ring route's depth (kMaxLayers)
 
 
 def _gather_conv(name: str, launch, x: torch.Tensor, w: torch.Tensor,
@@ -100,80 +102,124 @@ def roi_conv(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, th: int,
     return out
 
 
-def roi_conv_packed(packed: torch.Tensor, w: torch.Tensor,
-                    nbr: torch.Tensor) -> torch.Tensor:
-    """packed: (n, th, tw, Cin) float32; w: (3, 3, Cin, Cout); nbr: (n, 8)
-    int32 neighbour slots (-1 = zero halo).  Returns one packed SAME-conv
-    layer (n, th, tw, Cout), no ReLU.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
-    if packed.device.type == "cpu":
-        return ref.roi_conv_packed(packed, w, nbr)
-    name = "roi_conv_packed"
-    dev = _build.cuda_device(name, packed, w, nbr)
-    _build.expect(name, "packed", packed, torch.float32, (None,) * 4)
-    n, th, tw, cin = packed.shape
-    _build.expect(name, "w", w, torch.float32, (3, 3, cin, None))
-    _build.expect(name, "nbr", nbr, torch.int32, (n, 8))
-    cout = w.shape[-1]
-    lib = _build.library()
-    smem = lib.roi_conv_packed_smem_bytes(th, tw, cin, cout)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"{name}: needs {smem} bytes of shared memory per "
-                         f"tile, more than {_SMEM_LIMIT}")
-    out = torch.empty((n, th, tw, cout), dtype=torch.float32, device=dev)
-    if n == 0:
-        return out
-    with torch.cuda.device(dev):
-        err = lib.roi_conv_packed_launch(
-            packed.data_ptr(), w.data_ptr(), nbr.data_ptr(), out.data_ptr(),
-            n, th, tw, cin, cout, _build.stream_handle(dev))
-    _build.check(err, name)
-    _build.LAUNCHES[name] += 1
-    return out
+def stack_route(L: int, th: int, tw: int) -> str:
+    """How the stack kernel runs ``L`` layers on th x tw tiles: ``"ring"``
+    (each tile recomputes an L-pixel ring of its neighbours, exact while
+    the ring reaches only the 8 immediate ones: L <= min(th, tw, 8)), else
+    ``"layers"`` (layer by layer, a grid-wide barrier between layers).
+    Either way one launch."""
+    if L < 1:
+        raise ValueError(f"roi_conv_stack: {L} layers; it takes at least 1")
+    return "ring" if L <= min(th, tw, RING_MAX_LAYERS) else "layers"
 
 
-def roi_conv_stack(packed: torch.Tensor, ws: Sequence[torch.Tensor],
-                   nbr: torch.Tensor) -> torch.Tensor:
-    """packed: (n, th, tw, C0) float32 entry output; ws: the later layers'
-    (3, 3, C_l, C_{l+1}) weights; nbr: (n, 8) int32 neighbour slots (-1 =
-    zero halo).  Returns the last layer's (n, th, tw, C_L), each layer
-    conv + ReLU.  The kernel recomputes an L-pixel ring per tile, so it
-    takes at most ``min(th, tw)`` layers and raises beyond.  CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
-    if packed.device.type == "cpu":
-        return ref.roi_conv_stack(packed, ws, nbr)
-    name = "roi_conv_stack"
+def _chain(name: str, packed: torch.Tensor, ws: Sequence[torch.Tensor],
+           nbr: torch.Tensor):
+    """Check a packed layer chain's tensors for the kernel; returns (the
+    device, the L + 1 channel widths as a host int array)."""
     dev = _build.cuda_device(name, packed, nbr, *ws)
     _build.expect(name, "packed", packed, torch.float32, (None,) * 4)
     n, th, tw, c0 = packed.shape
     _build.expect(name, "nbr", nbr, torch.int32, (n, 8))
     if packed.data_ptr() % 16:
         raise ValueError(f"{name}: packed must start on a 16-byte boundary "
-                         f"(the detector's instance reads 16-byte vectors)")
-    L = len(ws)
-    if not 1 <= L <= min(th, tw, 8):
-        raise ValueError(f"{name}: {L} layers; the kernel takes 1 to "
-                         f"min(tile, 8) = {min(th, tw, 8)}")
+                         f"(the detector's instances read 16-byte vectors)")
     chans = [c0]
     for i, w in enumerate(ws):
         _build.expect(name, f"ws[{i}]", w, torch.float32,
                       (3, 3, chans[-1], None))
         chans.append(w.shape[-1])
-    c_chans = (ctypes.c_int * (L + 1))(*chans)
-    lib = _build.library()
-    smem = lib.roi_conv_stack_smem_bytes(c_chans, L, th, tw)
-    if smem > _SMEM_LIMIT:
+    return dev, (ctypes.c_int * len(chans))(*chans)
+
+
+def _check_smem(name: str, smem: int) -> None:
+    if not 0 < smem <= _SMEM_LIMIT:
         raise ValueError(f"{name}: needs {smem} bytes of shared memory per "
-                         f"tile, more than {_SMEM_LIMIT}")
-    out = torch.empty((n, th, tw, chans[-1]), dtype=torch.float32,
-                      device=dev)
+                         f"CTA, more than {_SMEM_LIMIT}")
+
+
+def _ring(name: str, packed: torch.Tensor, ws: Sequence[torch.Tensor],
+          nbr: torch.Tensor, relu_last: bool) -> torch.Tensor:
+    """One launch of the stack kernel's ring route, counted as ``name``."""
+    dev, chans = _chain(name, packed, ws, nbr)
+    n, th, tw, _ = packed.shape
+    L = len(ws)
+    lib = _build.library()
+    _check_smem(name, lib.roi_conv_stack_smem_bytes(chans, L, th, tw))
+    out = torch.empty((n, th, tw, chans[L]), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    wcat = ws[0] if L == 1 else torch.cat([w.reshape(-1) for w in ws])
+    with torch.cuda.device(dev):
+        err = lib.roi_conv_stack_launch(
+            packed.data_ptr(), wcat.data_ptr(), chans, nbr.data_ptr(),
+            out.data_ptr(), n, th, tw, L, int(relu_last),
+            _build.stream_handle(dev))
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def roi_conv_packed(packed: torch.Tensor, w: torch.Tensor,
+                    nbr: torch.Tensor) -> torch.Tensor:
+    """packed: (n, th, tw, Cin) float32, starting on a 16-byte boundary;
+    w: (3, 3, Cin, Cout); nbr: (n, 8) int32 neighbour slots (-1 = zero
+    halo).  Returns one packed SAME-conv layer (n, th, tw, Cout), no ReLU:
+    the stack kernel's ring route at one layer with its ReLU off.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    if packed.device.type == "cpu":
+        return ref.roi_conv_packed(packed, w, nbr)
+    return _ring("roi_conv_packed", packed, [w], nbr, relu_last=False)
+
+
+def roi_conv_stack(packed: torch.Tensor, ws: Sequence[torch.Tensor],
+                   nbr: torch.Tensor) -> torch.Tensor:
+    """packed: (n, th, tw, C0) float32 entry output, starting on a 16-byte
+    boundary; ws: the later layers' (3, 3, C_l, C_{l+1}) weights; nbr: (n,
+    8) int32 neighbour slots (-1 = zero halo).  Returns the last layer's
+    (n, th, tw, C_L), each layer conv + ReLU, in one launch at any depth
+    (the route from ``stack_route``).  CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
+    if packed.device.type == "cpu":
+        return ref.roi_conv_stack(packed, ws, nbr)
+    _build.expect("roi_conv_stack", "packed", packed, torch.float32,
+                  (None,) * 4)
+    if stack_route(len(ws), *packed.shape[1:3]) == "ring":
+        return _ring("roi_conv_stack", packed, ws, nbr, relu_last=True)
+    return roi_conv_stack_layers(packed, ws, nbr)
+
+
+def roi_conv_stack_layers(packed: torch.Tensor, ws: Sequence[torch.Tensor],
+                          nbr: torch.Tensor) -> torch.Tensor:
+    """``roi_conv_stack`` by the layer-by-layer route, at any depth: one
+    cooperative launch, counted as one ``roi_conv_stack``, whose grid
+    finishes every tile of a layer before the next layer starts (two
+    ping-pong activation buffers on the card).  ``roi_conv_stack`` takes it
+    past the ring route's depth; the card tests call it directly where both
+    routes apply.  Raises if the card refuses the cooperative launch.  CPU
+    tensors take the plain version."""
+    if packed.device.type == "cpu":
+        return ref.roi_conv_stack(packed, ws, nbr)
+    name = "roi_conv_stack"
+    dev, chans = _chain(name, packed, ws, nbr)
+    n, th, tw, _ = packed.shape
+    L = len(ws)
+    lib = _build.library()
+    _check_smem(name, lib.roi_conv_layers_smem_bytes(chans, L, th, tw))
+    out = torch.empty((n, th, tw, chans[L]), dtype=torch.float32, device=dev)
     if n == 0:
         return out
     wcat = torch.cat([w.reshape(-1) for w in ws])
+    d_chans = torch.tensor(list(chans), dtype=torch.int32, device=dev)
+    inner = n * th * tw * max(chans[1:L], default=0)
+    acts = [torch.empty(inner, dtype=torch.float32, device=dev)
+            for _ in range(min(L - 1, 2))]
+    ptrs = [a.data_ptr() for a in acts] + [None] * (2 - len(acts))
     with torch.cuda.device(dev):
-        err = lib.roi_conv_stack_launch(
-            packed.data_ptr(), wcat.data_ptr(), c_chans, nbr.data_ptr(),
-            out.data_ptr(), n, th, tw, L, _build.stream_handle(dev))
+        err = lib.roi_conv_layers_launch(
+            packed.data_ptr(), wcat.data_ptr(), chans, d_chans.data_ptr(),
+            nbr.data_ptr(), *ptrs, out.data_ptr(), n, th, tw, L,
+            _build.stream_handle(dev))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
     return out

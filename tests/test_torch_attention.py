@@ -45,6 +45,8 @@ def test_pad_pos_is_the_reference_s():
     (128, 2, 32, 64, 64),
     (256, 4, 64, 128, 128),
     (256, 1, 128, 64, 128),
+    (256, 2, 120, 64, 128),       # h2o-danube3-4b's head dim
+    (128, 2, 24, 64, 64),
 ])
 def test_plain_attention_matches_reference(dtype, tol, S, H, D, bq, bk):
     """The sweep of tests/test_kernels.py: the port's entry point on CPU
@@ -71,6 +73,36 @@ def test_plain_attention_matches_reference(dtype, tol, S, H, D, bq, bk):
     np.testing.assert_allclose(out[:n_kept].float().numpy(), want[:n_kept],
                                atol=tol, rtol=tol)
     assert torch.equal(out[:n_kept], full[:n_kept])
+
+
+@pytest.mark.parametrize("D,width", [(120, 128), (24, 32)])
+def test_head_dim_padding_equals_the_unpadded_plain_version(D, width):
+    """The CUDA wrapper's head-dim padding on CPU tensors: zero columns up
+    to the next kernel instance, the scale of the original D, then the
+    slice -- through the plain version equal to the plain version at D
+    (f32, 1e-6: the products sum over other widths), zero in the padded
+    columns, the same visited counts."""
+    rng = np.random.default_rng(D)
+    S, H = 256, 2
+    q, k, v = (torch.from_numpy(a) for a in _qkv(rng, S, H, D))
+    pos = torch.from_numpy(_packed_positions(rng, S, 200))
+    qp, kp, vp, scale = tattn.pad_head_dim(q, k, v)
+    assert scale == 1.0 / D ** 0.5
+    for t, a in ((qp, q), (kp, k), (vp, v)):
+        assert t.shape == (S, H, width) and t.is_contiguous()
+        assert torch.equal(t[..., :D], a) and not t[..., D:].any()
+    got, vis = tref.roi_attention(qp, kp, vp, pos, 64, 128, scale=scale)
+    want, want_vis = tref.roi_attention(q, k, v, pos, 64, 128)
+    assert not got[..., D:].any()
+    np.testing.assert_allclose(got[..., :D].numpy(), want.numpy(),
+                               atol=1e-6, rtol=0)
+    assert torch.equal(vis, want_vis)
+    same = torch.zeros((4, 1, 64))
+    assert tattn.pad_head_dim(same, same, same)[0] is same
+    for bad in (0, 136):
+        z = torch.zeros((4, 1, bad))
+        with pytest.raises(ValueError):
+            tattn.pad_head_dim(z, z, z)
 
 
 def test_dense_positions_equal_plain_causal():

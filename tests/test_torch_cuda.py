@@ -362,11 +362,78 @@ def test_cuda_stack_launch_sizes(cuda, n, channels):
     assert torch.equal(got, chain)
 
 
+def _chain_case(rng, grids, idx, nbr, tile, chans, cuda):
+    """ReLU'd packed input and seeded weights for ``chans`` on the card."""
+    packed = torch.relu(_t(rng.normal(size=(idx.shape[0], tile, tile,
+                                            chans[0]))
+                           .astype(np.float32)).to(cuda))
+    ws = [_t((rng.normal(size=(3, 3, ci, co)) / np.sqrt(9 * ci))
+             .astype(np.float32)).to(cuda)
+          for ci, co in zip(chans[:-1], chans[1:])]
+    return packed, ws, _t(nbr).to(cuda)
+
+
+# B6's compile-time instances (8 -> 16 and 16 -> 16 at tile 16) and the
+# generic one (other tiles, odd widths)
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [4, 8, 16])
+@pytest.mark.parametrize("cin,cout", [(8, 16), (16, 16), (6, 12), (12, 5)])
+def test_cuda_packed_layer_is_the_stack_body(cuda, tile, cin, cout):
+    """B6 within 1e-4 of its plain version, with negative outputs (no
+    ReLU); B6 is the stack kernel at one layer with its ReLU off, so its
+    ReLU equals B3 at L = 1 on both routes, bitwise."""
+    rng, grids, idx, nbr, _, _ = _fleet(50 + tile + cin, tile)
+    packed, (w,), d_nbr = _chain_case(rng, grids, idx, nbr, tile,
+                                      (cin, cout), cuda)
+    before = dict(_build.LAUNCHES)
+    got = roi_conv.roi_conv_packed(packed, w, d_nbr)
+    want = tref.roi_conv_packed(packed, w, d_nbr)
+    ring = roi_conv.roi_conv_stack(packed, [w], d_nbr)
+    layers = roi_conv.roi_conv_stack_layers(packed, [w], d_nbr)
+    torch.cuda.synchronize()
+    assert got.shape == (idx.shape[0], tile, tile, cout)
+    assert (got - want).abs().max().item() <= 1e-4
+    assert got.min().item() < 0
+    assert torch.equal(torch.relu(got), ring)
+    assert torch.equal(torch.relu(got), layers)
+    assert _build.LAUNCHES["roi_conv_packed"] == \
+        before.get("roi_conv_packed", 0) + 1
+    assert _build.LAUNCHES["roi_conv_stack"] == \
+        before.get("roi_conv_stack", 0) + 2
+
+
+# deeper than the ring route takes (L > tile), and at the ring's own depths
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,chans", [
+    (4, (8, 16, 16, 16, 16, 16)), (16, (8,) + (16,) * 9),
+    (8, (8, 16, 16)), (16, (8, 16, 16)), (8, (6, 12, 10, 5))])
+def test_cuda_stack_layers_route(cuda, tile, chans):
+    """The layer-by-layer route: one counted launch, bitwise equal to the
+    B6 + ReLU chain and, where the ring route also applies, to it; within
+    1e-4 of the plain version."""
+    rng, grids, idx, nbr, _, _ = _fleet(60 + tile + len(chans), tile)
+    packed, ws, d_nbr = _chain_case(rng, grids, idx, nbr, tile, chans, cuda)
+    before = _build.LAUNCHES["roi_conv_stack"]
+    got = roi_conv.roi_conv_stack_layers(packed, ws, d_nbr)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["roi_conv_stack"] == before + 1
+    # the entry point's own route: this one past the ring's depth, else
+    # the ring
+    assert torch.equal(got, roi_conv.roi_conv_stack(packed, ws, d_nbr))
+    chain = packed
+    for w in ws:
+        chain = torch.relu(roi_conv.roi_conv_packed(chain, w, d_nbr))
+    assert got.shape == (idx.shape[0], tile, tile, chans[-1])
+    assert torch.equal(got, chain)
+    want = tref.roi_conv_stack(packed, ws, d_nbr)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
 @pytest.mark.cuda
 def test_cuda_alignment_checks(cuda):
-    """B3 and B12's bf16 instance read 16-byte vectors, so a contiguous view
-    that starts off a 16-byte boundary raises; B12's f32 instance reads
-    scalars and takes one."""
+    """B3, B6 and B12's bf16 instance read 16-byte vectors, so a contiguous
+    view that starts off a 16-byte boundary raises; B12's f32 instance
+    reads scalars and takes one."""
     n, tile = 4, 16
     grid = np.ones((2, 2), bool)
     nbr = _t(tops.fleet_neighbor_table([grid])).to(cuda)
@@ -376,6 +443,8 @@ def test_cuda_alignment_checks(cuda):
           torch.zeros((3, 3, 16, 16), device=cuda)]
     with pytest.raises(ValueError):
         roi_conv.roi_conv_stack(packed, ws, nbr)
+    with pytest.raises(ValueError):
+        roi_conv.roi_conv_packed(packed, ws[0], nbr)
     S, H, D = 128, 2, 32
     rng = np.random.default_rng(5)
     pos = _t(_packed_positions(rng, S, 100)).to(cuda)
@@ -406,7 +475,8 @@ def _packed_positions(rng, S, n_kept, span=4):
 @pytest.mark.parametrize("S,H,D,bq,bk,keep", [
     (128, 2, 32, 64, 64, 0.8), (256, 4, 64, 128, 128, 0.8),
     (256, 1, 128, 64, 128, 0.8), (256, 2, 32, 32, 32, 0.25),
-    (256, 2, 32, 32, 32, 0.6), (512, 3, 16, 128, 64, 0.5)])
+    (256, 2, 32, 32, 32, 0.6), (512, 3, 16, 128, 64, 0.5),
+    (256, 2, 120, 64, 128, 0.8), (128, 2, 24, 64, 64, 0.8)])
 def test_cuda_roi_attention_matches_plain_version(cuda, dtype, tol, S, H, D,
                                                   bq, bk, keep):
     """B12 against its plain version on real rows; the skipped and the
@@ -474,7 +544,7 @@ def test_cuda_roi_attention_rejects_what_it_does_not_take(cuda):
     pos = torch.zeros(96, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         roi_attention.roi_attention(q, q, q, pos, 64, 64)     # S % 64
-    q = torch.zeros((128, 1, 24), device=cuda)
+    q = torch.zeros((128, 1, 136), device=cuda)
     pos = torch.zeros(128, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
-        roi_attention.roi_attention(q, q, q, pos, 64, 64)     # D = 24
+        roi_attention.roi_attention(q, q, q, pos, 64, 64)     # D = 136

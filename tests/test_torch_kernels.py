@@ -109,6 +109,51 @@ def test_stack_plain_matches_reference_packed_chain():
                                    rtol=0)
 
 
+@pytest.mark.parametrize("tile,layers", [(4, 6), (2, 3)])
+def test_stack_plain_deeper_than_tile_matches_reference_chain(tile, layers):
+    """Past the ring route's depth (more layers than the tile is wide, the
+    stack kernel's layer-by-layer route): the plain stack against the JAX
+    chain ``relu(roi_conv_packed)``, camera by camera."""
+    rng, grids, idx, nbr, _, _ = _fleet(30 + tile)
+    assert roi_conv.stack_route(layers, tile, tile) == "layers"
+    n = idx.shape[0]
+    packed = np.maximum(rng.normal(size=(n, tile, tile, 8)), 0) \
+        .astype(np.float32)
+    chans = (8,) + (16,) * layers
+    ws = [(rng.normal(size=(3, 3, ci, co)) / np.sqrt(9 * ci))
+          .astype(np.float32) for ci, co in zip(chans[:-1], chans[1:])]
+    got = roi_conv.roi_conv_stack(_t(packed), [_t(w) for w in ws],
+                                  _t(nbr)).numpy()
+    assert got.shape == (n, tile, tile, 16)
+    for c, g in enumerate(grids):
+        rows = idx[:, 0] == c
+        p = jnp.asarray(packed[rows])
+        cidx = jnp.asarray(idx[rows, 1:])
+        for w in ws:
+            p = jax.nn.relu(jref.roi_conv_packed(p, cidx, g.shape,
+                                                 jnp.asarray(w)))
+        np.testing.assert_allclose(got[rows], np.asarray(p), atol=1e-5,
+                                   rtol=0)
+
+
+def test_stack_route_ring_within_the_tile_else_layers():
+    """The ring route while each tile's recomputed ring reaches only its 8
+    neighbours (L <= min(th, tw, 8)), the layer-by-layer route beyond."""
+    assert roi_conv.stack_route(2, 16, 16) == "ring"       # the detector
+    assert roi_conv.stack_route(8, 16, 16) == "ring"
+    assert roi_conv.stack_route(9, 16, 16) == "layers"
+    assert roi_conv.stack_route(4, 4, 8) == "ring"
+    assert roi_conv.stack_route(5, 4, 8) == "layers"
+    assert roi_conv.stack_route(1, 1, 1) == "ring"
+    assert roi_conv.stack_route(2, 1, 1) == "layers"
+    for th, tw in [(2, 2), (4, 4), (8, 8), (3, 16)]:
+        for L in range(1, 12):
+            assert roi_conv.stack_route(L, th, tw) == (
+                "ring" if L <= min(th, tw, 8) else "layers")
+    with pytest.raises(ValueError):
+        roi_conv.stack_route(0, 16, 16)
+
+
 def test_stack_plain_zero_halo_from_neighbor_table():
     """A -1 slot is a zero halo at every layer: dropping a neighbour from
     the table equals zeroing that neighbour's tile on the full frame."""
