@@ -17,17 +17,46 @@ checkout's kernels under its own ``build/`` and times, with CUDA events
 * B12 at the serving slice (the fleet stream's 9,472 packed positions,
   48 heads of 128, bf16, blocks of 128), with and without the causal skip.
 
+Each turn also reports the machine code of B3's instance for the
+detector (the (8, 16, 16) stack on 16x16 tiles): its ptxas register
+count and a digest of its SASS (``cuobjdump -sass``, the function's name
+line left out), so two checkouts can be shown to run the same code.
+
 The turns run other, this, this, other; the script prints each turn's
 times as a JSON line, then the card's name and power limit.  With
 ``--turn`` it runs one turn for the checkout it lives in (or ``--root``).
 """
 import argparse
+import hashlib
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+
+
+DETECTOR_STACK = "roi_conv_stack_kernelILi8ELi16ELi16ELi16E"
+
+
+def detector_stack_code(_build) -> dict:
+    """Registers and a SASS digest of B3's detector instance in the
+    library ``_build`` (that checkout's build module) built."""
+    regs = [r[1] for r in _build.ptxas_report() if DETECTOR_STACK in r[0]]
+    so = _build.BUILD_ROOT / _build._digest() / "libkernels.so"
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    dump = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, timeout=300).stdout
+    digest = []
+    for f in re.split(r"\n\s*Function : ", dump):
+        name, _, rest = f.partition("\n")
+        if DETECTOR_STACK in name:
+            # the instructions, up to the row of dots that ends the function
+            code = re.split(r"\n\s*\.{5,}", rest)[0]
+            digest.append(hashlib.sha256(" ".join(code.split()).encode())
+                          .hexdigest()[:16])
+    return {"registers": regs, "sass_sha256_16": digest}
 
 
 def turn(root: Path) -> dict:
@@ -36,7 +65,7 @@ def turn(root: Path) -> dict:
     import torch
 
     import chip_smoke as cs
-    from repro_torch.kernels import ops, ref, roi_attention, roi_conv
+    from repro_torch.kernels import _build, ops, ref, roi_attention, roi_conv
 
     if not torch.cuda.is_available():
         raise SystemExit("ab_kernels: no CUDA device")
@@ -69,6 +98,7 @@ def turn(root: Path) -> dict:
             "roi_conv_stack_ms": b3, "roi_conv_packed_ms": b6,
             "roi_attention_ms": b12,
             "roi_attention_exhaustive_ms": b12_exh,
+            "detector_stack_code": detector_stack_code(_build),
             "device": torch.cuda.get_device_name(0)}
 
 

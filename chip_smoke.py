@@ -9,8 +9,8 @@ is non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build,
    with ptxas's registers, static shared memory and spills for each
-   instance of ``roi_conv_stack.cu`` (B3's ring and layer-by-layer routes,
-   B6) and of B12;
+   instance of ``roi_conv_stack.cu`` (B3's ring route, B6), of
+   ``roi_conv_layers.cu`` (B3's layer-by-layer route) and of B12;
 2. every kernel against its plain PyTorch version on the card, at the
    main paths' shapes: the delta kernels (the canvas gate B1, the packed
    gate B5 with its windows, the per-camera tile and halo pricing B10 and

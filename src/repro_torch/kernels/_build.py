@@ -31,14 +31,16 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("tile_delta_gate.cu", "tile_delta.cu", "roi_conv_entry.cu",
-           "roi_conv_stack.cu", "sbnet.cu", "roi_attention.cu")
-HEADERS = ("tile_delta_common.cuh",)
+           "roi_conv_stack.cu", "roi_conv_layers.cu", "sbnet.cu",
+           "roi_attention.cu")
+HEADERS = ("tile_delta_common.cuh", "roi_conv_layer.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # sources whose ptxas report (registers, shared memory, spills per kernel
 # instance) is kept beside the library as ``ptxas.log``
-PTXAS_VERBOSE = ("roi_attention.cu", "roi_conv_stack.cu")
+PTXAS_VERBOSE = ("roi_attention.cu", "roi_conv_stack.cu",
+                 "roi_conv_layers.cu")
 
 LAUNCHES: collections.Counter = collections.Counter()
 

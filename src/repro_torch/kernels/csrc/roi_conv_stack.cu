@@ -12,7 +12,8 @@
 //
 // The TPU design does not carry over: it runs the grid in order, phase axis
 // outer, and keeps activations and rims in memory across grid steps.  CTAs
-// have no order.  Two routes, one layer body (conv_layer):
+// have no order.  Two routes, one layer body (conv_layer, in
+// roi_conv_layer.cuh):
 // * The ring route (roi_conv_stack_kernel).  A tile never needs another
 //   tile's result: its CTA loads the tile plus an L-pixel ring of the input
 //   from its neighbours (L = number of layers), then recomputes the ring
@@ -22,11 +23,11 @@
 //   computes the tile body only.  Exact while L <= the tile size, so the
 //   ring only reaches the 8 immediate neighbours; L <= kMaxLayers besides.
 //   B6 is this route at L = 1 with the last layer's ReLU off.
-// * The layer-by-layer route (roi_conv_layers_kernel), for deeper stacks:
-//   the TPU kernel's own order.  A cooperative persistent grid runs the
+// * The layer-by-layer route (roi_conv_layers.cu), for deeper stacks: the
+//   TPU kernel's own order.  A cooperative persistent grid runs the
 //   one-layer body over every tile of layer l into one of two global
-//   ping-pong buffers, waits at a grid-wide barrier, then runs layer l + 1;
-//   the last layer writes the output.  One launch at any depth.
+//   ping-pong buffers, waits at a grid-wide barrier, then runs layer
+//   l + 1; the last layer writes the output.  One launch at any depth.
 //
 // What bounds it on the H100: float32 operations.  For the default (8, 16,
 // 16) detector a 16x16 tile of the two-layer ring does 1.9 MFLOP against
@@ -51,8 +52,9 @@
 //   are loaded once per CTA at the start of the layer.
 // * Compile-time extents: the detector's widths at tile 16 -- the (8, 16,
 //   16) stack, and B6's 8 -> 16 and 16 -> 16 layers -- are template
-//   instances, so loops unroll, indices fold and the halo loads are float4;
-//   any other widths, tiles and depths take the generic code.
+//   instances of the ring route, so loops unroll, indices fold and the
+//   halo loads are float4; any other widths and tiles, and the
+//   layer-by-layer route, take the generic code.
 // * cudaFuncSetAttribute runs once per kernel and device, not per launch.
 //
 // Every output element starts at 0.f and accumulates its taps by explicit
@@ -63,219 +65,31 @@
 // they share.  Blocking over pixels and channels changes no output's order.
 // Built without --use_fast_math.
 #include <atomic>
-#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace cg = cooperative_groups;
+#include "roi_conv_layer.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kCo = 16;                      // output channels per pass
 constexpr int kMaxLayers = 8;                // the ring route's depth
 
 struct StackParams {
-  int n, th, tw, L, relu_last;
+  int n, th, tw, L;
   int chans[kMaxLayers + 1];
+  int cop[kMaxLayers];                       // C_{l+1} padded to kCo
   int woff[kMaxLayers];                      // layer l's weights, in floats
   int buf_floats[2];                         // the two activation buffers
   int w_floats;
 };
 
-struct LayersParams {
-  int n, th, tw, L;
-  int win_floats;                            // the window, then the weights
-};
-
-__host__ __device__ constexpr int pad_co(int c) {
-  return (c + kCo - 1) / kCo * kCo;
-}
-
-// A compile-time extent where the instance fixes one, else the runtime one.
-template <int V>
-__device__ __forceinline__ int pick(int rt) {
-  return V ? V : rt;
-}
-
-// The 3x3 region (0..2 per axis) of a pixel at (y, x) relative to the tile
-// body, and whether its slot is live.
-__device__ __forceinline__ bool live_at(const int* slot_of, int y, int x,
-                                        int th, int tw) {
-  const int ry = y < 0 ? 0 : (y < th ? 1 : 2);
-  const int rx = x < 0 ? 0 : (x < tw ? 1 : 2);
-  return slot_of[ry * 3 + rx] >= 0;
-}
-
-// slot_of[(dy+1)*3 + (dx+1)]: the packed slot of each tile of the 3x3
-// region around ``tile`` (the centre is the tile itself).
-__device__ __forceinline__ void load_slots(int* slot_of,
-                                           const int* __restrict__ nbr,
-                                           int tile, int n) {
-  if (threadIdx.x < 9) {
-    const int code = threadIdx.x;
-    int s = tile;
-    if (code != 4)
-      s = nbr[8 * static_cast<size_t>(tile) + (code < 4 ? code : code - 1)];
-    if (s >= n) __trap();                    // a slot outside the launch
-    slot_of[code] = s;
-  }
-}
-
-// One layer's (3, 3, cin, cout) weights into ``dst`` as (3, 3, cin, cop),
-// zeros past cout.
-__device__ __forceinline__ void load_weights(float* dst,
-                                             const float* __restrict__ src,
-                                             int cin, int cout) {
-  const int cop = pad_co(cout), total = 9 * cin * cop;
-  for (int i = threadIdx.x; i < total; i += kThreads) {
-    const int tc = i / cop, co = i - tc * cop;
-    dst[i] = co < cout ? src[tc * cout + co] : 0.f;
-  }
-}
-
-// The tile plus an R-pixel ring of ``src`` (n, th, tw, c0) into c0
-// channel-major planes of (th + 2R) x (tw + 2R) at ``dst``, zero where the
-// slot is -1.
-template <int C0, int TILE>
-__device__ __forceinline__ void load_ring(float* dst, const float* src,
-                                          int c0_rt, int R, int th_rt,
-                                          int tw_rt, const int* slot_of) {
-  const int c0 = pick<C0>(c0_rt), th = pick<TILE>(th_rt),
-            tw = pick<TILE>(tw_rt);
-  const int win = tw + 2 * R, plane = (th + 2 * R) * win;
-  for (int e = threadIdx.x; e < plane; e += kThreads) {
-    const int py = e / win;
-    const int yy = py - R, xx = e - py * win - R;
-    const int ry = yy < 0 ? 0 : (yy < th ? 1 : 2);
-    const int rx = xx < 0 ? 0 : (xx < tw ? 1 : 2);
-    const int s = slot_of[ry * 3 + rx];
-    if (s >= 0) {
-      const int ly = yy - (ry - 1) * th, lx = xx - (rx - 1) * tw;
-      const float* px =
-          src + ((static_cast<size_t>(s) * th + ly) * tw + lx) * c0;
-      if constexpr (C0 % 4 == 0 && C0 != 0) {
-#pragma unroll
-        for (int c4 = 0; c4 < C0 / 4; ++c4) {
-          const float4 v = reinterpret_cast<const float4*>(px)[c4];
-          dst[(4 * c4 + 0) * plane + e] = v.x;
-          dst[(4 * c4 + 1) * plane + e] = v.y;
-          dst[(4 * c4 + 2) * plane + e] = v.z;
-          dst[(4 * c4 + 3) * plane + e] = v.w;
-        }
-      } else {
-        for (int ci = 0; ci < c0; ++ci) dst[ci * plane + e] = px[ci];
-      }
-    } else {
-      for (int ci = 0; ci < c0; ++ci) dst[ci * plane + e] = 0.f;
-    }
-  }
-}
-
-// One 3x3 conv layer over the CTA's region.  ``in``: cin planes of
-// (ho + 2) x win, channel-major; the output is ho x wo (wo = win - 2).  Not
-// last: conv + ReLU, cout planes of ho x wo into ``nxt``, zero on ring
-// pixels (r_out from the tile body) whose slot is -1.  Last: NHWC rows of
-// the tile into ``out``, ReLU'd when ``relu``.  ``w``: (3, 3, cin, cop)
-// with zeros past cout.  Each thread takes P pixels (j, j + kThreads, ...)
-// of the flattened output at a time.
-template <int P, int CIN, int COUT, int WIN, int HO>
-__device__ __forceinline__ void conv_layer(
-    const float* __restrict__ in, const float* __restrict__ w,
-    float* __restrict__ nxt, float* __restrict__ out,
-    const int* __restrict__ slot_of, int cin_rt, int cout_rt, int win_rt,
-    int ho_rt, int r_out, int th, int tw, bool last, bool relu) {
-  const int cin = pick<CIN>(cin_rt), cout = pick<COUT>(cout_rt);
-  const int cop = COUT ? pad_co(COUT) : pad_co(cout_rt);
-  const int win = pick<WIN>(win_rt), ho = pick<HO>(ho_rt);
-  const int wo = win - 2, plane = (ho + 2) * win, pixels = ho * wo;
-  auto act = [relu](float v) { return relu ? fmaxf(v, 0.f) : v; };
-  for (int co0 = 0; co0 < cop; co0 += kCo) {
-    for (int base = threadIdx.x; base < pixels; base += kThreads * P) {
-      int off[P];
-#pragma unroll
-      for (int k = 0; k < P; ++k) {
-        const int j = min(base + k * kThreads, pixels - 1);
-        const int y = j / wo;
-        off[k] = y * win + (j - y * wo);
-      }
-      float acc[P][kCo];
-#pragma unroll
-      for (int k = 0; k < P; ++k)
-#pragma unroll
-        for (int c = 0; c < kCo; ++c) acc[k][c] = 0.f;
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const float* src = in + dy * win + dx;
-          const float* wt = w + (dy * 3 + dx) * cin * cop + co0;
-          // 8 input channels at a time; 4 for B6's 8 -> 16 body (P = 2),
-          // whose whole 72-tap unroll spills registers and runs many
-          // times slower
-#pragma unroll (CIN == 8 && P == 2 ? 4 : 8)
-          for (int ci = 0; ci < cin; ++ci) {
-            float4 wv[kCo / 4];
-#pragma unroll
-            for (int c4 = 0; c4 < kCo / 4; ++c4)
-              wv[c4] = reinterpret_cast<const float4*>(wt + ci * cop)[c4];
-            float xv[P];
-#pragma unroll
-            for (int k = 0; k < P; ++k) xv[k] = src[ci * plane + off[k]];
-#pragma unroll
-            for (int k = 0; k < P; ++k) {
-#pragma unroll
-              for (int c4 = 0; c4 < kCo / 4; ++c4) {
-                acc[k][4 * c4 + 0] = fmaf(xv[k], wv[c4].x, acc[k][4 * c4 + 0]);
-                acc[k][4 * c4 + 1] = fmaf(xv[k], wv[c4].y, acc[k][4 * c4 + 1]);
-                acc[k][4 * c4 + 2] = fmaf(xv[k], wv[c4].z, acc[k][4 * c4 + 2]);
-                acc[k][4 * c4 + 3] = fmaf(xv[k], wv[c4].w, acc[k][4 * c4 + 3]);
-              }
-            }
-          }
-        }
-      }
-      const int nc = min(kCo, cout - co0);
-#pragma unroll
-      for (int k = 0; k < P; ++k) {
-        const int j = base + k * kThreads;
-        if (j >= pixels) continue;
-        const int y = j / wo, x = j - y * wo;
-        if (last) {
-          float* o = out + (static_cast<size_t>(y) * tw + x) * cout + co0;
-          if (COUT % 4 == 0 && COUT != 0 && nc == kCo) {
-#pragma unroll
-            for (int c4 = 0; c4 < kCo / 4; ++c4)
-              reinterpret_cast<float4*>(o)[c4] = make_float4(
-                  act(acc[k][4 * c4 + 0]),
-                  act(acc[k][4 * c4 + 1]),
-                  act(acc[k][4 * c4 + 2]),
-                  act(acc[k][4 * c4 + 3]));
-          } else {
-#pragma unroll
-            for (int c = 0; c < kCo; ++c)
-              if (c < nc) o[c] = act(acc[k][c]);
-          }
-        } else {
-          // ring pixels of an inactive or off-frame neighbour are zero at
-          // the next layer's input, as on the zero-scattered frame
-          const bool live = live_at(slot_of, y - r_out, x - r_out, th, tw);
-#pragma unroll
-          for (int c = 0; c < kCo; ++c)
-            if (c < nc)
-              nxt[(co0 + c) * pixels + j] = live ? fmaxf(acc[k][c], 0.f) : 0.f;
-        }
-      }
-    }
-  }
-}
-
 // The ring route.  C0..C2 and TILE fix a compile-time instance on TILE x
-// TILE tiles: the detector's (C0 -> C1 -> C2) two-layer stack with its last
-// ReLU, or with C2 = 0 the one layer C0 -> C1 without it (B6's two
-// shapes); all 0: the generic instance, everything from P.  (A runtime
-// ReLU flag in the fixed stack slowed it on the fleet.)
-template <int C0, int C1, int C2, int TILE>
+// TILE tiles: the detector's (C0 -> C1 -> C2) two-layer stack, or with
+// C2 = 0 the one layer C0 -> C1 (B6's two shapes); all 0: the generic
+// instance, everything from P.  RELU_LAST: the last layer's ReLU, fixed at
+// compile time so the detector's stack compiles to the code it had before
+// B6 shared this body.
+template <int C0, int C1, int C2, int TILE, bool RELU_LAST>
 __global__ void __launch_bounds__(kThreads, 4)
 roi_conv_stack_kernel(const float* __restrict__ packed,
                       const float* __restrict__ wcat,
@@ -288,99 +102,85 @@ roi_conv_stack_kernel(const float* __restrict__ packed,
   float* w_s = buf[1] + P.buf_floats[1];
   const int L = kFixed ? (C2 ? 2 : 1) : P.L;
   const int th = pick<TILE>(P.th), tw = pick<TILE>(P.tw);
-  const bool relu_last = kFixed ? C2 != 0 : P.relu_last != 0;
+  const int c0 = pick<C0>(P.chans[0]);
 
-  // every layer's weights, once per CTA
+  // every layer's weights, once per CTA, padded to whole kCo groups
   for (int l = 0, src = 0; l < L; ++l) {
-    load_weights(w_s + P.woff[l], wcat + src, P.chans[l], P.chans[l + 1]);
-    src += 9 * P.chans[l] * P.chans[l + 1];
+    const int cout = P.chans[l + 1], cop = P.cop[l];
+    const int total = 9 * P.chans[l] * cop;
+    for (int i = threadIdx.x; i < total; i += kThreads) {
+      const int tc = i / cop, co = i - tc * cop;
+      w_s[P.woff[l] + i] = co < cout ? wcat[src + tc * cout + co] : 0.f;
+    }
+    src += 9 * P.chans[l] * cout;
   }
 
   for (int tile = blockIdx.x; tile < P.n; tile += gridDim.x) {
     __syncthreads();                         // the last tile is consumed
-    load_slots(slot_of, nbr, tile, P.n);
+    if (threadIdx.x < 9) {
+      const int code = threadIdx.x;          // (dy+1)*3 + (dx+1)
+      int s = tile;
+      if (code != 4)
+        s = nbr[8 * static_cast<size_t>(tile) + (code < 4 ? code : code - 1)];
+      if (s >= P.n) __trap();                // a slot outside the launch
+      slot_of[code] = s;
+    }
     __syncthreads();
-    load_ring<C0, TILE>(buf[0], packed, P.chans[0], L, th, tw, slot_of);
+
+    // stack input: the tile plus an L-pixel ring, c0 planes
+    {
+      const int R = L, win = tw + 2 * R, plane = (th + 2 * R) * win;
+      for (int e = threadIdx.x; e < plane; e += kThreads) {
+        const int py = e / win;
+        const int yy = py - R, xx = e - py * win - R;
+        const int ry = yy < 0 ? 0 : (yy < th ? 1 : 2);
+        const int rx = xx < 0 ? 0 : (xx < tw ? 1 : 2);
+        const int s = slot_of[ry * 3 + rx];
+        if (s >= 0) {
+          const int ly = yy - (ry - 1) * th, lx = xx - (rx - 1) * tw;
+          const float* px =
+              packed + ((static_cast<size_t>(s) * th + ly) * tw + lx) * c0;
+          if (C0 % 4 == 0 && C0 != 0) {
+#pragma unroll
+            for (int c4 = 0; c4 < C0 / 4; ++c4) {
+              const float4 v = reinterpret_cast<const float4*>(px)[c4];
+              buf[0][(4 * c4 + 0) * plane + e] = v.x;
+              buf[0][(4 * c4 + 1) * plane + e] = v.y;
+              buf[0][(4 * c4 + 2) * plane + e] = v.z;
+              buf[0][(4 * c4 + 3) * plane + e] = v.w;
+            }
+          } else {
+            for (int ci = 0; ci < c0; ++ci) buf[0][ci * plane + e] = px[ci];
+          }
+        } else {
+          for (int ci = 0; ci < c0; ++ci) buf[0][ci * plane + e] = 0.f;
+        }
+      }
+    }
     __syncthreads();
 
     float* o = out + static_cast<size_t>(tile) * th * tw * P.chans[L];
-    if constexpr (kFixed && C2 != 0) {
+    if (kFixed && C2 != 0) {
       conv_layer<3, C0, C1, TILE + 4, TILE + 2>(
           buf[0], w_s + P.woff[0], buf[1], o, slot_of, 0, 0, 0, 0, 1, TILE,
-          TILE, false, true);
+          TILE, false);
       __syncthreads();
-      conv_layer<2, C1, C2, TILE + 2, TILE>(
+      conv_layer<2, C1, C2, TILE + 2, TILE, RELU_LAST>(
           buf[1], w_s + P.woff[1], nullptr, o, slot_of, 0, 0, 0, 0, 0, TILE,
-          TILE, true, relu_last);
-    } else if constexpr (kFixed) {
-      conv_layer<2, C0, C1, TILE + 2, TILE>(
-          buf[0], w_s, nullptr, o, slot_of, 0, 0, 0, 0, 0, TILE, TILE, true,
-          relu_last);
+          TILE, true);
+    } else if (kFixed) {
+      conv_layer<2, C0, C1, TILE + 2, TILE, RELU_LAST>(
+          buf[0], w_s, nullptr, o, slot_of, 0, 0, 0, 0, 0, TILE, TILE, true);
     } else {
       for (int l = 0; l < L; ++l) {
         const int r_out = L - l - 1;
-        conv_layer<3, 0, 0, 0, 0>(
+        conv_layer<3, 0, 0, 0, 0, RELU_LAST>(
             buf[l % 2], w_s + P.woff[l], buf[(l + 1) % 2], o, slot_of,
             P.chans[l], P.chans[l + 1], tw + 2 * r_out + 2, th + 2 * r_out,
-            r_out, th, tw, l == L - 1, relu_last);
+            r_out, th, tw, l == L - 1);
         __syncthreads();
       }
     }
-  }
-}
-
-// One tile of one layer on the layer-by-layer route: the tile + 1-pixel
-// ring of ``in`` into ``win``, then conv + ReLU into the tile's NHWC rows
-// ``o``.  The instances <8, 16, 16> and <16, 16, 16> are B6's.
-template <int CIN, int COUT, int TILE>
-__device__ __forceinline__ void layer_tile(const float* in,
-                                           const float* w_s, float* win,
-                                           float* o, const int* slot_of,
-                                           int cin, int cout, int th,
-                                           int tw) {
-  load_ring<CIN, TILE>(win, in, cin, 1, th, tw, slot_of);
-  __syncthreads();
-  conv_layer<TILE ? 2 : 3, CIN, COUT, TILE ? TILE + 2 : 0, TILE>(
-      win, w_s, nullptr, o, slot_of, cin, cout, tw + 2, th, 0, th, tw, true,
-      true);
-}
-
-// The layer-by-layer route, launched cooperatively (every CTA resident).
-// ``chans``: the L + 1 widths, on the card.  Layer l < L - 1 writes
-// (n, th, tw, C_{l+1}) to act0 (l even) or act1 (l odd).  ``packed`` and
-// the activations are not __restrict__: the activations are written in
-// this launch, so no load of them may take the read-only path.
-__global__ void __launch_bounds__(kThreads, 4)
-roi_conv_layers_kernel(const float* packed, const float* __restrict__ wcat,
-                       const int* __restrict__ nbr,
-                       const int* __restrict__ chans, float* act0,
-                       float* act1, float* out, LayersParams P) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ int slot_of[9];
-  float* win = smem;
-  float* w_s = smem + P.win_floats;
-  cg::grid_group grid = cg::this_grid();
-  const bool tile16 = P.th == 16 && P.tw == 16;
-  for (int l = 0, woff = 0; l < P.L; ++l) {
-    const int cin = chans[l], cout = chans[l + 1];
-    const float* in = l == 0 ? packed : (l % 2 ? act0 : act1);
-    float* dst = l == P.L - 1 ? out : (l % 2 ? act1 : act0);
-    load_weights(w_s, wcat + woff, cin, cout);
-    woff += 9 * cin * cout;
-    for (int tile = blockIdx.x; tile < P.n; tile += gridDim.x) {
-      __syncthreads();             // the weights are in, the last tile used
-      load_slots(slot_of, nbr, tile, P.n);
-      __syncthreads();
-      float* o = dst + static_cast<size_t>(tile) * P.th * P.tw * cout;
-      if (tile16 && cin == 8 && cout == 16)
-        layer_tile<8, 16, 16>(in, w_s, win, o, slot_of, cin, cout, 16, 16);
-      else if (tile16 && cin == 16 && cout == 16)
-        layer_tile<16, 16, 16>(in, w_s, win, o, slot_of, cin, cout, 16, 16);
-      else
-        layer_tile<0, 0, 0>(in, w_s, win, o, slot_of, cin, cout, P.th,
-                            P.tw);
-    }
-    if (l + 1 < P.L) grid.sync();  // layer l is written on every tile
   }
 }
 
@@ -398,8 +198,9 @@ void plan(const int* chans, int L, int th, int tw, StackParams* P) {
     const int in = (th + 2 * r) * (tw + 2 * r) * chans[l];
     int& b = P->buf_floats[l % 2];
     b = b > in ? b : in;
+    P->cop[l] = pad_co(chans[l + 1]);
     P->woff[l] = P->w_floats;
-    P->w_floats += 9 * chans[l] * pad_co(chans[l + 1]);
+    P->w_floats += 9 * chans[l] * P->cop[l];
   }
   // the weights start 16-byte aligned: float4 loads
   for (int i = 0; i < 2; ++i) P->buf_floats[i] = (P->buf_floats[i] + 3) / 4 * 4;
@@ -410,63 +211,12 @@ size_t smem_bytes(const StackParams& P) {
          static_cast<size_t>(P.buf_floats[0] + P.buf_floats[1] + P.w_floats);
 }
 
-// The layer-by-layer route's shared memory: the widest layer's window and
-// the largest layer's padded weights.  Returns its size in bytes.
-size_t plan_layers(const int* chans, int L, int th, int tw,
-                   LayersParams* P) {
-  *P = LayersParams{0, th, tw, L, 0};
-  size_t w_floats = 0;
-  for (int l = 0; l < L; ++l) {
-    const int in = (th + 2) * (tw + 2) * chans[l];
-    const size_t w = 9 * static_cast<size_t>(chans[l]) * pad_co(chans[l + 1]);
-    P->win_floats = P->win_floats > in ? P->win_floats : in;
-    w_floats = w_floats > w ? w_floats : w;
-  }
-  P->win_floats = (P->win_floats + 3) / 4 * 4;   // the weights: float4 loads
-  return sizeof(float) * (P->win_floats + w_floats);
-}
-
-// Opts ``kernel`` in, once per device, to all the shared memory a CTA may
-// hold beside its static slot table (so any plan fits without asking
-// again), then sizes the persistent grid: as many CTAs of ``smem`` bytes
-// as fit on the card at once, at most ``n``.
-template <typename K>
-cudaError_t persistent_grid(K kernel, std::atomic<uint32_t>& opted,
-                            size_t smem, int n, int* grid) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const uint32_t bit = 1u << (dev & 31);
-  if (!(opted.load(std::memory_order_acquire) & bit)) {
-    int optin = 0;
-    cudaFuncAttributes fa;
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-    if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          optin - static_cast<int>(fa.sharedSizeBytes));
-    if (e != cudaSuccess) return e;
-    opted.fetch_or(bit, std::memory_order_release);
-  }
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long fit = static_cast<long long>(sms) * per_sm;
-  *grid = static_cast<int>(n < fit ? n : fit);
-  return cudaSuccess;
-}
-
 // One ring-route instance's launch on its persistent grid.
-template <int C0, int C1, int C2, int TILE>
+template <int C0, int C1, int C2, int TILE, bool RELU_LAST>
 int launch(const float* packed, const float* wcat, const int* nbr, float* out,
            const StackParams& P, cudaStream_t stream) {
   static std::atomic<uint32_t> opted{0};
-  auto kernel = roi_conv_stack_kernel<C0, C1, C2, TILE>;
+  auto kernel = roi_conv_stack_kernel<C0, C1, C2, TILE, RELU_LAST>;
   const size_t smem = smem_bytes(P);
   int grid = 0;
   cudaError_t e = persistent_grid(kernel, opted, smem, P.n, &grid);
@@ -497,7 +247,6 @@ extern "C" int roi_conv_stack_launch(const void* packed, const void* wcat,
   StackParams P;
   plan(chans, L, th, tw, &P);
   P.n = n;
-  P.relu_last = relu_last;
   const float* x = static_cast<const float*>(packed);
   const float* w = static_cast<const float*>(wcat);
   const int* nb = static_cast<const int*>(nbr);
@@ -506,53 +255,13 @@ extern "C" int roi_conv_stack_launch(const void* packed, const void* wcat,
   if (th == 16 && tw == 16) {
     if (relu_last && L == 2 && chans[0] == 8 && chans[1] == 16 &&
         chans[2] == 16)
-      return launch<8, 16, 16, 16>(x, w, nb, o, P, st);   // the detector
+      return launch<8, 16, 16, 16, true>(x, w, nb, o, P, st);  // the detector
     if (!relu_last && L == 1 && chans[0] == 8 && chans[1] == 16)
-      return launch<8, 16, 0, 16>(x, w, nb, o, P, st);    // B6's layers
+      return launch<8, 16, 0, 16, false>(x, w, nb, o, P, st);  // B6's layers
     if (!relu_last && L == 1 && chans[0] == 16 && chans[1] == 16)
-      return launch<16, 16, 0, 16>(x, w, nb, o, P, st);
+      return launch<16, 16, 0, 16, false>(x, w, nb, o, P, st);
   }
-  return launch<0, 0, 0, 0>(x, w, nb, o, P, st);
+  if (relu_last) return launch<0, 0, 0, 0, true>(x, w, nb, o, P, st);
+  return launch<0, 0, 0, 0, false>(x, w, nb, o, P, st);
 }
 
-// Shared memory one layer-by-layer CTA needs, in bytes.
-extern "C" int roi_conv_layers_smem_bytes(const int* chans, int L, int th,
-                                          int tw) {
-  if (L < 1) return -1;
-  LayersParams P;
-  return static_cast<int>(plan_layers(chans, L, th, tw, &P));
-}
-
-// The layer-by-layer route: L conv + ReLU layers in one cooperative launch.
-// ``chans`` on the host, ``chans_dev`` the same L + 1 ints on the card;
-// act0 / act1 hold (n, th, tw, max inner width) floats each (act1 unused
-// below 3 layers, both below 2).  A refused cooperative launch (too many
-// CTAs, no support) returns its error.
-extern "C" int roi_conv_layers_launch(const void* packed, const void* wcat,
-                                      const int* chans, const void* chans_dev,
-                                      const void* nbr, void* act0, void* act1,
-                                      void* out, int n, int th, int tw, int L,
-                                      void* stream) {
-  if (L < 1) return static_cast<int>(cudaErrorInvalidValue);
-  static std::atomic<uint32_t> opted{0};
-  LayersParams P;
-  const size_t smem = plan_layers(chans, L, th, tw, &P);
-  P.n = n;
-  int grid = 0;
-  cudaError_t e = persistent_grid(roi_conv_layers_kernel, opted, smem, n,
-                                  &grid);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const float* x = static_cast<const float*>(packed);
-  const float* w = static_cast<const float*>(wcat);
-  const int* nb = static_cast<const int*>(nbr);
-  const int* ch = static_cast<const int*>(chans_dev);
-  float* a0 = static_cast<float*>(act0);
-  float* a1 = static_cast<float*>(act1);
-  float* o = static_cast<float*>(out);
-  void* args[] = {&x, &w, &nb, &ch, &a0, &a1, &o, &P};
-  e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(&roi_conv_layers_kernel), dim3(grid),
-      dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream));
-  const cudaError_t last = cudaGetLastError();
-  return static_cast<int>(e != cudaSuccess ? e : last);
-}

@@ -4,12 +4,14 @@
 straight off the frames on the active tiles only: ``roi_conv_entry`` (the
 fused backbone's entry, with ReLU), ``roi_conv_fleet`` (the per-layer
 chain's entry, without) and ``roi_conv`` (one camera's (ty, tx) rows, or
-a batch of frames sharing them).  ``csrc/roi_conv_stack.cu`` holds the
-layers over the packed tiles, each tile's halo coming from its neighbours
-through the (n, 8) neighbour table, on one layer body:
+a batch of frames sharing them).  The layers over the packed tiles, each
+tile's halo coming from its neighbours through the (n, 8) neighbour
+table, run on one layer body (``csrc/roi_conv_layer.cuh``):
 ``roi_conv_stack`` runs every later layer, each with its ReLU, in one
-launch (by the ring route, or layer by layer past it: ``stack_route``),
-and ``roi_conv_packed`` is one later layer without the ReLU.  All
+launch (by the ring route of ``csrc/roi_conv_stack.cu``, or past its
+depth layer by layer, ``csrc/roi_conv_layers.cu``: ``stack_route``), and
+``roi_conv_packed`` is one later layer without the ReLU (the ring route
+at one layer).  All
 accumulate their taps in the same fixed order, so the fused stack and the
 per-layer chain give the same bits.
 """
