@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time B3 (``roi_conv_stack``), B6 (``roi_conv_packed``) and B12
-(``roi_attention``, bf16) of two checkouts of this repository in turns, on
-one card.
+"""Time B2 (``roi_conv_entry``), B8 (``roi_conv``), B3
+(``roi_conv_stack``), B6 (``roi_conv_packed``) and B12 (``roi_attention``,
+bf16) of two checkouts of this repository in turns, on one card.
 
     python3 ab_kernels.py --other DIR
 
@@ -10,8 +10,11 @@ one card.
 checkout's kernels under its own ``build/`` and times, with CUDA events
 (median of 7 after a warm-up), at the main paths' shapes:
 
-* B3 on the 4x5 fleet of ``chip_smoke.py`` (52,288 tiles of 16x16, the
-  default (8, 16, 16) detector), on the plain entry output;
+* B2 on the 4x5 fleet of ``chip_smoke.py`` (52,288 tiles of 16x16 on the
+  stacked 1088x1920 frames, 3 -> 8 channels), and B8 on its first leg
+  (2,432 tiles of one 1088x1920 frame), as ``roi_forward_layers`` runs it;
+* B3 on the same fleet (the default (8, 16, 16) detector), on the plain
+  entry output;
 * B6 on the same fleet, each of the detector's two later layers (8 -> 16
   on the plain entry output, 16 -> 16 on the plain first layer's ReLU);
 * B12 at the serving slice (the fleet stream's 9,472 packed positions,
@@ -76,14 +79,20 @@ def turn(root: Path) -> dict:
     det = cs.build_detector(dev)
     _, _, idx, nbr = det._fleet_tables(cs.flat(grids))
     x, _, _ = det._stack_frames(cs.flat(frames), cs.flat(grids))
-    e_p = ref.roi_conv_entry(x, det.weights[0], idx, cs.TILE, cs.TILE)
+    t, w0 = cs.TILE, det.weights[0]
+    b2 = cs.time_ms(torch, lambda: roi_conv.roi_conv_entry(x, w0, idx, t, t))
+    leg, leg_grid = cs.flat(frames)[0], cs.flat(grids)[0]
+    xl = det._stack_frames([leg], [leg_grid])[0][0]
+    rows = torch.as_tensor(ops.mask_to_indices(leg_grid), device=dev)
+    b8 = cs.time_ms(torch, lambda: roi_conv.roi_conv(xl, w0, rows, t, t))
+    e_p = ref.roi_conv_entry(x, w0, idx, t, t)
     ws = det.weights[1:]
     b3 = cs.time_ms(torch, lambda: roi_conv.roi_conv_stack(e_p, ws, nbr))
     h = torch.relu(ref.roi_conv_packed(e_p, ws[0], nbr))
     b6 = [cs.time_ms(torch, lambda a=a, w=w: roi_conv.roi_conv_packed(
         a, w, nbr)) for a, w in ((e_p, ws[0]), (h, ws[1]))]
     keep = cs.fleet_keep(grids)
-    del x, e_p, h, frames, det
+    del x, xl, e_p, h, frames, det
     _, pos, _ = ops.pack_tokens(torch.arange(keep.size, device=dev),
                                 torch.as_tensor(keep, device=dev))
     S, H, D = pos.shape[0], cs.SLICE_HEADS, cs.SLICE_HEAD_DIM
@@ -95,7 +104,9 @@ def turn(root: Path) -> dict:
     b12_exh = cs.time_ms(torch, lambda: roi_attention.roi_attention(
         q, k, v, pos, 128, 128, False))
     return {"root": str(root), "n_tiles": int(idx.shape[0]),
-            "roi_conv_stack_ms": b3, "roi_conv_packed_ms": b6,
+            "leg_tiles": int(rows.shape[0]), "roi_conv_entry_ms": b2,
+            "roi_conv_ms": b8, "roi_conv_stack_ms": b3,
+            "roi_conv_packed_ms": b6,
             "roi_attention_ms": b12,
             "roi_attention_exhaustive_ms": b12_exh,
             "detector_stack_code": detector_stack_code(_build),

@@ -9,8 +9,9 @@ is non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build,
    with ptxas's registers, static shared memory and spills for each
-   instance of ``roi_conv_stack.cu`` (B3's ring route, B6), of
-   ``roi_conv_layers.cu`` (B3's layer-by-layer route) and of B12;
+   instance of ``roi_conv_entry.cu`` (B2, B7, B8: the detector's and the
+   generic instance of each), of ``roi_conv_stack.cu`` (B3's ring route,
+   B6), of ``roi_conv_layers.cu`` (B3's layer-by-layer route) and of B12;
 2. every kernel against its plain PyTorch version on the card, at the
    main paths' shapes: the delta kernels (the canvas gate B1, the packed
    gate B5 with its windows, the per-camera tile and halo pricing B10 and
@@ -22,12 +23,17 @@ is non-zero:
    events, median of 7) beside the plain version's and its bound.  B5's
    stats also equal B1's on the same content, B10's rows B1's body
    columns, camera by camera; ReLU of B7 is B2 and B8 is B7's rows of its
-   camera, bit for bit.  B12, the packed attention, at the test suite's
-   shapes (f32 within 2e-5, bf16 within 0.05 on real rows) and at the
-   serving slice's (the fleet's 9,472-token packed patch stream, 48 heads
-   of 128, bf16): skipped and exhaustive walks bitwise equal on real
-   rows, visited counts equal to ``attention_visit_bound``, an
-   all-padding stream 0 visits and zeros; times beside the plain version
+   camera, bit for bit.  B2, B7 and B8 run the entry kernel's compiled-in
+   detector instance (asserted, with the launcher's own answer); on the
+   fleet the generic instance (a copy of the frames 4 bytes off a 16-byte
+   boundary) and a compact launch on an eighth of the rows give B2's bits;
+   their achieved GB/s and share of the bound are printed, by event time
+   and by the profiler's device time.  B12, the packed attention, at the
+   test suite's shapes (f32 within 2e-5, bf16 within 0.05 on real rows)
+   and at the serving slice's (the fleet's 9,472-token packed patch
+   stream, 48 heads of 128, bf16): skipped and exhaustive walks bitwise
+   equal on real rows, visited counts equal to ``attention_visit_bound``,
+   an all-padding stream 0 visits and zeros; times beside the plain version
    and ``scaled_dot_product_attention`` with the boolean mask; B3's and
    B12's achieved TFLOP/s and share of the bound, B6's per layer and for
    both.  B3's layer-by-layer route: at the fleet's 2 layers bitwise equal
@@ -70,7 +76,7 @@ is non-zero:
    0.35 and on the dense path with an all-true grid (within 1e-4 of
    ``roi_forward`` there, on the leg padded to its grid);
    ``roi_conv_batched`` over a group's four legs with one mask, one
-   launch, bitwise equal to B8 frame by frame; B9's
+   launch on the detector instance, bitwise equal to B8 frame by frame; B9's
    gather taking the RoI tiles of a full-frame SAME conv (``F.conv2d``,
    no TF32), within 1e-4 of B8, and of each ``roi_forward`` map, bitwise
    equal to the packed head rows;
@@ -216,6 +222,56 @@ def rate_line(name, flops, ms, b_ms, what):
     """Achieved TFLOP/s and the share of the bound for one timed kernel."""
     say(f"[kernels] {name}: {flops / ms / 1e9:.2f} TFLOP/s of {what}; "
         f"{b_ms / ms:.4f} of the bound ({b_ms:.4f} ms in {ms:.4f} ms)")
+
+
+def device_ms(torch, fn, kernel, reps=7):
+    """The device time per call of the kernels named ``kernel`` that ``fn``
+    launches: the profiler's CUDA time over ``reps`` calls, after a
+    warm-up.  Unlike ``time_ms`` it leaves out the host's time between
+    launches, which bounds a short kernel's event time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if kernel in e.key)
+    return us / reps / 1e3
+
+
+def byte_line(torch, name, fn, nbytes, r):
+    """Achieved GB/s and the share of the bound for one timed byte-bound
+    kernel of the entry family, by event time and by device time (kept in
+    ``r`` as ``device_ms``)."""
+    r["device_ms"] = dev = device_ms(torch, fn, "roi_conv_entry_kernel")
+    ms, b_ms = r["ms"], r["bound_ms"]
+    say(f"[kernels] {name}: {nbytes / ms / 1e6:.1f} GB/s of the bytes it "
+        f"must move; {b_ms / ms:.4f} of the bound ({b_ms:.4f} ms in "
+        f"{ms:.4f} ms); device time {dev:.4f} ms: {nbytes / dev / 1e6:.1f} "
+        f"GB/s, {b_ms / dev:.4f} of the bound")
+
+
+def entry_route(lib, x, w, t):
+    """The instance of the entry kernel that runs on frames ``x`` with
+    weights ``w``: the route function's answer, checked against the
+    library's own choice."""
+    from repro_torch.kernels import roi_conv
+    Cin, Cout, W = x.shape[-1], w.shape[-1], x.shape[-2]
+    route = roi_conv.entry_route(Cin, Cout, t, t, W, x.data_ptr())
+    assert lib.roi_conv_entry_route(Cin, Cout, t, t, W, x.data_ptr()) == \
+        (route == "detector"), "the launcher and entry_route disagree"
+    return route
+
+
+def misaligned(torch, t):
+    """A copy of ``t`` whose data start 4 bytes past a 16-byte boundary:
+    the entry kernel's generic instance runs on it."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
@@ -410,16 +466,40 @@ def check_kernels(torch, det, frames, frames_next, grids):
                    else ""))
     del pairs, g_k
 
-    # B2: the entry conv, within CONV_TOL
+    # B2: the entry conv, within CONV_TOL, on the detector's instance;
+    # the generic instance (frames off a 16-byte boundary) gives its bits,
+    # and so does a compact launch on an eighth of the rows (the warm
+    # step's identity)
+    lib = _build.library()
+    route = entry_route(lib, x, w0, t)
+    assert route == "detector", f"the fleet's entry takes the {route} route"
     e_k = roi_conv.roi_conv_entry(x, w0, idx, t, t)
     e_p = ref.roi_conv_entry(x, w0, idx, t, t)
     err = float((e_k - e_p).abs().max())
+    xm = misaligned(torch, x)
+    assert entry_route(lib, xm, w0, t) == "generic"
+    generic = torch.equal(roi_conv.roi_conv_entry(xm, w0, idx, t, t), e_k)
+    del xm
+    sub = torch.as_tensor(np.sort(np.random.default_rng(SEED + 8).choice(
+        n, n // 8, replace=False)), device=dev)
+    compact = torch.equal(
+        roi_conv.roi_conv_entry(x, w0, idx[sub].contiguous(), t, t),
+        e_k[sub])
+    say(f"[kernels] roi_conv_entry on {n} tiles: route {route}; == the "
+        f"generic route bitwise: {generic}; a compact launch of {n // 8} "
+        f"rows == the full launch's rows bitwise: {compact}")
+    assert generic and compact
+    entry_bytes = (win_px_frame * 3 * 4 + w0.numel() * 4 + n * 3 * 4
+                   + n * t * t * chans[0] * 4)
     record("roi_conv_entry", err, err <= CONV_TOL,
            lambda: roi_conv.roi_conv_entry(x, w0, idx, t, t),
-           lambda: ref.roi_conv_entry(x, w0, idx, t, t),
-           win_px_frame * 3 * 4 + w0.numel() * 4 + n * 3 * 4
-           + n * t * t * chans[0] * 4,
-           2 * 9 * 3 * chans[0] * t * t * n, check=f"atol {CONV_TOL}")
+           lambda: ref.roi_conv_entry(x, w0, idx, t, t), entry_bytes,
+           2 * 9 * 3 * chans[0] * t * t * n,
+           check=f"atol {CONV_TOL}; route {route}; == generic route and "
+                 f"compact launch bitwise")
+    byte_line(torch, "roi_conv_entry",
+              lambda: roi_conv.roi_conv_entry(x, w0, idx, t, t), entry_bytes,
+              results["roi_conv_entry"])
 
     # B7: the entry without ReLU, within CONV_TOL; its ReLU is B2's bits
     f_k = roi_conv.roi_conv_fleet(x, w0, idx, t, t)
@@ -429,11 +509,13 @@ def check_kernels(torch, det, frames, frames_next, grids):
     del e_k, f_p
     record("roi_conv_fleet", err, err <= CONV_TOL and same,
            lambda: roi_conv.roi_conv_fleet(x, w0, idx, t, t),
-           lambda: ref.roi_conv_fleet(x, w0, idx, t, t),
-           win_px_frame * 3 * 4 + w0.numel() * 4 + n * 3 * 4
-           + n * t * t * chans[0] * 4,
+           lambda: ref.roi_conv_fleet(x, w0, idx, t, t), entry_bytes,
            2 * 9 * 3 * chans[0] * t * t * n,
-           check=f"atol {CONV_TOL}; ReLU == B2 bitwise: {same}")
+           check=f"atol {CONV_TOL}; route {route}; ReLU == B2 bitwise: "
+                 f"{same}")
+    byte_line(torch, "roi_conv_fleet",
+              lambda: roi_conv.roi_conv_fleet(x, w0, idx, t, t), entry_bytes,
+              results["roi_conv_fleet"])
 
     # B3: the layer stack on the plain entry output, within CONV_TOL
     s_k = roi_conv.roi_conv_stack(e_p, ws, nbr)
@@ -562,17 +644,23 @@ def check_kernels(torch, det, frames, frames_next, grids):
     cover[ref.tile_index(torch.nn.functional.pad(rows, (1, 0)), t, t,
                          t + 2, t + 2)[1:]] = True
     leg_px = int(cover[1:-1, 1:-1].sum())
+    route = entry_route(lib, xl, w0, t)
+    assert route == "detector", f"the leg's B8 takes the {route} route"
     o_k = roi_conv.roi_conv(xl, w0, rows, t, t)
     err = float((o_k - ref.roi_conv(xl, w0, rows, t, t)).abs().max())
     same = torch.equal(o_k, f_k[cam0])
     del f_k
+    leg_bytes = (leg_px * 3 * 4 + w0.numel() * 4 + n1 * 2 * 4
+                 + n1 * t * t * chans[0] * 4)
     record("roi_conv", err, err <= CONV_TOL and same,
            lambda: roi_conv.roi_conv(xl, w0, rows, t, t),
-           lambda: ref.roi_conv(xl, w0, rows, t, t),
-           leg_px * 3 * 4 + w0.numel() * 4 + n1 * 2 * 4
-           + n1 * t * t * chans[0] * 4, 2 * 9 * 3 * chans[0] * t * t * n1,
-           check=f"atol {CONV_TOL}; == B7's rows of camera 0 bitwise: "
-                 f"{same}; {n1} tiles")
+           lambda: ref.roi_conv(xl, w0, rows, t, t), leg_bytes,
+           2 * 9 * 3 * chans[0] * t * t * n1,
+           check=f"atol {CONV_TOL}; route {route}; == B7's rows of camera "
+                 f"0 bitwise: {same}; {n1} tiles")
+    byte_line(torch, "roi_conv",
+              lambda: roi_conv.roi_conv(xl, w0, rows, t, t), leg_bytes,
+              results["roi_conv"])
 
     # B9 on the leg's plane of B4's canvas: the gather gives back B4's
     # head tiles; the library yardsticks index with precomputed pixels
@@ -867,7 +955,7 @@ def layer_paths(torch, det, frames, grids):
     ones, bitwise, with their dispatch structures; the density switch;
     the batched single-camera conv; B9's gather on B8's oracle and on the
     head maps."""
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build, ops
     from repro_torch.serving.detector import _head_rows
     t = TILE
     w0 = det.weights[0]
@@ -941,13 +1029,15 @@ def layer_paths(torch, det, frames, grids):
     legs = frames[0][:4]
     xs, _, _ = det._stack_frames(legs, [g0] * len(legs))
     idx, idx3, nbr = det._mask_tables(g0)
+    route = entry_route(_build.library(), xs, w0, t)
+    assert route == "detector", f"the batched B8 takes the {route} route"
     batch, bc = run("roi_conv_batched", ops.roi_conv_batched, xs, w0, idx, t,
                     t)
     per = [run("roi_conv", ops.roi_conv, xs[b], w0, idx, t, t)[0]
            for b in range(len(legs))]
     same = all(torch.equal(batch[b], per[b]) for b in range(len(legs)))
     say(f"[layers] roi_conv_batched over {len(legs)} legs, one mask: "
-        f"{bc}; == B8 frame by frame bitwise: {same}")
+        f"{bc}; route {route}; == B8 frame by frame bitwise: {same}")
     assert bc == {"roi_conv": 1} and same
 
     # B8's defining oracle: the RoI tiles of the full-frame SAME conv

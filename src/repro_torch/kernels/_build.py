@@ -39,8 +39,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # sources whose ptxas report (registers, shared memory, spills per kernel
 # instance) is kept beside the library as ``ptxas.log``
-PTXAS_VERBOSE = ("roi_attention.cu", "roi_conv_stack.cu",
-                 "roi_conv_layers.cu")
+PTXAS_VERBOSE = ("roi_attention.cu", "roi_conv_entry.cu",
+                 "roi_conv_stack.cu", "roi_conv_layers.cu")
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -67,6 +67,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     for f in (lib.roi_conv_entry_launch, lib.roi_conv_fleet_launch,
               lib.roi_conv_launch):
         f.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+    # Cin, Cout, th, tw, W, x -> 1 for the detector's instance, 0 generic
+    lib.roi_conv_entry_route.argtypes = [_I, _I, _I, _I, _I, _P]
     # packed, wcat, chans (host int array), nbr, out, n, th, tw, L,
     # relu_last, stream
     lib.roi_conv_stack_launch.argtypes = \
@@ -91,7 +93,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     for f in (lib.tile_delta_gate_canvas_launch, lib.tile_delta_gate_launch,
               lib.tile_delta_launch, lib.tile_delta_halo_launch,
               lib.roi_conv_entry_launch, lib.roi_conv_fleet_launch,
-              lib.roi_conv_launch, lib.roi_conv_stack_launch,
+              lib.roi_conv_launch, lib.roi_conv_entry_route,
+              lib.roi_conv_stack_launch,
               lib.roi_conv_stack_smem_bytes, lib.roi_conv_layers_launch,
               lib.roi_conv_layers_smem_bytes, lib.sbnet_scatter_fleet_launch,
               lib.sbnet_scatter_launch, lib.sbnet_gather_launch,

@@ -4,14 +4,15 @@
 straight off the frames on the active tiles only: ``roi_conv_entry`` (the
 fused backbone's entry, with ReLU), ``roi_conv_fleet`` (the per-layer
 chain's entry, without) and ``roi_conv`` (one camera's (ty, tx) rows, or
-a batch of frames sharing them).  The layers over the packed tiles, each
-tile's halo coming from its neighbours through the (n, 8) neighbour
-table, run on one layer body (``csrc/roi_conv_layer.cuh``):
-``roi_conv_stack`` runs every later layer, each with its ReLU, in one
-launch (by the ring route of ``csrc/roi_conv_stack.cu``, or past its
-depth layer by layer, ``csrc/roi_conv_layers.cu``: ``stack_route``), and
-``roi_conv_packed`` is one later layer without the ReLU (the ring route
-at one layer).  All
+a batch of frames sharing them), each by the detector's compiled-in
+instance or the generic one (``entry_route``).  The layers over the
+packed tiles, each tile's halo coming from its neighbours through the
+(n, 8) neighbour table, run on one layer body
+(``csrc/roi_conv_layer.cuh``): ``roi_conv_stack`` runs every later layer,
+each with its ReLU, in one launch (by the ring route of
+``csrc/roi_conv_stack.cu``, or past its depth layer by layer,
+``csrc/roi_conv_layers.cu``: ``stack_route``), and ``roi_conv_packed`` is
+one later layer without the ReLU (the ring route at one layer).  All
 accumulate their taps in the same fixed order, so the fused stack and the
 per-layer chain give the same bits.
 """
@@ -32,6 +33,26 @@ _SMEM_LIMIT = 227 * 1024          # shared memory one H100 CTA may hold
 RING_MAX_LAYERS = 8               # the ring route's depth (kMaxLayers)
 
 
+# the extents (Cin, Cout, th, tw) of the entry kernel's compiled-in instance
+ENTRY_DETECTOR = (3, 8, 16, 16)
+
+
+def entry_route(Cin: int, Cout: int, th: int, tw: int, W: int,
+                address: int) -> str:
+    """The instance of ``csrc/roi_conv_entry.cu``'s kernel that runs on
+    frames of width ``W`` whose data start at byte ``address``:
+    ``"detector"`` (compiled-in extents, 16-byte window copies) for the
+    detector's (Cin, Cout, th, tw) when a frame row is whole 16-byte
+    vectors (W * Cin a multiple of 4) and the frames start on a 16-byte
+    boundary, else ``"generic"`` (runtime extents, 4-byte copies).  Both
+    give the same bits.  The launchers apply the same rule; the library's
+    ``roi_conv_entry_route`` reports their choice."""
+    if ((Cin, Cout, th, tw) == ENTRY_DETECTOR and (W * Cin) % 4 == 0
+            and address % 16 == 0):
+        return "detector"
+    return "generic"
+
+
 def _gather_conv(name: str, launch, x: torch.Tensor, w: torch.Tensor,
                  idx: torch.Tensor, th: int, tw: int,
                  cols: int) -> torch.Tensor:
@@ -47,8 +68,11 @@ def _gather_conv(name: str, launch, x: torch.Tensor, w: torch.Tensor,
     _build.expect(name, "idx", idx, torch.int32, (None, cols))
     Cout = w.shape[-1]
     n = idx.shape[0]
-    if 4 * (9 * Cin * Cout + (th + 2) * (tw + 2) * Cin) > _SMEM_LIMIT:
-        raise ValueError(f"{name}: weights and window exceed shared memory")
+    # the generic instance's weights (Cout padded to whole groups of 8)
+    # and two windows; the detector's instance needs a fixed 8.9 KB
+    if 4 * (9 * Cin * -(-Cout // 8) * 8
+            + 2 * -(-(th + 2) * (tw + 2) * Cin // 4) * 4) > _SMEM_LIMIT:
+        raise ValueError(f"{name}: weights and windows exceed shared memory")
     rows = n if cols == 3 else C * n
     out = torch.empty((rows, th, tw, Cout), dtype=torch.float32, device=dev)
     if rows == 0:

@@ -301,6 +301,144 @@ def test_cuda_slice_kernels_match_plain_versions(cuda, tile, channels):
         assert _build.LAUNCHES[k] > before.get(k, 0)
 
 
+def _misaligned(t):
+    """A copy of ``t`` whose data start 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+def test_cuda_entry_routes_agree_bitwise(cuda):
+    """The entry family's two instances give the same bits: the frames at
+    the detector's extents take the compiled-in instance, a copy 4 bytes
+    off a 16-byte boundary the generic one (B2, B7, B8 on one frame and
+    batched).  ReLU of B7 is B2, B8 is B7's rows of its camera and the
+    batch is B8 frame by frame, bitwise; all within 1e-5 of the plain
+    versions."""
+    tile = 16
+    rng, grids, idx, _, H, W = _fleet(70, tile)
+    C = len(SHAPES)
+    x = _t(rng.normal(size=(C, H, W, 3)).astype(np.float32)).to(cuda)
+    w = _t((rng.normal(size=(3, 3, 3, 8)) / np.sqrt(27))
+           .astype(np.float32)).to(cuda)
+    xm = _misaligned(x)
+    lib = _build.library()
+    for frames, route in ((x, "detector"), (xm, "generic")):
+        assert roi_conv.entry_route(3, 8, tile, tile, W,
+                                    frames.data_ptr()) == route
+        assert lib.roi_conv_entry_route(3, 8, tile, tile, W,
+                                        frames.data_ptr()) == \
+            (route == "detector")
+    d_idx = _t(idx).to(cuda)
+    fleet = roi_conv.roi_conv_fleet(x, w, d_idx, tile, tile)
+    entry = roi_conv.roi_conv_entry(x, w, d_idx, tile, tile)
+    assert torch.equal(fleet, roi_conv.roi_conv_fleet(xm, w, d_idx, tile,
+                                                      tile))
+    assert torch.equal(entry, roi_conv.roi_conv_entry(xm, w, d_idx, tile,
+                                                      tile))
+    assert torch.equal(torch.relu(fleet), entry)
+    assert (fleet - tref.roi_conv_fleet(x, w, d_idx, tile, tile)).abs() \
+        .max().item() <= 1e-5
+    rows = _t(tops.mask_to_indices(grids[0])).to(cuda)
+    batch = roi_conv.roi_conv(x, w, rows, tile, tile)
+    assert torch.equal(batch, roi_conv.roi_conv(xm, w, rows, tile, tile))
+    for b in range(C):
+        one = roi_conv.roi_conv(x[b], w, rows, tile, tile)
+        assert torch.equal(batch[b], one), b
+        assert torch.equal(one, roi_conv.roi_conv(_misaligned(x[b]), w, rows,
+                                                  tile, tile)), b
+    assert torch.equal(batch[0], fleet[d_idx[:, 0] == 0])
+    assert (batch - tref.roi_conv(x, w, rows, tile, tile)).abs().max() \
+        .item() <= 1e-5
+
+
+# compact sets as the warm step launches them: one tile, fewer tiles than
+# the card has SMs, an eighth of the fleet's rows, and all of them in
+# another order, out of the 4x5 fleet's 52,288 tiles on 1088x1920 frames
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 100, 6536, 52288])
+def test_cuda_entry_compact_equals_full(cuda, n):
+    """A launch on any subset of the rows, in any order, gives the full
+    launch's bits on those rows (B2 and B7)."""
+    tile, C, H, W, fleet_n = 16, 20, 1088, 1920, 52288
+    rng = np.random.default_rng(n)
+    cells = np.sort(rng.choice(C * (H // tile) * (W // tile), fleet_n,
+                               replace=False))
+    cam, rest = np.divmod(cells, (H // tile) * (W // tile))
+    ty, tx = np.divmod(rest, W // tile)
+    idx = torch.as_tensor(np.stack([cam, ty, tx], 1).astype(np.int32),
+                          device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((C, H, W, 3), generator=gen, device=cuda)
+    w = torch.randn((3, 3, 3, 8), generator=gen, device=cuda) / 27 ** 0.5
+    sub = torch.as_tensor(rng.permutation(fleet_n)[:n], device=cuda)
+    for fn in (roi_conv.roi_conv_entry, roi_conv.roi_conv_fleet):
+        full = fn(x, w, idx, tile, tile)
+        part = fn(x, w, idx[sub].contiguous(), tile, tile)
+        assert part.shape == (n, tile, tile, 8)
+        assert torch.equal(part, full[sub])
+
+
+def _border_case(seed, Cin, Cout, th, tw, shapes, cuda):
+    """Frames whose tile grids have every border tile active and the
+    interior at random, their (cam, ty, tx) rows and seeded weights."""
+    rng = np.random.default_rng(seed)
+    grids = []
+    for s in shapes:
+        g = rng.random(s) < 0.4
+        g[0, :] = g[-1, :] = g[:, 0] = g[:, -1] = True
+        grids.append(g)
+    idx, _ = tops.fleet_indices(grids)
+    H = max(s[0] for s in shapes) * th
+    W = max(s[1] for s in shapes) * tw
+    x = rng.normal(size=(len(shapes), H, W, Cin)).astype(np.float32)
+    w = (rng.normal(size=(3, 3, Cin, Cout)) / np.sqrt(9 * Cin)) \
+        .astype(np.float32)
+    return grids, _t(idx).to(cuda), _t(x).to(cuda), _t(w).to(cuda)
+
+
+# the shapes of tests/test_torch_entry.py: the detector's extents, W * Cin
+# % 4 == 2 (tile 8 x 10; Cin 5 on 6x6 tiles), Cin 5 with Cout 12
+@pytest.mark.cuda
+@pytest.mark.parametrize("Cin,Cout,th,tw,shapes", [
+    (3, 8, 16, 16, [(3, 4), (2, 3), (4, 2)]),
+    (3, 8, 8, 10, [(4, 5), (3, 3)]),
+    (5, 12, 16, 16, [(3, 3), (2, 4)]),
+    (5, 12, 6, 6, [(4, 5), (5, 3)]),
+])
+def test_cuda_entry_family_at_borders(cuda, Cin, Cout, th, tw, shapes):
+    """B2, B7 and B8 within 1e-5 of their plain versions on tiles at every
+    frame border and corner, on the instance the route names; B8 on each
+    camera's frame equals B7's rows of that camera bitwise."""
+    grids, idx, x, w = _border_case(Cin * 100 + th, Cin, Cout, th, tw,
+                                    shapes, cuda)
+    route = roi_conv.entry_route(Cin, Cout, th, tw, x.shape[2],
+                                 x.data_ptr())
+    assert route == ("detector" if (Cin, Cout, th, tw) ==
+                     roi_conv.ENTRY_DETECTOR else "generic")
+    assert _build.library().roi_conv_entry_route(
+        Cin, Cout, th, tw, x.shape[2], x.data_ptr()) == (route == "detector")
+    fleet = roi_conv.roi_conv_fleet(x, w, idx, th, tw)
+    assert (fleet - tref.roi_conv_fleet(x, w, idx, th, tw)).abs().max() \
+        .item() <= 1e-5
+    entry = roi_conv.roi_conv_entry(x, w, idx, th, tw)
+    assert (entry - tref.roi_conv_entry(x, w, idx, th, tw)).abs().max() \
+        .item() <= 1e-5
+    assert torch.equal(torch.relu(fleet), entry)
+    for c in range(len(grids)):
+        sel = idx[:, 0] == c
+        rows = idx[sel, 1:].contiguous()
+        one = roi_conv.roi_conv(x[c], w, rows, th, tw)
+        assert (one - tref.roi_conv(x[c], w, rows, th, tw)).abs().max() \
+            .item() <= 1e-5
+        assert torch.equal(one, fleet[sel])
+        batch = roi_conv.roi_conv(x, w, rows, th, tw)
+        assert (batch - tref.roi_conv(x, w, rows, th, tw)).abs().max() \
+            .item() <= 1e-5
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tile", [8, 16])
 def test_cuda_fused_equals_per_layer_bitwise(cuda, tile):
