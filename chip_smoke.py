@@ -9,7 +9,9 @@ is non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build,
    with ptxas's registers, static shared memory and spills for each
-   instance of ``roi_conv_entry.cu`` (B2, B7, B8: the detector's and the
+   instance of ``tile_delta_gate.cu`` (B1, B5: the detector's and the
+   generic instance of each), of ``tile_delta.cu`` (B10, B11), of
+   ``roi_conv_entry.cu`` (B2, B7, B8: the detector's and the
    generic instance of each), of ``roi_conv_stack.cu`` (B3's ring route,
    B6), of ``roi_conv_layers.cu`` (B3's layer-by-layer route) and of B12;
 2. every kernel against its plain PyTorch version on the card, at the
@@ -23,9 +25,17 @@ is non-zero:
    events, median of 7) beside the plain version's and its bound.  B5's
    stats also equal B1's on the same content, B10's rows B1's body
    columns, camera by camera; ReLU of B7 is B2 and B8 is B7's rows of its
-   camera, bit for bit.  B2, B7 and B8 run the entry kernel's compiled-in
+   camera, bit for bit.  B1 and B5 run the gate kernel's compiled-in
    detector instance (asserted, with the launcher's own answer); on the
-   fleet the generic instance (a copy of the frames 4 bytes off a 16-byte
+   fleet's content and on content where every element changed, the
+   generic instance (copies 4 bytes off an 8-byte boundary) and a compact
+   launch on an eighth of the rows give their bits, and their GB/s and
+   share of the bound are printed by event and device time; on small
+   fleets of 0.5-grid ties with -0.0 over 0.0 and NaNs, and of changed
+   content, at tiles 8x8, 16x16 and 8x7, Cin 3 and 5, qstep 1, 8 and 13,
+   both are bitwise equal to their plain versions.  B2, B7 and B8 run the
+   entry kernel's compiled-in detector instance (asserted, likewise); on
+   the fleet the generic instance (a copy of the frames 4 bytes off a 16-byte
    boundary) and a compact launch on an eighth of the rows give B2's bits;
    their achieved GB/s and share of the bound are printed, by event time
    and by the profiler's device time.  B12, the packed attention, at the
@@ -241,11 +251,11 @@ def device_ms(torch, fn, kernel, reps=7):
     return us / reps / 1e3
 
 
-def byte_line(torch, name, fn, nbytes, r):
+def byte_line(torch, name, fn, nbytes, r, kernel="roi_conv_entry_kernel"):
     """Achieved GB/s and the share of the bound for one timed byte-bound
-    kernel of the entry family, by event time and by device time (kept in
-    ``r`` as ``device_ms``)."""
-    r["device_ms"] = dev = device_ms(torch, fn, "roi_conv_entry_kernel")
+    kernel (the entry family's, or the one named ``kernel``), by event time
+    and by device time (kept in ``r`` as ``device_ms``)."""
+    r["device_ms"] = dev = device_ms(torch, fn, kernel)
     ms, b_ms = r["ms"], r["bound_ms"]
     say(f"[kernels] {name}: {nbytes / ms / 1e6:.1f} GB/s of the bytes it "
         f"must move; {b_ms / ms:.4f} of the bound ({b_ms:.4f} ms in "
@@ -267,11 +277,40 @@ def entry_route(lib, x, w, t):
 
 def misaligned(torch, t):
     """A copy of ``t`` whose data start 4 bytes past a 16-byte boundary:
-    the entry kernel's generic instance runs on it."""
+    the entry kernel's and the gate kernel's generic instances run on it."""
     flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     view = flat[1:].view(t.shape)
     view.copy_(t)
     return view
+
+
+def gate_route(lib, name, cur_p, rw, th, tw=None):
+    """The instance of the gate kernel that runs ``name`` on frames
+    ``cur_p`` against the reference ``rw``: the route function's answer,
+    checked against the library's own choice (B5's windows output is the
+    wrapper's own allocation, on a 256-byte boundary)."""
+    from repro_torch.kernels import tile_delta
+    tw = th if tw is None else tw
+    Cin, Wp = cur_p.shape[-1], cur_p.shape[-2]
+    route = tile_delta.gate_route(Cin, th, tw, Wp, cur_p.data_ptr(),
+                                  rw.data_ptr())
+    assert lib.tile_delta_gate_route(Cin, th, tw, Wp, cur_p.data_ptr(),
+                                     rw.data_ptr(), None) == \
+        (route == "detector"), f"{name}: the launcher and gate_route disagree"
+    return route
+
+
+def gate_rows(out, rows=None):
+    """A gate's outputs as a tuple (its stats, and B5's windows), each cut
+    to ``rows`` where given."""
+    out = out if isinstance(out, tuple) else (out,)
+    return tuple(o if rows is None else o[rows] for o in out)
+
+
+def gate_equal(torch, got, want):
+    """Two gate outputs equal bit for bit (windows holding NaNs too)."""
+    return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(gate_rows(got), gate_rows(want)))
 
 
 def bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
@@ -362,6 +401,89 @@ def flat(d):
 # phase 2: each kernel against its plain version, at the main path's shapes
 # ---------------------------------------------------------------------------
 
+# the gate's hard cases: (th, tw, Cin) -- a 16x16 window row at Cin 5 is 90
+# floats, two of the kernel's 64-element chunks; 8x7 rows are odd -- and
+# the quantizer steps
+GATE_CASES = [(th, tw, cin) for th, tw in ((8, 8), (16, 16), (8, 7))
+              for cin in (3, 5)]
+GATE_QSTEPS = (1.0, 8.0, 13.0)
+
+
+def gate_content(rng, shape, kind):
+    """(prev, cur) zero-padded (C, H+2, W+2, Cin) planes for the gate's hard
+    cases.  "ties": values on a 0.5 grid, 30% moved by multiples of 0.5
+    (deltas on rounding ties at every step of ``GATE_QSTEPS``), a -0.0
+    over a 0.0 in each camera's first row, and NaNs in cur, in prev and in
+    both at the same places.  "changed": every element, the padding too,
+    moved by 16 to 32, so no body holds a zero run."""
+    C, Hp, Wp, Cin = shape
+    if kind == "changed":
+        prev = rng.normal(size=shape).astype(np.float32)
+        return prev, prev + rng.uniform(16, 32, shape).astype(np.float32)
+    inner = (C, Hp - 2, Wp - 2, Cin)
+    prev = (rng.integers(-40, 40, inner) * 0.5).astype(np.float32)
+    cur = prev.copy()
+    moved = rng.random(inner) < 0.3
+    cur[moved] += (rng.integers(-60, 60, moved.sum()) * 0.5) \
+        .astype(np.float32)
+    cur[:, 0, :3, :] = -0.0
+    prev[:, 0, :3, :] = 0.0
+    spots = rng.choice(cur.size, 12, replace=False)
+    cur.reshape(-1)[spots[:8]] = np.nan
+    prev.reshape(-1)[spots[4:]] = np.nan
+    pad = ((0, 0), (1, 1), (1, 1), (0, 0))
+    return np.pad(prev, pad), np.pad(cur, pad)
+
+
+def gate_hard_cases(torch, dev):
+    """B1 and B5 (stats and windows) bitwise against their plain versions on
+    small fleets of ``gate_content`` at each of ``GATE_CASES`` and
+    ``GATE_QSTEPS``; B5's stats == B1's on the same reference; where the
+    detector's instance runs, the generic one (8-byte-misaligned copies)
+    gives the same bits."""
+    from repro_torch.kernels import _build, ops, ref, tile_delta
+    lib = _build.library()
+    rng = np.random.default_rng(SEED + 11)
+    shapes = ((4, 5), (3, 4), (5, 3))           # per-camera tile grids
+    seen = {"detector": 0, "generic": 0}
+    for kind in ("ties", "changed"):
+        for th, tw, cin in GATE_CASES:
+            grids = [rng.random(s) < 0.55 for s in shapes]
+            for g in grids:
+                g[1, 1] = True
+            idx = torch.as_tensor(ops.fleet_indices(grids)[0], device=dev)
+            shape = (len(shapes), max(s[0] for s in shapes) * th + 2,
+                     max(s[1] for s in shapes) * tw + 2, cin)
+            prev_p, cur_p = (torch.as_tensor(a, device=dev)
+                             for a in gate_content(rng, shape, kind))
+            ref_win = ref.gather_windows(prev_p, idx, th, tw)
+            inputs = [(cur_p, prev_p, ref_win)]
+            if gate_route(lib, "gate", cur_p, prev_p, th, tw) == "detector":
+                inputs.append(tuple(misaligned(torch, a) for a in inputs[0]))
+            for c, p, w in inputs:
+                seen[gate_route(lib, "gate", c, p, th, tw)] += 1
+                assert gate_route(lib, "gate", c, w, th, tw) == \
+                    gate_route(lib, "gate", c, p, th, tw)
+            for q in GATE_QSTEPS:
+                want1 = ref.tile_delta_gate_canvas(cur_p, prev_p, idx, th,
+                                                   tw, q)
+                want5 = ref.tile_delta_gate(cur_p, ref_win, idx, th, tw, q)
+                for c, p, w in inputs:
+                    got1 = tile_delta.tile_delta_gate_canvas(c, p, idx, th,
+                                                             tw, q)
+                    got5 = tile_delta.tile_delta_gate(c, w, idx, th, tw, q)
+                    assert gate_equal(torch, got1, want1) and gate_equal(
+                        torch, got5, want5) and torch.equal(got5[0], got1), \
+                        f"the gate on {kind} content at {th}x{tw}, Cin " \
+                        f"{cin}, qstep {q}"
+    say(f"[kernels] B1 and B5 on hard content (0.5-grid ties with -0.0 "
+        f"over 0.0 and NaNs; every element changed) at (th, tw, Cin) "
+        f"{GATE_CASES}, qstep {GATE_QSTEPS}: bitwise == their plain "
+        f"versions and B5 == B1, on {seen['detector']} content(s) through "
+        f"the detector's instance and {seen['generic']} through the generic "
+        f"one")
+
+
 def check_kernels(torch, det, frames, frames_next, grids):
     from repro_torch.kernels import _build, ops, ref, roi_conv, sbnet, \
         tile_delta
@@ -402,36 +524,89 @@ def check_kernels(torch, det, frames, frames_next, grids):
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version")
 
-    # B1: the gate, bit-exact
-    g_k = tile_delta.tile_delta_gate_canvas(cur_p, ref_c, idx, t, t)
-    g_p = ref.tile_delta_gate_canvas(cur_p, ref_c, idx, t, t)
-    torch.cuda.synchronize()
-    record("tile_delta_gate_canvas",
-           float((g_k - g_p).abs().max()), torch.equal(g_k, g_p),
-           lambda: tile_delta.tile_delta_gate_canvas(cur_p, ref_c, idx, t, t),
-           lambda: ref.tile_delta_gate_canvas(cur_p, ref_c, idx, t, t),
-           2 * win_px_padded * 3 * 4 + n * (3 + 8) * 4,
-           3 * 2 * n * (t + 2) ** 2 * 3, check="bit-exact")
-    del g_p
-
-    # B5: the packed gate against the previous frame's windows, bit-exact
-    # in its stats and its windows; on this content its stats are B1's
-    ref_win = ref.gather_windows(ref_c, idx, t, t)
-    s_k, w_k = tile_delta.tile_delta_gate(cur_p, ref_win, idx, t, t)
-    s_p, w_p = ref.tile_delta_gate(cur_p, ref_win, idx, t, t)
-    torch.cuda.synchronize()
+    # B1 and B5: the gate, bit-exact on the fleet's content and on content
+    # where every element changed (no zero run in any body), on the
+    # detector's instance; the generic instance (tensors off an 8-byte
+    # boundary), a compact launch on an eighth of the rows and, for B5, B1
+    # on the same reference give its bits
+    lib = _build.library()
+    sub = torch.as_tensor(np.sort(np.random.default_rng(SEED + 8).choice(
+        n, n // 8, replace=False)), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    ref_d = cur_p + 16.0 + 16.0 * torch.rand(cur_p.shape, generator=gen,
+                                             device=dev)
     win_bytes = n * (t + 2) ** 2 * 3 * 4
-    record("tile_delta_gate",
-           max(float((s_k - s_p).abs().max()),
-               float((w_k - w_p).abs().max())),
-           torch.equal(s_k, s_p) and torch.equal(w_k, w_p)
-           and torch.equal(s_k, g_k),
-           lambda: tile_delta.tile_delta_gate(cur_p, ref_win, idx, t, t),
-           lambda: ref.tile_delta_gate(cur_p, ref_win, idx, t, t),
-           win_px_padded * 3 * 4 + 2 * win_bytes + n * (3 + 8) * 4,
-           3 * 2 * n * (t + 2) ** 2 * 3,
-           check="bit-exact (stats, windows; stats == B1's)")
-    del s_k, w_k, s_p, w_p, ref_win, ref_c
+    flops = 3 * 2 * n * (t + 2) ** 2 * 3
+    gate_bytes = {"tile_delta_gate_canvas":
+                  2 * win_px_padded * 3 * 4 + n * (3 + 8) * 4,
+                  "tile_delta_gate":
+                  win_px_padded * 3 * 4 + 2 * win_bytes + n * (3 + 8) * 4}
+    for content, canvas in (("fleet", ref_c), ("every element changed",
+                                               ref_d)):
+        packed = ref.gather_windows(canvas, idx, t, t)
+        b1 = None
+        for name, rw in (("tile_delta_gate_canvas", canvas),
+                         ("tile_delta_gate", packed)):
+            kfn = getattr(tile_delta, name)
+            pfn = getattr(ref, name)
+            got = kfn(cur_p, rw, idx, t, t)
+            want = pfn(cur_p, rw, idx, t, t)
+            torch.cuda.synchronize()
+            stats = got[0] if name == "tile_delta_gate" else got
+            if content != "fleet":
+                assert int(stats[:, ops.GATE_WIN_EXACT].min()) == \
+                    (t + 2) ** 2 * 3 and int(
+                        stats[:, ops.GATE_BODY_RUNS].max()) == 0
+            cm, rm = misaligned(torch, cur_p), misaligned(torch, rw)
+            route = gate_route(lib, name, cur_p, rw, t)
+            assert route == "detector", f"the fleet's gate takes {route}"
+            assert gate_route(lib, name, cm, rm, t) == "generic"
+            rs = rw[sub] if name == "tile_delta_gate" else rw
+            part = kfn(cur_p, rs, idx[sub].contiguous(), t, t)
+            same = {"plain": gate_equal(torch, got, want),
+                    "generic": gate_equal(torch, kfn(cm, rm, idx, t, t),
+                                          got),
+                    "compact": gate_equal(torch, part, gate_rows(got, sub)),
+                    "B1": b1 is None or torch.equal(stats, b1)}
+            err = max(float((a - b).abs().max()) for a, b in
+                      zip(gate_rows(got), gate_rows(want)))
+            b1 = stats
+            generic_ms = time_ms(torch, lambda: kfn(cm, rm, idx, t, t))
+            del cm, rm, rs, part, want, got
+            say(f"[kernels] {name} on {n} tiles, {content}: route {route}; "
+                f"bitwise == its plain version, the generic route, a "
+                f"compact launch of {n // 8} rows (and B5 == B1): {same}; "
+                f"the generic route (4-byte loads, runtime extents) takes "
+                f"{generic_ms:.4f} ms")
+            assert all(same.values()), f"{name}, {content}: {same}"
+
+            def k_fn(kfn=kfn, rw=rw):
+                return kfn(cur_p, rw, idx, t, t)
+
+            if content == "fleet":
+                if name == "tile_delta_gate_canvas":
+                    g_k = stats
+                record(name, err, True, k_fn,
+                       lambda pfn=pfn, rw=rw: pfn(cur_p, rw, idx, t, t),
+                       gate_bytes[name], flops,
+                       check=("bit-exact (stats, windows; stats == B1's)"
+                              if name == "tile_delta_gate" else "bit-exact")
+                       + "; route detector; == generic route and compact "
+                         "launch bitwise; all-changed content bit-exact")
+                r = results[name]
+            else:
+                r = dict(ms=time_ms(torch, k_fn),
+                         bound_ms=results[name]["bound_ms"])
+            byte_line(torch, f"{name} ({content})", k_fn, gate_bytes[name],
+                      r, "tile_delta_gate_kernel")
+            if content == "fleet":
+                r["generic_ms"] = generic_ms
+            else:
+                results[name].update(all_changed_ms=r["ms"],
+                                     all_changed_device_ms=r["device_ms"])
+        del packed, b1, stats
+    del ref_d, ref_c
+    gate_hard_cases(torch, dev)
 
     # B10, B11: each camera's frame pair, padded to its grid's extent;
     # B10's rows are B1's body columns on the camera's tiles
@@ -470,7 +645,6 @@ def check_kernels(torch, det, frames, frames_next, grids):
     # the generic instance (frames off a 16-byte boundary) gives its bits,
     # and so does a compact launch on an eighth of the rows (the warm
     # step's identity)
-    lib = _build.library()
     route = entry_route(lib, x, w0, t)
     assert route == "detector", f"the fleet's entry takes the {route} route"
     e_k = roi_conv.roi_conv_entry(x, w0, idx, t, t)
@@ -480,8 +654,6 @@ def check_kernels(torch, det, frames, frames_next, grids):
     assert entry_route(lib, xm, w0, t) == "generic"
     generic = torch.equal(roi_conv.roi_conv_entry(xm, w0, idx, t, t), e_k)
     del xm
-    sub = torch.as_tensor(np.sort(np.random.default_rng(SEED + 8).choice(
-        n, n // 8, replace=False)), device=dev)
     compact = torch.equal(
         roi_conv.roi_conv_entry(x, w0, idx[sub].contiguous(), t, t),
         e_k[sub])

@@ -40,7 +40,8 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # sources whose ptxas report (registers, shared memory, spills per kernel
 # instance) is kept beside the library as ``ptxas.log``
 PTXAS_VERBOSE = ("roi_attention.cu", "roi_conv_entry.cu",
-                 "roi_conv_stack.cu", "roi_conv_layers.cu")
+                 "roi_conv_stack.cu", "roi_conv_layers.cu",
+                 "tile_delta_gate.cu", "tile_delta.cu")
 
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -59,6 +60,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     # run, stream
     lib.tile_delta_gate_launch.argtypes = \
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]
+    # Cin, th, tw, Wp, cur, ref, win -> 1 for the detector's instance, 0
+    # generic
+    lib.tile_delta_gate_route.argtypes = [_I, _I, _I, _I, _P, _P, _P]
     # cur, prev, idx, out, n, H, W, C, th, tw, qstep, coef, run, stream
     for f in (lib.tile_delta_launch, lib.tile_delta_halo_launch):
         f.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]
@@ -91,7 +95,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.roi_attention_launch.argtypes = \
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
     for f in (lib.tile_delta_gate_canvas_launch, lib.tile_delta_gate_launch,
-              lib.tile_delta_launch, lib.tile_delta_halo_launch,
+              lib.tile_delta_gate_route, lib.tile_delta_launch,
+              lib.tile_delta_halo_launch,
               lib.roi_conv_entry_launch, lib.roi_conv_fleet_launch,
               lib.roi_conv_launch, lib.roi_conv_entry_route,
               lib.roi_conv_stack_launch,

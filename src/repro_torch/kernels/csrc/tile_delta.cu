@@ -20,7 +20,7 @@
 // tiles (the ring: two 0.75 KB rings) and writes 32 bytes, against ~10
 // integer operations per element.
 //
-// Design: one CTA per tile, as in tile_delta_gate.cu.  A layout functor maps
+// Design: one CTA per tile.  A layout functor maps
 // the tile's scan-order element e to its frame offset and says whether e
 // starts a scan row; threads stride over e, so a warp reads contiguous runs
 // of a pixel row (a column strip reads C floats per pixel row).  The

@@ -1,5 +1,6 @@
-// Device helpers shared by the delta-pricing kernels (tile_delta_gate.cu,
-// tile_delta.cu): the quantizer and the integer block reduction.
+// Device helpers of the delta-pricing kernels (tile_delta_gate.cu,
+// tile_delta.cu): the quantizer and the byte estimate, which both use, and
+// tile_delta.cu's integer block reduction.
 //
 // The quantizer is the one place the stats' bits are decided:
 // q = round_half_even((cur - prev) / qstep) in float32, with every rounding

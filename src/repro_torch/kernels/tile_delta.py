@@ -35,11 +35,31 @@ GATE_WIN_EXACT = 4       # exact count of (th+2, tw+2, C) positions that
 #                          differ -- the threshold-0 gate signal
 GATE_WIN_BYTES = 5       # quantized zero-run byte estimate of the window
 
+# the extents (Cin, th, tw) of the gate kernel's compiled-in instance
+GATE_DETECTOR = (3, 16, 16)
+
 
 def _check_smem(name: str, elems: int) -> None:
+    """B10 and B11 keep a tile's quantized deltas in shared memory."""
     if 4 * elems > 48 * 1024:
         raise ValueError(f"{name}: {elems} quantized deltas per tile do not "
                          f"fit the kernel's 48 KB of shared memory")
+
+
+def gate_route(Cin: int, th: int, tw: int, Wp: int, *addresses: int) -> str:
+    """The instance of ``csrc/tile_delta_gate.cu``'s kernel that runs on
+    padded frames ``Wp`` pixels wide whose tensors start at bytes
+    ``addresses`` (the frames and the reference; in packed mode the windows
+    output as well): ``"detector"`` (compiled-in extents, 8-byte loads) for
+    the detector's (Cin, th, tw) when a padded frame row is an even number
+    of floats and every tensor starts on an 8-byte boundary, else
+    ``"generic"`` (runtime extents, 4-byte loads).  Both give the same
+    bits.  The launchers apply the same rule; the library's
+    ``tile_delta_gate_route`` reports their choice."""
+    if ((Cin, th, tw) == GATE_DETECTOR and (Wp * Cin) % 2 == 0
+            and all(a % 8 == 0 for a in addresses)):
+        return "detector"
+    return "generic"
 
 
 def _launch(name: str, dev: torch.device, fn, *args) -> None:
@@ -68,7 +88,6 @@ def tile_delta_gate_canvas(cur_p: torch.Tensor, ref_c: torch.Tensor,
     _build.expect(name, "ref_c", ref_c, torch.float32, tuple(cur_p.shape))
     _build.expect(name, "idx", idx, torch.int32, (None, 3))
     C, Hp, Wp, Cin = cur_p.shape
-    _check_smem(name, (th + 2) * (tw + 2) * Cin)
     n = idx.shape[0]
     out = torch.empty((n, STATS_WIDTH), dtype=torch.int32, device=dev)
     if n == 0:
@@ -100,7 +119,6 @@ def tile_delta_gate(cur_p: torch.Tensor, ref_win: torch.Tensor,
     n = idx.shape[0]
     _build.expect(name, "ref_win", ref_win, torch.float32,
                   (n, th + 2, tw + 2, Cin))
-    _check_smem(name, (th + 2) * (tw + 2) * Cin)
     out = torch.empty((n, STATS_WIDTH), dtype=torch.int32, device=dev)
     win = torch.empty_like(ref_win)
     if n == 0:

@@ -133,6 +133,116 @@ def test_cuda_tile_delta_family_matches_plain_versions(cuda, tile, cin):
         assert _build.LAUNCHES[k] > before.get(k, 0)
 
 
+def _gate_planes(rng, shape, kind):
+    """(prev, cur) zero-padded (C, H+2, W+2, Cin) planes for the gate:
+    "ties" -- ``_half_grid_pair`` with NaNs in cur, in prev and in both at
+    the same places; "changed" -- every element, the padding too, moved by
+    16 to 32, so no window holds a zero."""
+    if kind == "changed":
+        prev = rng.normal(size=shape).astype(np.float32)
+        return prev, prev + rng.uniform(16, 32, shape).astype(np.float32)
+    C, Hp, Wp, cin = shape
+    prev, cur = _half_grid_pair(rng, (C, Hp - 2, Wp - 2, cin))
+    spots = rng.choice(cur.size, 12, replace=False)
+    cur.reshape(-1)[spots[:8]] = np.nan
+    prev.reshape(-1)[spots[4:]] = np.nan
+    pad = ((0, 0), (1, 1), (1, 1), (0, 0))
+    return np.pad(prev, pad), np.pad(cur, pad)
+
+
+def _bits_equal(a, b):
+    """Bitwise equality of float32 tensors, NaNs included."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# (th, tw, Cin): window rows of 30, 50, 54, 90 (two of the kernel's
+# 64-element chunks), 27 (odd) and 102 floats; 16x16 at Cin 3 is the
+# detector's instance
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ties", "changed"])
+@pytest.mark.parametrize("th,tw,cin", [
+    (8, 8, 3), (8, 8, 5), (16, 16, 3), (16, 16, 5), (8, 7, 3), (32, 32, 3)])
+def test_cuda_gates_bitwise_on_hard_content(cuda, kind, th, tw, cin):
+    """B1 and B5 (stats and windows) bitwise against their plain versions
+    at qstep 1, 8 and 13, and B5's stats == B1's on the same reference.
+    The route function agrees with the launcher, and at the detector's
+    extents the generic instance (copies 4 bytes off an 8-byte boundary)
+    gives the detector's bits."""
+    rng = np.random.default_rng(11)
+    grids = [rng.random(s) < 0.55 for s in SHAPES]
+    for g in grids:
+        g[1, 1] = True
+    idx = _t(tops.fleet_indices(grids)[0]).to(cuda)
+    shape = (len(SHAPES), max(s[0] for s in SHAPES) * th + 2,
+             max(s[1] for s in SHAPES) * tw + 2, cin)
+    prev_p, cur_p = (_t(a).to(cuda) for a in _gate_planes(rng, shape, kind))
+    ref_win = tref.gather_windows(prev_p, idx, th, tw)
+    inputs = [(cur_p, prev_p, ref_win)]
+    routes = ["generic"]
+    if (cin, th, tw) == tile_delta.GATE_DETECTOR:
+        inputs.append(tuple(_misaligned(a) for a in inputs[0]))
+        routes.insert(0, "detector")
+    lib = _build.library()
+    for (c, p, w), route in zip(inputs, routes):
+        for r in (p, w):
+            args = (cin, th, tw, c.shape[2], c.data_ptr(), r.data_ptr())
+            assert tile_delta.gate_route(*args) == route
+            assert lib.tile_delta_gate_route(*args, None) == \
+                (route == "detector")
+    before = dict(_build.LAUNCHES)
+    for q in (1.0, 8.0, 13.0):
+        want1 = tref.tile_delta_gate_canvas(cur_p, prev_p, idx, th, tw, q)
+        want_s, want_w = tref.tile_delta_gate(cur_p, ref_win, idx, th, tw,
+                                              q)
+        if kind == "changed":
+            assert int(want1[:, tops.GATE_WIN_EXACT].min()) == \
+                (th + 2) * (tw + 2) * cin
+        for c, p, w in inputs:
+            got1 = tile_delta.tile_delta_gate_canvas(c, p, idx, th, tw, q)
+            s, win = tile_delta.tile_delta_gate(c, w, idx, th, tw, q)
+            assert torch.equal(got1, want1)
+            assert torch.equal(s, want_s) and torch.equal(s, got1)
+            assert _bits_equal(win, want_w)
+    torch.cuda.synchronize()
+    for k in ("tile_delta_gate_canvas", "tile_delta_gate"):
+        assert _build.LAUNCHES[k] > before.get(k, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 100, 6536])
+def test_cuda_gate_compact_equals_full(cuda, n):
+    """A gate launch on any subset of the fleet's rows, in any order, gives
+    the full launch's bits on those rows (B1; B5 with the subset's
+    reference rows)."""
+    tile, C, H, W, fleet_n = 16, 20, 1088, 1920, 52288
+    rng = np.random.default_rng(n)
+    cells = np.sort(rng.choice(C * (H // tile) * (W // tile), fleet_n,
+                               replace=False))
+    cam, rest = np.divmod(cells, (H // tile) * (W // tile))
+    ty, tx = np.divmod(rest, W // tile)
+    idx = torch.as_tensor(np.stack([cam, ty, tx], 1).astype(np.int32),
+                          device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    cur_p = torch.nn.functional.pad(
+        torch.randn((C, H, W, 3), generator=gen, device=cuda),
+        (0, 0, 1, 1, 1, 1))
+    prev_p = cur_p + (torch.rand(cur_p.shape, generator=gen, device=cuda)
+                      < 0.01) * 20.0
+    ref_win = tref.gather_windows(prev_p, idx, tile, tile)
+    sub = torch.as_tensor(rng.permutation(fleet_n)[:n], device=cuda)
+    full = tile_delta.tile_delta_gate_canvas(cur_p, prev_p, idx, tile, tile)
+    part = tile_delta.tile_delta_gate_canvas(cur_p, prev_p,
+                                             idx[sub].contiguous(), tile,
+                                             tile)
+    assert torch.equal(part, full[sub])
+    s_full, w_full = tile_delta.tile_delta_gate(cur_p, ref_win, idx, tile,
+                                                tile)
+    s, w = tile_delta.tile_delta_gate(cur_p, ref_win[sub].contiguous(),
+                                      idx[sub].contiguous(), tile, tile)
+    assert torch.equal(s_full, full)
+    assert torch.equal(s, full[sub]) and torch.equal(w, w_full[sub])
+
+
 @pytest.mark.cuda
 def test_cuda_fractions_on_a_ragged_grid(cuda):
     """A grid past the frame's edge (the 1080-px legs' case): the
