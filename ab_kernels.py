@@ -24,7 +24,18 @@ checkout's kernels under its own ``build/`` and times, with CUDA events
 * B6 on the same fleet, each of the detector's two later layers (8 -> 16
   on the plain entry output, 16 -> 16 on the plain first layer's ReLU);
 * B12 at the serving slice (the fleet stream's 9,472 packed positions,
-  48 heads of 128, bf16, blocks of 128), with and without the causal skip.
+  48 heads of 128, bf16, blocks of 128), with and without the causal skip;
+* B10 and B11 (``tile_delta``, ``tile_delta_halo``) on each of the 20
+  cameras' frame pairs (the same frames as B1's, padded to the grid), as
+  the rate-control feed calls them, one launch a camera: by CUDA events
+  and by the profiler's device time with its count of kernel records (a
+  reading short of 20 launches x 7 calls is printed as invalid, not as a
+  time), beside a launch of one tile a camera (the per-launch floor), the
+  host time of the 20 calls (the wrappers' enqueue, median of 7), and the
+  feed over the 20 cameras (``tile_static_fraction``,
+  ``tile_halo_static_fraction``): its wall, median of 5, and the stages
+  of one pass, each ended by a synchronize -- ``pad_to_grid``, the rows'
+  host-to-device copy, the kernel, the stats' device-to-host copy.
 
 Each turn also reports the machine code of B3's instance for the
 detector (the (8, 16, 16) stack on 16x16 tiles): its ptxas register
@@ -34,15 +45,19 @@ same registers (``cuobjdump -res-usage``) and digest for each kernel of
 ``tile_delta.cu`` (B10, B11); and the registers of the gate's kernels.
 
 The turns run other, this, this, other; the script prints each turn's
-times as a JSON line, then the card's name and power limit.  With
-``--turn`` it runs one turn for the checkout it lives in (or ``--root``).
+times as a JSON line, then, for B10 and B11, each turn's device time and
+whether every valid turn of this checkout is below every valid turn of
+the other, then the card's name and power limit.  With ``--turn`` it runs
+one turn for the checkout it lives in (or ``--root``).
 """
 import argparse
 import hashlib
 import json
 import re
+import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -102,12 +117,10 @@ def kernel_code(_build) -> dict:
             "gate_registers": registers(usage, GATE)}
 
 
-def gate_times(torch, cs, det, rng, gen, frames, grids, x, idx) -> dict:
-    """B1 and B5 on the fleet: the next frames (``cs.with_patches``, as
-    ``chip_smoke.py`` makes them) against the frames ``x``, and against a
-    reference where every element differs."""
+def gate_times(torch, cs, det, nxt, grids, x, idx) -> dict:
+    """B1 and B5 on the fleet: the next frames ``nxt`` against the frames
+    ``x``, and against a reference where every element differs."""
     from repro_torch.kernels import ref, tile_delta
-    nxt = cs.with_patches(torch, frames, grids, rng, gen, 20.0)
     xn, _, _ = det._stack_frames(cs.flat(nxt), cs.flat(grids))
     pad = (0, 0, 1, 1, 1, 1)
     cur_p = torch.nn.functional.pad(xn, pad)
@@ -125,6 +138,107 @@ def gate_times(torch, cs, det, rng, gen, frames, grids, x, idx) -> dict:
             out[name + suffix + "_ms"] = cs.time_ms(torch, fn)
             out[name + suffix + "_device_ms"] = cs.device_ms(
                 torch, fn, "tile_delta_gate_kernel")
+    return out
+
+
+def device_reading(torch, fn, kernel, launches, reps=7):
+    """(ms per call or None, records): the profiler's device time of the
+    kernels named ``kernel`` that ``fn`` launches, ``launches`` a call,
+    over ``reps`` calls after a warm-up, and its count of kernel records.
+    With fewer than ``launches * reps`` records the profiler missed some:
+    the reading is invalid (None), not a time.  (This script's own copy of
+    ``chip_smoke.device_ms``: the other checkout's may not count.)"""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel in e.key]
+    records = sum(e.count for e in hits)
+    if records < launches * reps:
+        return None, records
+    return sum(e.device_time_total for e in hits) / reps / 1e3, records
+
+
+def host_ms(torch, fn, reps=7):
+    """Median host time of ``fn`` alone (the launches' enqueue), each pass
+    started and followed by a synchronize that is not timed."""
+    passes = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        passes.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(passes)
+
+
+def feed(torch, kfn, fraction, triples, t, reps=5) -> dict:
+    """The rate-control feed over the cameras of ``triples`` (cur, prev,
+    grid): the wall of ``fraction`` for every camera (median of
+    ``reps``), and the stages of one pass through kernel ``kfn``, each
+    ended by a synchronize and summed over the cameras."""
+    from repro_torch.net import encoder as enc
+
+    def wall():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for cur, prev, grid in triples:
+            fraction(cur, prev, grid, t)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    wall()
+    walls = [wall() for _ in range(reps)]
+    stages = dict.fromkeys(("pad_to_grid", "rows_h2d", "kernel",
+                            "stats_d2h"), 0.0)
+    for cur, prev, grid in triples:
+        marks = [time.perf_counter()]
+        a, b = enc.pad_to_grid(cur, prev, grid.shape, t)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        rows = enc._tile_rows(grid, a.device)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        stats = kfn(a, b, rows, t, t)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        stats.cpu()
+        marks.append(time.perf_counter())
+        for k, t0, t1 in zip(stages, marks, marks[1:]):
+            stages[k] += (t1 - t0) * 1e3
+    return {"walls_ms": walls, "median_ms": statistics.median(walls),
+            "stages_ms": stages}
+
+
+def delta_times(torch, cs, nxt, frames, grids) -> dict:
+    """B10 and B11 on each camera's pair of ``nxt`` and ``frames``, padded
+    to its grid as the feed pads it, one launch a camera."""
+    from repro_torch.kernels import ops, tile_delta
+    from repro_torch.net import encoder as enc
+    t, out = cs.TILE, {}
+    triples = list(zip(cs.flat(nxt), cs.flat(frames), cs.flat(grids)))
+    pairs = []
+    for cur, prev, grid in triples:
+        a, b = enc.pad_to_grid(cur, prev, grid.shape, t)
+        pairs.append((a, b, torch.as_tensor(ops.mask_to_indices(grid),
+                                            device=a.device)))
+    ones = [(a, b, rows[:1]) for a, b, rows in pairs]
+    for name, fraction in (("tile_delta", enc.tile_static_fraction),
+                           ("tile_delta_halo",
+                            enc.tile_halo_static_fraction)):
+        kfn = getattr(tile_delta, name)
+        for tag, sets in (("", pairs), ("_one_tile", ones)):
+            def fn(sets=sets):
+                return [kfn(a, b, rows, t, t) for a, b, rows in sets]
+            out[f"{name}{tag}_ms"] = cs.time_ms(torch, fn)
+            out[f"{name}{tag}_device_ms"], out[f"{name}{tag}_records"] = \
+                device_reading(torch, fn, DELTA_STATS, len(sets))
+        out[f"{name}_host_ms"] = host_ms(
+            torch, lambda: [kfn(a, b, rows, t, t) for a, b, rows in pairs])
+        out[f"{name}_feed"] = feed(torch, kfn, fraction, triples, t)
     return out
 
 
@@ -146,7 +260,10 @@ def turn(root: Path) -> dict:
     _, _, idx, nbr = det._fleet_tables(cs.flat(grids))
     x, _, _ = det._stack_frames(cs.flat(frames), cs.flat(grids))
     t, w0 = cs.TILE, det.weights[0]
-    gates = gate_times(torch, cs, det, rng, gen, frames, grids, x, idx)
+    nxt = cs.with_patches(torch, frames, grids, rng, gen, 20.0)
+    gates = gate_times(torch, cs, det, nxt, grids, x, idx)
+    deltas = delta_times(torch, cs, nxt, frames, grids)
+    del nxt
     b2 = cs.time_ms(torch, lambda: roi_conv.roi_conv_entry(x, w0, idx, t, t))
     leg, leg_grid = cs.flat(frames)[0], cs.flat(grids)[0]
     xl = det._stack_frames([leg], [leg_grid])[0][0]
@@ -171,7 +288,7 @@ def turn(root: Path) -> dict:
     b12_exh = cs.time_ms(torch, lambda: roi_attention.roi_attention(
         q, k, v, pos, 128, 128, False))
     return {"root": str(root), "n_tiles": int(idx.shape[0]),
-            "leg_tiles": int(rows.shape[0]), **gates,
+            "leg_tiles": int(rows.shape[0]), **gates, **deltas,
             "roi_conv_entry_ms": b2,
             "roi_conv_ms": b8, "roi_conv_stack_ms": b3,
             "roi_conv_packed_ms": b6,
@@ -179,6 +296,28 @@ def turn(root: Path) -> dict:
             "roi_attention_exhaustive_ms": b12_exh,
             **kernel_code(_build),
             "device": torch.cuda.get_device_name(0)}
+
+
+def delta_verdict(name: str, this: list, other: list) -> str:
+    """One line on ``name``'s device time in the turns of this checkout
+    and of the other: each turn's reading (or "invalid" with its records),
+    and whether every valid reading of this one is below every valid
+    reading of the other."""
+    def readings(turns):
+        return [t.get(f"{name}_device_ms") for t in turns]
+
+    def show(turns):
+        return ", ".join(
+            "invalid ({} records)".format(t.get(f"{name}_records"))
+            if t.get(f"{name}_device_ms") is None
+            else "{:.4f}".format(t[f"{name}_device_ms"]) for t in turns)
+
+    a = [v for v in readings(this) if v is not None]
+    b = [v for v in readings(other) if v is not None]
+    below = bool(a and b) and max(a) < min(b)
+    return (f"{name} device ms: this checkout {show(this)}; the other "
+            f"{show(other)}; every valid turn of this one below every valid "
+            f"turn of the other: {below}")
 
 
 def main() -> int:
@@ -194,6 +333,7 @@ def main() -> int:
     if args.other is None:
         ap.error("give --other DIR, or --turn")
     other = args.other.resolve()
+    turns = []
     for root in (other, ROOT, ROOT, other):
         out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                               "--turn", "--root", str(root)],
@@ -201,7 +341,11 @@ def main() -> int:
         if out.returncode:
             sys.stderr.write(out.stdout + out.stderr)
             return out.returncode
-        print(out.stdout.strip().splitlines()[-1], flush=True)
+        line = out.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        turns.append(json.loads(line))
+    for name in ("tile_delta", "tile_delta_halo"):
+        print(delta_verdict(name, turns[1:3], turns[::3]), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)

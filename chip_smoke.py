@@ -33,7 +33,19 @@ is non-zero:
    share of the bound are printed by event and device time; on small
    fleets of 0.5-grid ties with -0.0 over 0.0 and NaNs, and of changed
    content, at tiles 8x8, 16x16 and 8x7, Cin 3 and 5, qstep 1, 8 and 13,
-   both are bitwise equal to their plain versions.  B2, B7 and B8 run the
+   both are bitwise equal to their plain versions.  B10 and B11 run
+   their kernel's compiled-in detector instance on the 20 cameras
+   (asserted, likewise); the generic instance (copies 4 bytes off an
+   8-byte boundary) and content where every element changed give their
+   plain versions' bits; their event and device times, each with its
+   share of the bound, are printed beside a launch of one tile a camera
+   (the per-launch floor), and B11's bound also in the 32-byte sectors
+   its rings touch; on small frames of 0.5-grid ties with -0.0 over 0.0,
+   of NaN, +-Inf and +-3e10 deltas and of changed content at seven (th,
+   tw, C), qstep 1, 8 and 13, and on one tile each past the old 48 KB
+   cap, they equal their plain versions (which equal the CPU's).  Every
+   device-time reading counts the profiler's kernel records and prints
+   a short count as invalid.  B2, B7 and B8 run the
    entry kernel's compiled-in detector instance (asserted, likewise); on
    the fleet the generic instance (a copy of the frames 4 bytes off a 16-byte
    boundary) and a compact launch on an eighth of the rows give B2's bits;
@@ -234,11 +246,14 @@ def rate_line(name, flops, ms, b_ms, what):
         f"{b_ms / ms:.4f} of the bound ({b_ms:.4f} ms in {ms:.4f} ms)")
 
 
-def device_ms(torch, fn, kernel, reps=7):
+def device_ms(torch, fn, kernel, reps=7, launches=1):
     """The device time per call of the kernels named ``kernel`` that ``fn``
-    launches: the profiler's CUDA time over ``reps`` calls, after a
-    warm-up.  Unlike ``time_ms`` it leaves out the host's time between
-    launches, which bounds a short kernel's event time."""
+    launches (``launches`` of them a call): the profiler's CUDA time over
+    ``reps`` calls, after a warm-up.  Unlike ``time_ms`` it leaves out the
+    host's time between launches, which bounds a short kernel's event
+    time.  The reading counts the profiler's records of the kernel: with
+    fewer than ``launches * reps`` it missed some, and the reading is
+    invalid (None), not a time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -246,21 +261,29 @@ def device_ms(torch, fn, kernel, reps=7):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages()
-             if kernel in e.key)
-    return us / reps / 1e3
+    hits = [e for e in prof.key_averages() if kernel in e.key]
+    records = sum(e.count for e in hits)
+    if records < launches * reps:
+        say(f"[kernels] device time of {kernel}: invalid, {records} kernel "
+            f"records of {launches * reps}")
+        return None
+    return sum(e.device_time_total for e in hits) / reps / 1e3
 
 
-def byte_line(torch, name, fn, nbytes, r, kernel="roi_conv_entry_kernel"):
+def byte_line(torch, name, fn, nbytes, r, kernel="roi_conv_entry_kernel",
+              launches=1):
     """Achieved GB/s and the share of the bound for one timed byte-bound
     kernel (the entry family's, or the one named ``kernel``), by event time
-    and by device time (kept in ``r`` as ``device_ms``)."""
-    r["device_ms"] = dev = device_ms(torch, fn, kernel)
+    and by device time (kept in ``r`` as ``device_ms``; None for an invalid
+    reading)."""
+    r["device_ms"] = dev = device_ms(torch, fn, kernel, launches=launches)
     ms, b_ms = r["ms"], r["bound_ms"]
-    say(f"[kernels] {name}: {nbytes / ms / 1e6:.1f} GB/s of the bytes it "
-        f"must move; {b_ms / ms:.4f} of the bound ({b_ms:.4f} ms in "
-        f"{ms:.4f} ms); device time {dev:.4f} ms: {nbytes / dev / 1e6:.1f} "
-        f"GB/s, {b_ms / dev:.4f} of the bound")
+    line = (f"[kernels] {name}: {nbytes / ms / 1e6:.1f} GB/s of the bytes it "
+            f"must move; {b_ms / ms:.4f} of the bound ({b_ms:.4f} ms in "
+            f"{ms:.4f} ms); ")
+    say(line + ("device time invalid" if dev is None else
+                f"device time {dev:.4f} ms: {nbytes / dev / 1e6:.1f} GB/s, "
+                f"{b_ms / dev:.4f} of the bound"))
 
 
 def entry_route(lib, x, w, t):
@@ -297,6 +320,20 @@ def gate_route(lib, name, cur_p, rw, th, tw=None):
     assert lib.tile_delta_gate_route(Cin, th, tw, Wp, cur_p.data_ptr(),
                                      rw.data_ptr(), None) == \
         (route == "detector"), f"{name}: the launcher and gate_route disagree"
+    return route
+
+
+def delta_route(lib, cur, prev, th, tw):
+    """The instance of B10's and B11's kernels that runs on the (H, W, C)
+    frames ``cur`` and ``prev``: the route function's answer, checked
+    against the library's own choice."""
+    from repro_torch.kernels import tile_delta
+    C, W = cur.shape[-1], cur.shape[-2]
+    route = tile_delta.delta_route(C, th, tw, W, cur.data_ptr(),
+                                   prev.data_ptr())
+    assert lib.tile_delta_route(C, th, tw, W, cur.data_ptr(),
+                                prev.data_ptr()) == (route == "detector"), \
+        "the launcher and delta_route disagree"
     return route
 
 
@@ -484,6 +521,112 @@ def gate_hard_cases(torch, dev):
         f"one")
 
 
+# B10's and B11's hard cases: (th, tw, C) -- scan rows of 24 floats (a
+# partial 32-lane chunk), 40, 48 (the detector's), 80 and 72 (two of the
+# kernels' 64-element chunks) and 21 (odd), a 40-pixel column strip (two
+# 32-pixel chunks) -- and one tile a kernel past the 48 KB of quantized
+# deltas the kernels once kept in shared memory: B10 at 80x80x3 (19,200),
+# B11 in the ring of 1088x1024x3 (12,672) on a 1088x1920 frame
+DELTA_CASES = [(8, 8, 3), (8, 8, 5), (16, 16, 3), (16, 16, 5), (8, 7, 3),
+               (16, 24, 3), (40, 8, 3)]
+DELTA_PAST_CAP = (("tile_delta", 80, 80, (160, 240)),
+                  ("tile_delta_halo", 1088, 1024, (1088, 1920)))
+
+
+def delta_content(rng, shape, kind):
+    """(prev, cur) (H, W, C) frames for B10's and B11's hard cases.
+    "ties": values on a 0.5 grid, 30% moved by multiples of 0.5, a -0.0
+    over a 0.0 in the first row.  "saturate": the same with NaN, +-Inf and
+    +-3e10 deltas (both frames infinite at some places), whose quotients
+    the quantizer's cast saturates at every step of ``GATE_QSTEPS``.
+    "changed": every element moved by 16 to 32, so no row holds a zero
+    run."""
+    if kind == "changed":
+        prev = rng.normal(size=shape).astype(np.float32)
+        return prev, prev + rng.uniform(16, 32, shape).astype(np.float32)
+    prev = (rng.integers(-40, 40, shape) * 0.5).astype(np.float32)
+    cur = prev.copy()
+    moved = rng.random(shape) < 0.3
+    cur[moved] += (rng.integers(-60, 60, moved.sum()) * 0.5) \
+        .astype(np.float32)
+    cur[0, :3, :] = -0.0
+    prev[0, :3, :] = 0.0
+    if kind == "saturate":
+        spots = rng.choice(cur.size, 40, replace=False)
+        for k, v in enumerate((np.nan, np.inf, -np.inf, 3e10, -3e10)):
+            cur.reshape(-1)[spots[8 * k:8 * k + 6]] = v
+            prev.reshape(-1)[spots[8 * k + 4:8 * k + 8]] = v
+    return prev, cur
+
+
+def delta_hard_cases(torch, dev):
+    """B10 and B11 bitwise against their plain versions on the card, which
+    equal the plain versions on the CPU (both saturate the quantizer's
+    cast), on frames of ``delta_content`` at each of ``DELTA_CASES`` and
+    ``GATE_QSTEPS``; where the detector's instance runs, the generic one
+    (8-byte-misaligned copies) gives the same bits; then the tiles of
+    ``DELTA_PAST_CAP``."""
+    from repro_torch.kernels import _build, ops, ref, tile_delta
+    lib = _build.library()
+    rng = np.random.default_rng(SEED + 12)
+    names = ("tile_delta", "tile_delta_halo")
+    seen = {"detector": 0, "generic": 0}
+    for kind in ("ties", "saturate", "changed"):
+        for th, tw, cin in DELTA_CASES:
+            grid = rng.random((5, 6)) < 0.6
+            grid[0, 0] = grid[-1, -1] = True
+            rows = torch.as_tensor(ops.mask_to_indices(grid))
+            pair = delta_content(rng, (5 * th, 6 * tw, cin), kind)
+            prev, cur = (torch.as_tensor(a) for a in pair)
+            inputs = [(cur.to(dev), prev.to(dev))]
+            if delta_route(lib, *inputs[0], th, tw) == "detector":
+                inputs.append(tuple(misaligned(torch, a) for a in inputs[0]))
+            for c, p in inputs:
+                seen[delta_route(lib, c, p, th, tw)] += 1
+            for q in GATE_QSTEPS:
+                for name in names:
+                    plain, kfn = getattr(ref, name), getattr(tile_delta, name)
+                    want = plain(*inputs[0], rows.to(dev), th, tw, q)
+                    same = torch.equal(want.cpu(),
+                                       plain(cur, prev, rows, th, tw, q))
+                    for c, p in inputs:
+                        same = same and torch.equal(
+                            kfn(c, p, rows.to(dev), th, tw, q), want)
+                    assert same, f"{name} on {kind} content at {th}x{tw}, " \
+                                 f"C {cin}, qstep {q}"
+    for name, th, tw, frame in DELTA_PAST_CAP:
+        prev, cur = (torch.as_tensor(a, device=dev) for a in delta_content(
+            rng, frame + (3,), "ties"))
+        rows = torch.as_tensor(np.ascontiguousarray(np.argwhere(np.ones(
+            (frame[0] // th, frame[1] // tw), bool)), dtype=np.int32),
+            device=dev)
+        for q in GATE_QSTEPS:
+            assert torch.equal(
+                getattr(tile_delta, name)(cur, prev, rows, th, tw, q),
+                getattr(ref, name)(cur, prev, rows, th, tw, q)), \
+                f"{name} at {th}x{tw}, qstep {q}"
+    say(f"[kernels] B10 and B11 on hard content (0.5-grid ties with -0.0 "
+        f"over 0.0; NaN, +-Inf and +-3e10 deltas; every element changed) at "
+        f"(th, tw, C) {DELTA_CASES}, qstep {GATE_QSTEPS}: bitwise == their "
+        f"plain versions on the card == the plain versions on the CPU, on "
+        f"{seen['detector']} content(s) through the detector's instance and "
+        f"{seen['generic']} through the generic one; past the old 48 KB cap "
+        f"({', '.join(f'{n} {a}x{b}x3' for n, a, b, _ in DELTA_PAST_CAP)}): "
+        f"bitwise == the plain versions")
+
+
+def ring_sectors(torch, W, C, rows, t):
+    """The distinct 32-byte sectors of one (H, W, C) float32 frame that the
+    edge rings of the t x t tiles ``rows`` touch."""
+    ty, tx = (rows[:, i:i + 1].long() * t for i in (0, 1))
+    k = torch.arange(t, device=rows.device)
+    ys = torch.cat([ty + 0 * k, ty + t - 1 + 0 * k, ty + k, ty + k], 1)
+    xs = torch.cat([tx + k, tx + k, tx + 0 * k, tx + t - 1 + 0 * k], 1)
+    first = (ys * W + xs) * C * 4
+    return int(torch.cat([first // 32, (first + C * 4 - 1) // 32])
+               .unique().numel())
+
+
 def check_kernels(torch, det, frames, frames_next, grids):
     from repro_torch.kernels import _build, ops, ref, roi_conv, sbnet, \
         tile_delta
@@ -608,38 +751,86 @@ def check_kernels(torch, det, frames, frames_next, grids):
     del ref_d, ref_c
     gate_hard_cases(torch, dev)
 
-    # B10, B11: each camera's frame pair, padded to its grid's extent;
-    # B10's rows are B1's body columns on the camera's tiles
-    pairs = []
+    # B10, B11: each camera's frame pair, padded to its grid's extent, on
+    # the detector's instance: bitwise == the plain versions, == the
+    # generic instance (copies 4 bytes off an 8-byte boundary), and on
+    # content where every element changed; B10's rows are B1's body
+    # columns on the camera's tiles.  Times by events and by device time,
+    # each beside a launch of one tile a camera (the per-launch floor)
+    pairs, changed, shifted = [], [], []
     for c, (fc, fp, gr) in enumerate(zip(flat(frames_next), flat(frames),
                                          flat(grids))):
         a, b = pad_to_grid(fc, fp, gr.shape, t)
         rows = torch.as_tensor(ops.mask_to_indices(gr), device=dev)
         pairs.append((a, b, rows))
+        changed.append((a, a + 16.0 + 16.0 * torch.rand(
+            a.shape, generator=gen, device=dev), rows))
+        shifted.append((misaligned(torch, a), misaligned(torch, b), rows))
+    ones = [(a, b, rows[:1]) for a, b, rows in pairs]
     cam = idx[:, 0]
+    stats_kernel = "tile_delta_stats_kernel"
 
-    def per_camera(fn):
-        return [fn(a, b, rows, t, t) for a, b, rows in pairs]
+    def per_camera(fn, sets=pairs):
+        return [fn(a, b, rows, t, t) for a, b, rows in sets]
 
-    for name, k_fn, p_fn, px in (
-            ("tile_delta", tile_delta.tile_delta, ref.tile_delta, t * t),
-            ("tile_delta_halo", tile_delta.tile_delta_halo,
-             ref.tile_delta_halo, 4 * t - 4)):
-        got, want = per_camera(k_fn), per_camera(p_fn)
+    def equal(x, y):
+        return all(torch.equal(a, b) for a, b in zip(x, y))
+
+    routes = {delta_route(lib, a, b, t, t) for a, b, _ in pairs}
+    assert routes == {"detector"}, f"the cameras take {routes}"
+    assert {delta_route(lib, a, b, t, t) for a, b, _ in shifted} == \
+        {"generic"}
+    for name, px in (("tile_delta", t * t), ("tile_delta_halo", 4 * t - 4)):
+        kfn, pfn = getattr(tile_delta, name), getattr(ref, name)
+        got, want = per_camera(kfn), per_camera(pfn)
         torch.cuda.synchronize()
-        ok = all(torch.equal(a, b) for a, b in zip(got, want))
+        same = {"plain": equal(got, want),
+                "generic": equal(per_camera(kfn, shifted), got),
+                "changed": equal(per_camera(kfn, changed),
+                                 per_camera(pfn, changed))}
         if name == "tile_delta":
-            ok = ok and all(torch.equal(a[:, :4], g_k[cam == c, :4])
-                            for c, a in enumerate(got))
+            same["B1"] = all(torch.equal(a[:, :4], g_k[cam == c, :4])
+                             for c, a in enumerate(got))
+        nbytes = n * (2 * px * 3 * 4 + (2 + 8) * 4)
         record(name, max(float((a - b).abs().max()) for a, b in
-                         zip(got, want) if a.numel()), ok,
-               lambda: per_camera(k_fn), lambda: per_camera(p_fn),
-               n * (2 * px * 3 * 4 + (2 + 8) * 4),
+                         zip(got, want) if a.numel()), all(same.values()),
+               lambda: per_camera(kfn), lambda: per_camera(pfn), nbytes,
                3 * n * (t * t if name == "tile_delta" else 4 * t) * 3,
-               check=f"bit-exact, {len(pairs)} cameras" + (
-                   " (== B1's body columns)" if name == "tile_delta"
-                   else ""))
-    del pairs, g_k
+               check=f"bit-exact, {len(pairs)} cameras; route detector; == "
+                     f"generic route, all-changed content bit-exact"
+                     + (", == B1's body columns" if name == "tile_delta"
+                        else "") + f": {same}")
+        r = results[name]
+        byte_line(torch, name, lambda: per_camera(kfn), nbytes, r,
+                  stats_kernel, launches=len(pairs))
+        r["one_tile_ms"] = time_ms(torch, lambda: per_camera(kfn, ones))
+        r["one_tile_device_ms"] = device_ms(
+            torch, lambda: per_camera(kfn, ones), stats_kernel,
+            launches=len(pairs))
+        r["generic_ms"] = time_ms(torch, lambda: per_camera(kfn, shifted))
+        r["generic_device_ms"] = device_ms(
+            torch, lambda: per_camera(kfn, shifted), stats_kernel,
+            launches=len(pairs))
+        say(f"[kernels] {name}: one tile a camera (the per-launch floor) "
+            f"{r['one_tile_ms']:.4f} ms by events, device time "
+            f"{r['one_tile_device_ms']} ms; the generic route "
+            f"(4-byte loads, runtime extents) {r['generic_ms']:.4f} ms by "
+            f"events, device time {r['generic_device_ms']} ms")
+        if name == "tile_delta_halo":
+            sectors = sum(ring_sectors(torch, a.shape[1], 3, rows, t)
+                          for a, _, rows in pairs)
+            r["sector_bound_ms"] = b_sec = bound(
+                2 * 32 * sectors + n * (2 + 8) * 4, 0)[0]
+            dev_ms = r["device_ms"]
+            share = 32 * sectors / (n * px * 3 * 4)
+            say(f"[kernels] tile_delta_halo: the rings touch {sectors} "
+                f"32-byte sectors of the {len(pairs)} frames ({share:.3f}x "
+                f"the bytes the bound counts): a bound of {b_sec:.4f} ms "
+                f"at that grain, " + ("device time invalid" if dev_ms is None
+                                      else f"{b_sec / dev_ms:.4f} of the "
+                                           f"device time"))
+    del pairs, changed, shifted, ones, g_k
+    delta_hard_cases(torch, dev)
 
     # B2: the entry conv, within CONV_TOL, on the detector's instance;
     # the generic instance (frames off a 16-byte boundary) gives its bits,
@@ -848,6 +1039,9 @@ def check_kernels(torch, det, frames, frames_next, grids):
            lambda: ref.sbnet_gather(hm, rows, t, t), copy_bytes, 0,
            lib_fn=lambda: hm[where1],
            check=f"bit-exact (== B4's head tiles); {n1} tiles")
+    byte_line(torch, "sbnet_gather",
+              lambda: sbnet.sbnet_gather(hm, rows, t, t), copy_bytes,
+              results["sbnet_gather"], "tile_copy_kernel")
     base1 = torch.zeros_like(hm)
     s_k = sbnet.sbnet_scatter(g_k, rows, base1.clone())
     s_p = ref.sbnet_scatter(g_k, rows, base1.clone())

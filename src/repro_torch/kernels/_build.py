@@ -66,6 +66,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     # cur, prev, idx, out, n, H, W, C, th, tw, qstep, coef, run, stream
     for f in (lib.tile_delta_launch, lib.tile_delta_halo_launch):
         f.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]
+    # C, th, tw, W, cur, prev -> 1 for the detector's instance, 0 generic
+    lib.tile_delta_route.argtypes = [_I, _I, _I, _I, _P, _P]
     # x, w, idx, out, n, C (B frames for roi_conv), H, W, Cin, Cout, th,
     # tw, stream
     for f in (lib.roi_conv_entry_launch, lib.roi_conv_fleet_launch,
@@ -96,7 +98,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
     for f in (lib.tile_delta_gate_canvas_launch, lib.tile_delta_gate_launch,
               lib.tile_delta_gate_route, lib.tile_delta_launch,
-              lib.tile_delta_halo_launch,
+              lib.tile_delta_halo_launch, lib.tile_delta_route,
               lib.roi_conv_entry_launch, lib.roi_conv_fleet_launch,
               lib.roi_conv_launch, lib.roi_conv_entry_route,
               lib.roi_conv_stack_launch,

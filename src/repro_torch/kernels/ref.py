@@ -43,12 +43,17 @@ def gather_windows(xp: torch.Tensor, idx: torch.Tensor, th: int,
 
 def _quantize(cur: torch.Tensor, prev: torch.Tensor,
               qstep: float) -> torch.Tensor:
-    """``round_half_even((cur - prev) / qstep)`` in float32, as int32."""
+    """``round_half_even((cur - prev) / qstep)`` in float32, as int32.
+    The cast saturates as XLA's and the card's do: NaN gives 0, a value at
+    or past +-2^31 the int32 extreme on its side."""
     # a 0-dim tensor on the same device, not a Python scalar: CUDA turns
     # division by a host scalar into a multiply by its reciprocal, which
     # is not correctly rounded
     step = torch.tensor(qstep, dtype=torch.float32, device=cur.device)
-    return torch.round((cur - prev) / step).to(torch.int32)
+    q = torch.round((cur - prev) / step).double()
+    # float64 holds 2^31 - 1 exactly; the plain cast gives INT_MIN on x86
+    return torch.nan_to_num(q, nan=0.0).clamp(-2 ** 31, 2 ** 31 - 1) \
+        .to(torch.int32)
 
 
 def _scan_stats(q: torch.Tensor):

@@ -35,15 +35,9 @@ GATE_WIN_EXACT = 4       # exact count of (th+2, tw+2, C) positions that
 #                          differ -- the threshold-0 gate signal
 GATE_WIN_BYTES = 5       # quantized zero-run byte estimate of the window
 
-# the extents (Cin, th, tw) of the gate kernel's compiled-in instance
+# the extents (Cin, th, tw) of the compiled-in instances of the gate kernel
+# and of B10's and B11's kernels
 GATE_DETECTOR = (3, 16, 16)
-
-
-def _check_smem(name: str, elems: int) -> None:
-    """B10 and B11 keep a tile's quantized deltas in shared memory."""
-    if 4 * elems > 48 * 1024:
-        raise ValueError(f"{name}: {elems} quantized deltas per tile do not "
-                         f"fit the kernel's 48 KB of shared memory")
 
 
 def gate_route(Cin: int, th: int, tw: int, Wp: int, *addresses: int) -> str:
@@ -60,6 +54,17 @@ def gate_route(Cin: int, th: int, tw: int, Wp: int, *addresses: int) -> str:
             and all(a % 8 == 0 for a in addresses)):
         return "detector"
     return "generic"
+
+
+def delta_route(C: int, th: int, tw: int, W: int, *addresses: int) -> str:
+    """The instance of ``csrc/tile_delta.cu``'s kernels (B10, B11) that
+    runs on (H, W, C) frames starting at bytes ``addresses``: the gate's
+    rule (``gate_route``) with the frame row in place of the padded one --
+    ``"detector"`` for the detector's (C, th, tw) when a frame row is an
+    even number of floats and both frames start on an 8-byte boundary, else
+    ``"generic"``.  Both give the same bits.  The launchers apply the same
+    rule; the library's ``tile_delta_route`` reports their choice."""
+    return gate_route(C, th, tw, W, *addresses)
 
 
 def _launch(name: str, dev: torch.device, fn, *args) -> None:
@@ -131,16 +136,18 @@ def tile_delta_gate(cur_p: torch.Tensor, ref_win: torch.Tensor,
 
 
 def _frame_pair_stats(name: str, fn, cur, prev, idx, th, tw, qstep,
-                      coef_bits, run_bits, elems: int) -> torch.Tensor:
+                      coef_bits, run_bits) -> torch.Tensor:
     """The launcher shared by ``tile_delta`` and ``tile_delta_halo``:
     (H, W, C) float32 frames + (n, 2) int32 (ty, tx) rows -> (n,
-    STATS_WIDTH) int32."""
+    STATS_WIDTH) int32.  A tile of any extent fits: the kernels keep no
+    tile in shared memory."""
     dev = _build.cuda_device(name, cur, prev, idx)
     _build.expect(name, "cur", cur, torch.float32, (None,) * 3)
     _build.expect(name, "prev", prev, torch.float32, tuple(cur.shape))
     _build.expect(name, "idx", idx, torch.int32, (None, 2))
+    if th < 1 or tw < 1:
+        raise ValueError(f"{name}: a {th}x{tw} tile has no pixels")
     H, W, C = cur.shape
-    _check_smem(name, elems * C)
     n = idx.shape[0]
     out = torch.empty((n, STATS_WIDTH), dtype=torch.int32, device=dev)
     if n == 0:
@@ -164,7 +171,7 @@ def tile_delta(cur: torch.Tensor, prev: torch.Tensor, idx: torch.Tensor,
                               run_bits)
     return _frame_pair_stats("tile_delta", lambda lib: lib.tile_delta_launch,
                              cur, prev, idx, th, tw, qstep, coef_bits,
-                             run_bits, th * tw)
+                             run_bits)
 
 
 def tile_delta_halo(cur: torch.Tensor, prev: torch.Tensor,
@@ -179,5 +186,4 @@ def tile_delta_halo(cur: torch.Tensor, prev: torch.Tensor,
                                    run_bits)
     return _frame_pair_stats("tile_delta_halo",
                              lambda lib: lib.tile_delta_halo_launch, cur,
-                             prev, idx, th, tw, qstep, coef_bits, run_bits,
-                             2 * (th + tw))
+                             prev, idx, th, tw, qstep, coef_bits, run_bits)

@@ -271,6 +271,99 @@ def test_cuda_fractions_on_a_ragged_grid(cuda):
     assert torch.equal(body[:, :4], gate[:, :4])
 
 
+def _frame_pair(rng, shape, kind):
+    """(prev, cur) (H, W, C) frames: "ties" -- ``_half_grid_pair``;
+    "saturate" -- the same with NaN, +-Inf and +-3e10 deltas (cur and prev
+    both infinite at some places), whose quotients the quantizer's cast
+    saturates at every qstep here; "changed" -- every element moved by 16
+    to 32, so no scan row holds a zero run."""
+    if kind == "changed":
+        prev = rng.normal(size=shape).astype(np.float32)
+        return prev, prev + rng.uniform(16, 32, shape).astype(np.float32)
+    prev, cur = _half_grid_pair(rng, shape)
+    if kind == "saturate":
+        spots = rng.choice(cur.size, 40, replace=False)
+        for k, v in enumerate((np.nan, np.inf, -np.inf, 3e10, -3e10)):
+            cur.reshape(-1)[spots[8 * k:8 * k + 6]] = v
+            prev.reshape(-1)[spots[8 * k + 4:8 * k + 8]] = v
+    return prev, cur
+
+
+# (th, tw, C): scan rows of 24 (a partial 32-lane chunk), 40, 48 (the
+# detector's), 80 and 72 (two 64-element chunks) and 21 floats (odd); a
+# 40-pixel column strip (two 32-pixel chunks); Cin 3 and 5
+DELTA_CASES = [(8, 8, 3), (8, 8, 5), (16, 16, 3), (16, 16, 5), (8, 7, 3),
+               (16, 24, 3), (40, 8, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ties", "saturate", "changed"])
+@pytest.mark.parametrize("th,tw,cin", DELTA_CASES)
+def test_cuda_frame_pair_kernels_bitwise_on_hard_content(cuda, kind, th, tw,
+                                                         cin):
+    """B10 and B11 bitwise against their plain versions on the card and on
+    the CPU (both saturate their casts), at qstep 1, 8 and 13.  The route
+    function agrees with the launcher, and at the detector's extents the
+    generic instance (copies 4 bytes off an 8-byte boundary) gives the
+    detector's bits."""
+    rng = np.random.default_rng(12)
+    grid = rng.random((5, 6)) < 0.6
+    grid[0, 0] = grid[-1, -1] = True
+    prev, cur = _frame_pair(rng, (5 * th, 6 * tw, cin), kind)
+    rows = _t(tops.mask_to_indices(grid))
+    inputs = [(_t(cur).to(cuda), _t(prev).to(cuda))]
+    routes = ["generic"]
+    if (cin, th, tw) == tile_delta.GATE_DETECTOR:
+        inputs.append(tuple(_misaligned(a) for a in inputs[0]))
+        routes.insert(0, "detector")
+    lib = _build.library()
+    for (c, p), route in zip(inputs, routes):
+        args = (cin, th, tw, c.shape[1], c.data_ptr(), p.data_ptr())
+        assert tile_delta.delta_route(*args) == route
+        assert lib.tile_delta_route(*args) == (route == "detector")
+    d_rows = rows.to(cuda)
+    before = dict(_build.LAUNCHES)
+    for fn, plain in ((tile_delta.tile_delta, tref.tile_delta),
+                      (tile_delta.tile_delta_halo, tref.tile_delta_halo)):
+        for q in (1.0, 8.0, 13.0):
+            want = plain(*inputs[0], d_rows, th, tw, q)
+            assert torch.equal(want.cpu(),
+                               plain(_t(cur), _t(prev), rows, th, tw, q))
+            for c, p in inputs:
+                assert torch.equal(fn(c, p, d_rows, th, tw, q), want)
+            if kind == "changed" and fn is tile_delta.tile_delta:
+                assert (want[:, 1] == th * tw * cin).all()
+                assert (want[:, 2] == 0).all()
+    torch.cuda.synchronize()
+    for k in ("tile_delta", "tile_delta_halo"):
+        assert _build.LAUNCHES[k] == before.get(k, 0) + 3 * len(inputs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,th,tw,frame", [
+    ("tile_delta", 80, 80, (160, 240)),
+    ("tile_delta_halo", 1088, 1024, (1088, 1920))])
+def test_cuda_frame_pair_kernels_past_the_old_cap(cuda, name, th, tw, frame):
+    """Tiles whose quantized deltas passed the 48 KB the kernels once kept
+    in shared memory (B10: 19,200 at 80x80x3; B11: 12,672 in the ring of
+    1088x1024x3) give their plain versions' bits; an empty set launches
+    nothing."""
+    rng = np.random.default_rng(13)
+    prev, cur = (_t(a).to(cuda) for a in _frame_pair(
+        rng, frame + (3,), "ties"))
+    ny, nx = frame[0] // th, frame[1] // tw
+    rows = _t(np.argwhere(np.ones((ny, nx), bool)).astype(np.int32)) \
+        .to(cuda)
+    fn, plain = getattr(tile_delta, name), getattr(tref, name)
+    before = _build.LAUNCHES[name]
+    for q in (1.0, 8.0, 13.0):
+        assert torch.equal(fn(cur, prev, rows, th, tw, q),
+                           plain(cur, prev, rows, th, tw, q))
+    assert fn(cur, prev, rows[:0], th, tw).shape == (0, tops.STATS_WIDTH)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 3
+
+
 def _trace(seed, n_steps=6):
     """Ragged frames, static except a moving patch; step 3 is static."""
     rng = np.random.default_rng(seed)

@@ -7,16 +7,23 @@ bit-exactly against ``repro.kernels.ref``: ``tile_delta`` (B10) and
 (current window, reference window) pair, and its windows output against
 the JAX package's ``ops.gather_windows`` (pure jnp).  Inputs sit on a 0.5
 grid so that many deltas land on rounding ties, and a -0.0 vs 0.0 pair is
-no exact change.  ``tests/test_torch_cuda.py`` holds the CUDA kernels
-against the plain versions on the card."""
+no exact change.  On NaN, +-Inf, +-3e10 and -0.0 content -- where numpy's
+cast in ``repro.kernels.ref`` gives x86's INT_MIN and XLA's saturates --
+B10 and B11 are held against the JAX package's own pure-jnp arithmetic,
+``_tile_stats`` and ``_halo_strip_stats`` composed as its kernel bodies
+compose them.  The route rule of B10's and B11's instances is held here
+too.  ``tests/test_torch_cuda.py`` holds the CUDA kernels against the
+plain versions on the card."""
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels import tile_delta as jtd
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import tile_delta
@@ -212,3 +219,110 @@ def test_launchers_refuse_other_devices():
             torch.zeros((1, 18, 18, 3), device=m),
             torch.zeros((1, 10, 10, 3), device=m),
             torch.zeros((1, 3), dtype=torch.int32, device=m), 8, 8)
+
+
+def _special(rng, shape, kind):
+    """A ``_pair`` whose deltas the quantizer's cast must saturate or zero:
+    "nan" -- NaNs in cur, in prev and in both at one place; "inf" -- +-Inf
+    in cur, in prev, and in both (Inf - Inf is NaN); "huge" -- +-3e10 in
+    cur or prev (past 2^31 at every qstep here); "negzero" -- -0.0 over
+    0.0 and 0.0 over -0.0 at many places."""
+    prev, cur = _pair(rng, shape)
+    spots = rng.choice(cur.size, 60, replace=False)
+    c, p = cur.reshape(-1), prev.reshape(-1)
+    if kind == "negzero":
+        c[spots[:30]], p[spots[:30]] = -0.0, 0.0
+        c[spots[30:]], p[spots[30:]] = 0.0, -0.0
+        return prev, cur
+    values = {"nan": (np.nan,), "inf": (np.inf, -np.inf),
+              "huge": (3e10, -3e10)}[kind]
+    for k, v in enumerate(np.resize(values, 6)):
+        part = spots[10 * k:10 * k + 10]
+        c[part[:7]] = v                       # cur alone, then both
+        p[part[4:]] = v if k % 2 else -v      # prev alone or both
+    return prev, cur
+
+
+def _jnp_tile_delta(cur, prev, idx, th, tw, qstep):
+    """B10's rows from the JAX package's ``_tile_stats`` on each tile."""
+    cut = [(slice(ty * th, ty * th + th), slice(tx * tw, tx * tw + tw))
+           for ty, tx in idx]
+    c = jnp.stack([jnp.asarray(cur[s]) for s in cut])
+    p = jnp.stack([jnp.asarray(prev[s]) for s in cut])
+    return np.asarray(jax.vmap(lambda a, b: jtd._tile_stats(
+        a, b, qstep, jtd.COEF_BITS, jtd.RUN_BITS))(c, p))
+
+
+def _jnp_tile_delta_halo(cur, prev, idx, th, tw, qstep):
+    """B11's rows from the JAX package's ``_halo_strip_stats`` on each
+    tile's 4 strips, summed as ``_tile_delta_halo_kernel`` sums them."""
+    rows = []
+    for ty, tx in idx:
+        y0, x0 = ty * th, tx * tw
+        sels = [(slice(y0, y0 + 1), slice(x0, x0 + tw)),
+                (slice(y0 + th - 1, y0 + th), slice(x0, x0 + tw)),
+                (slice(y0, y0 + th), slice(x0, x0 + 1)),
+                (slice(y0, y0 + th), slice(x0 + tw - 1, x0 + tw))]
+        nnz = runs = sabs = jnp.asarray(0, jnp.int32)
+        for sel in sels:
+            a, b, d = jtd._halo_strip_stats(jnp.asarray(cur[sel]),
+                                            jnp.asarray(prev[sel]), qstep)
+            nnz, runs, sabs = nnz + a, runs + b, sabs + d
+        nbytes = (nnz * jtd.COEF_BITS + runs * jtd.RUN_BITS + 7) // 8
+        rows.append([nbytes, nnz, runs, sabs, 0, 0, 0, 0])
+    return np.asarray(rows, np.int32)
+
+
+JNP_ORACLES = {"tile_delta": _jnp_tile_delta,
+               "tile_delta_halo": _jnp_tile_delta_halo}
+
+
+@pytest.mark.parametrize("qstep", QSTEPS)
+@pytest.mark.parametrize("kind", ["nan", "inf", "huge", "negzero"])
+@pytest.mark.parametrize("name", ["tile_delta", "tile_delta_halo"])
+def test_plain_versions_match_jnp_on_special_content(name, kind, qstep):
+    """The cast saturates as XLA's: NaN gives 0, +-Inf and +-3e10 the int32
+    extremes (sum|q| wraps mod 2^32 as JAX's int32 sum), -0.0 gives 0."""
+    rng = np.random.default_rng(30)
+    grid = rng.random((5, 6)) < 0.6
+    grid[0, 0] = grid[-1, -1] = True
+    idx = tops.mask_to_indices(grid)
+    prev, cur = _special(rng, (5 * TH, 6 * TW, 3), kind)
+    got = getattr(tile_delta, name)(_t(cur), _t(prev), _t(idx), TH, TW,
+                                    qstep)
+    with np.errstate(invalid="ignore"):
+        want = JNP_ORACLES[name](cur, prev, idx, TH, TW, qstep)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if kind in ("inf", "huge"):         # a saturated |q| reached the sums
+        assert (np.abs(want[:, 3].astype(np.int64)) > 2 ** 30).any()
+
+
+@pytest.mark.parametrize("name,th,tw,frame", [
+    ("tile_delta", 80, 80, (160, 240)),
+    ("tile_delta_halo", 1088, 1024, (1088, 1920))])
+def test_plain_versions_past_the_old_cap_match_jnp(name, th, tw, frame):
+    """Tiles past the 48 KB of quantized deltas the CUDA kernels once kept
+    in shared memory (B10 80x80x3, B11's ring of 1088x1024x3): the plain
+    versions the card is held to give JAX's rows."""
+    rng = np.random.default_rng(31)
+    prev, cur = _pair(rng, frame + (3,))
+    idx = np.argwhere(np.ones((frame[0] // th, frame[1] // tw), bool)) \
+        .astype(np.int32)
+    got = getattr(tile_delta, name)(_t(cur), _t(prev), _t(idx), th, tw)
+    want = JNP_ORACLES[name](cur, prev, idx, th, tw, 8.0)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# (C, th, tw, frame width W, addresses...) -> the instance
+@pytest.mark.parametrize("args,route", [
+    ((3, 16, 16, 1920, 0, 256), "detector"),       # a padded 1920-px leg
+    ((3, 16, 16, 1280, 8, 1032), "detector"),      # the 1280-px centre
+    ((3, 16, 16, 1921, 0, 256), "generic"),        # rows of odd floats
+    ((3, 16, 16, 1920, 4, 256), "generic"),        # cur off 8 bytes
+    ((3, 16, 16, 1920, 0, 260), "generic"),        # prev off 8 bytes
+    ((5, 16, 16, 1920, 0, 256), "generic"),        # other C
+    ((3, 8, 8, 1920, 0, 256), "generic"),          # other tile
+    ((3, 16, 8, 1920, 0, 256), "generic"),         # a non-square tile
+])
+def test_delta_route_rule(args, route):
+    assert tile_delta.delta_route(*args) == route
