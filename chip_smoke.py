@@ -102,7 +102,26 @@ is non-zero:
    gather taking the RoI tiles of a full-frame SAME conv (``F.conv2d``,
    no TF32), within 1e-4 of B8, and of each ``roi_forward`` map, bitwise
    equal to the packed head rows;
-3e. the serving path at full width, after the fleet's tensors are freed:
+3e. CrossRoI's offline -> online path: the 4-group x 5-camera fleet of
+   ``tests/test_fleet.py``'s end-to-end test (groups uniform 21, sparse
+   22, rush_hour 23, bursty 24) as 120 s scenes, through
+   ``run_fleet_offline`` on the host (600 profile frames, the exact set
+   cover; per group |M|, density, optimality and host seconds); each
+   camera's 64-px mask expanded x4 to 16-px tiles; on those masks and
+   seeded frames, ``fleet_inference_step`` and a canvas cache's cold (==
+   the inference step bitwise), warm (5 of 20 cameras patched, threshold
+   0, == a cold recompute bitwise) and all-static (the gate alone) steps;
+   ``DeadlineGroupFormer`` on group 0's 5 cameras -- a full release, a
+   deadline release whose straggler rides the next release folded, and
+   reuse mode on a packed-reference cache in capture order with a folded
+   straggler -- every head bitwise equal to the same launches made
+   directly (the reuse waves copied); one warm step and one former release
+   with obs off and on: equal kernel launches, equal
+   ``torch.cuda.synchronize`` calls, equal bits, ``kernel_counts()`` equal
+   to the dispatch counts, the Chrome trace written to ``build/``; then
+   ``run_fleet_online`` over frames 600-1200, analytic and simulated
+   (host numbers);
+3f. the serving path at full width, after the fleet's tensors are freed:
    internvl2-26b (48 layers, d_model 6144, 48/8 heads of 128, d_ff
    16384; bf16 weights drawn on the card from a seeded generator) serves
    4 requests, each one frame's fleet patch stream (9,360 tokens, 3,268
@@ -113,8 +132,9 @@ is non-zero:
    its plain version and the engine's ``blockwise_attention``;
 4. a ``kernels`` JSON line with each kernel's launches on its path (B1-B5
    on the fleet path of phases 3 and 3b, B10 and B11 on the rate-control
-   loop, B6-B9 on phase 3d's paths, B12 on the engine's tensors in 3e),
-   each path driven with the counts set to 0.
+   loop, B6-B9 on phase 3d's paths, B12 on the engine's tensors in 3f),
+   each path driven with the counts set to 0; phase 3e's path is driven
+   the same way and must launch B1-B5.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the ``src/repro_torch`` package beside this file, it exits
@@ -399,15 +419,17 @@ def build_detector(dev):
 
 def with_patches(torch, frames, grids, rng, gen, amplitude,
                  interior=False):
-    """The next frames: 5 of the 20 cameras get one fresh 64x64 patch at a
-    random active tile (about one vehicle); ``amplitude`` lifts it above
-    the gate's quantizer step for the lossy steps.  ``interior`` places the
+    """The next frames: 5 of the cameras with an active tile (all 20 on
+    the random masks) get one fresh 64x64 patch at a random active tile
+    (about one vehicle); ``amplitude`` lifts it above the gate's
+    quantizer step for the lossy steps.  ``interior`` places the
     patch on the tile grid and keeps each covered tile's 2-pixel rim as it
     was: the motion stays inside tile interiors, where the canvas and
     packed reference modes agree at every threshold."""
-    flat = [(g, c) for g in frames for c in range(len(frames[g]))]
+    flat = [(g, c) for g in frames for c in range(len(frames[g]))
+            if grids[g][c].any()]
     nxt = {g: list(fs) for g, fs in frames.items()}
-    for k in rng.choice(len(flat), size=5, replace=False):
+    for k in rng.choice(len(flat), size=min(5, len(flat)), replace=False):
         g, c = flat[k]
         f = frames[g][c].clone()
         ys, xs = np.nonzero(grids[g][c])
@@ -1627,7 +1649,7 @@ def check_attention(torch, dev, grids, results):
 
 
 def serve_phase(torch, dev, keep, cfg):
-    """Phase 3e: internvl2-26b at full width serving the fleet's patch
+    """Phase 3f: internvl2-26b at full width serving the fleet's patch
     stream -- 4 requests of one frame each through ``serve`` with 8
     greedy steps; B12 on the engine's own layer-0 and last-layer q/k/v;
     the pruned-prompt identity.  Returns the engine-tensor B12 calls'
@@ -1774,6 +1796,307 @@ def serve_phase(torch, dev, keep, cfg):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3e: CrossRoI's offline -> online path on the card
+# ---------------------------------------------------------------------------
+
+# the 4x5 fleet of tests/test_fleet.py's end-to-end test, at the paper's
+# 60 s profile (600 frames at 10 fps) with the quickstart's exact solver
+CROSSROI_GROUPS = (("uniform", 21), ("sparse", 22), ("rush_hour", 23),
+                   ("bursty", 24))
+CROSSROI_SECONDS = 120
+CROSSROI_PROFILE = 600
+CROSSROI_SOLVER = "exact"
+FORMER_DEADLINE_S = 0.5
+
+
+def crossroi_offline():
+    """The offline phase on the host: the fleet's scenes, then per group
+    noisy ReID, the filters, the association table and the set cover."""
+    from repro_torch.core.pipeline import OfflineConfig
+    from repro_torch.fleet import (FleetConfig, GroupSpec, build_fleet,
+                                   run_fleet_offline)
+    t0 = time.perf_counter()
+    fleet = build_fleet(FleetConfig(
+        groups=[GroupSpec(p, seed=s) for p, s in CROSSROI_GROUPS],
+        duration_s=CROSSROI_SECONDS))
+    t_build = time.perf_counter() - t0
+    off = run_fleet_offline(fleet, OfflineConfig(
+        profile_frames=CROSSROI_PROFILE, solver=CROSSROI_SOLVER))
+    for g, o in zip(fleet.groups, off.per_group):
+        say(f"[crossroi] offline group {g.gid} ({g.spec.profile}, seed "
+            f"{g.spec.seed}): |M| = {len(o.mask)} cells of 64 px, density "
+            f"{o.fleet_density:.4f}, {o.solve.method} solver optimal="
+            f"{o.solve.optimal} (nodes {o.solve.nodes}, lower bound "
+            f"{o.solve.lower_bound:.1f}), host {o.wall_s:.2f} s of which "
+            f"the solve {o.solve.wall_s:.2f} s")
+        assert len(o.mask) > 0
+    say(f"[crossroi] offline phase on the host ({CROSSROI_SECONDS} s "
+        f"scenes, {CROSSROI_PROFILE} profile frames, {CROSSROI_SOLVER} "
+        f"set cover): build_fleet {t_build:.2f} s, run_fleet_offline "
+        f"{off.wall_s:.2f} s; fleet density {off.fleet_density:.4f}")
+    return fleet, off
+
+
+def crossroi_grids(fleet, off):
+    """Each camera's offline mask grid expanded to ``TILE``-px tiles:
+    {gid: [per-camera bool grid]}."""
+    out = {}
+    for g in fleet.groups:
+        out[g.gid] = []
+        for c in g.scene.cameras:
+            k = c.tile // TILE
+            out[g.gid].append(np.kron(off.per_group[g.gid].cam_grids[c.cam_id],
+                                      np.ones((k, k), bool)))
+    return out
+
+
+def crossroi_steps(torch, det, grids, frames, rng, gen):
+    """The fleet steps on the offline masks: the cold super-launch, then a
+    canvas-reference cache's cold, warm (5 of 20 cameras patched) and
+    all-static steps.  Returns the warm step's frames."""
+    from repro_torch.fleet.runtime import fleet_inference_step
+    from repro_torch.serving.detector import PackedActivationCache
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cold, counts = fleet_inference_step(det, frames, grids)
+    torch.cuda.synchronize()
+    say(f"[crossroi] fleet_inference_step wall_ms="
+        f"{(time.perf_counter() - t0) * 1e3:.3f} counts={dict(counts)}")
+    cache = PackedActivationCache()
+    outs, counts, stats = timed_step(torch, det, frames, grids, cache, 0.0,
+                                     "crossroi", 0, "cold")
+    check_kind("cold", counts, stats)
+    same = all(torch.equal(a, b) for a, b in zip(flat(outs), flat(cold)))
+    say(f"[crossroi 0] cold reuse step == fleet_inference_step bitwise: "
+        f"{same}")
+    assert same
+    nxt = with_patches(torch, frames, grids, rng, gen, 0.0)
+    outs, counts, stats = timed_step(torch, det, nxt, grids, cache, 0.0,
+                                     "crossroi", 1, "warm")
+    check_kind("warm", counts, stats)
+    same, fc = equals_recompute(torch, det, nxt, grids, outs)
+    say(f"[crossroi 1] threshold-0 reuse == cold recompute bitwise: {same} "
+        f"(recompute counts {fc})")
+    assert same
+    _, counts, stats = timed_step(torch, det, nxt, grids, cache, 0.0,
+                                  "crossroi", 2, "static")
+    check_kind("static", counts, stats)
+    return nxt
+
+
+def offer_all(former, t, frames, grids, cams):
+    """Each camera of ``cams`` offers its frame, 10 ms apart from ``t``;
+    returns the last release any offer triggered."""
+    rel = None
+    for i, c in enumerate(cams):
+        rel = former.offer(t + 0.01 * i, c, frames[c], grids[c]) or rel
+    return rel
+
+
+def same_heads(torch, rel, want, folded=None):
+    """A release's heads (and folded heads) bitwise equal to ``want``
+    ({cam: head}, {cam: [older heads]})."""
+    folded = folded or {}
+    return (sorted(rel.outputs) == sorted(want)
+            and all(torch.equal(rel.outputs[c], want[c]) for c in want)
+            and {c: len(v) for c, v in rel.folded_outputs.items()}
+            == {c: len(v) for c, v in folded.items()}
+            and all(torch.equal(a, b) for c in folded
+                    for a, b in zip(rel.folded_outputs[c], folded[c])))
+
+
+def crossroi_former(torch, det, grids, frames, rng, gen):
+    """``DeadlineGroupFormer`` on group 0's cameras: a full release, a
+    deadline release whose straggler rides the next release folded, and
+    reuse mode (packed references, B5) with a folded straggler in capture
+    order -- every head bitwise equal to the same launches made directly."""
+    from repro_torch.kernels import ops
+    from repro_torch.net.batcher import DeadlineGroupFormer
+    from repro_torch.serving.detector import PackedActivationCache
+    gg = grids[0]
+    cams = list(range(len(gg)))
+    seq = [frames[0]]
+    for _ in range(2):                    # every camera of the group moves
+        seq.append(with_patches(torch, {0: seq[-1]}, {0: gg}, rng, gen,
+                                0.0)[0])
+    f0, f1, f2 = seq
+
+    def direct(entries):
+        outs = det.fleet_forward([f for _, f in entries],
+                                 [gg[c] for c, _ in entries])
+        want, folded = {}, {}
+        for (c, _), o in zip(entries, outs):
+            if c in want:
+                folded.setdefault(c, []).append(want[c])
+            want[c] = o
+        return want, folded
+
+    former = DeadlineGroupFormer(det, cams, FORMER_DEADLINE_S)
+    with ops.count_kernels() as c1:
+        full = offer_all(former, 0.0, f0, gg, cams)
+    with ops.count_kernels() as c2:
+        assert offer_all(former, 1.0, f1, gg, cams[:-1]) is None
+        late = former.poll(1.0 + FORMER_DEADLINE_S + 0.1)
+    assert former.offer(1.7, cams[-1], f1[-1], gg[-1]) is None
+    with ops.count_kernels() as c3:
+        assert former.offer(2.0, cams[-1], f2[-1], gg[-1]) is None
+        fold = offer_all(former, 2.01, f2, gg, cams[:-1])
+    checks = {
+        "full": (full, c1, same_heads(torch, full, *direct(
+            [(c, f0[c]) for c in cams])) and not full.deadline_hit),
+        "deadline": (late, c2, same_heads(torch, late, *direct(
+            [(c, f1[c]) for c in cams[:-1]])) and late.deadline_hit),
+        "folded straggler": (fold, c3, same_heads(torch, fold, *direct(
+            [(c, f2[c]) for c in cams[:-1]]
+            + [(cams[-1], f1[-1]), (cams[-1], f2[-1])]))
+            and fold.straggler_cams == [cams[-1]]
+            and fold.folded_frames == 1 and former.reclaimed_launches == 1),
+    }
+
+    # reuse mode: the releases' waves replayed directly on a second cache
+    rf = DeadlineGroupFormer(det, cams, FORMER_DEADLINE_S,
+                             reuse_cache=PackedActivationCache("packed"),
+                             fold_gate="capture")
+    with ops.count_kernels() as c4:
+        r1 = offer_all(rf, 0.0, f0, gg, cams)
+    with ops.count_kernels() as c5:
+        assert rf.offer(1.0, cams[-1], f1[-1], gg[-1]) is None
+        assert rf.offer(1.01, cams[-1], f2[-1], gg[-1]) is None
+        r2 = offer_all(rf, 1.02, f1, gg, cams[:-1])
+    ref = PackedActivationCache("packed")
+    waves = [[h.clone() for h in det.fleet_forward_reuse(fs, gg, ref)[0]]
+             for fs in (f0, f1, f1[:-1] + [f2[-1]])]
+    checks["reuse"] = (r1, c4, same_heads(
+        torch, r1, dict(enumerate(waves[0]))))
+    checks["reuse, folded straggler"] = (r2, c5, same_heads(
+        torch, r2, {**dict(enumerate(waves[1][:-1])), cams[-1]:
+                    waves[2][-1]}, {cams[-1]: [waves[1][-1]]})
+        and rf.reuse_waves == 3)
+    for label, (rel, counts, ok) in checks.items():
+        say(f"[crossroi] former {label}: cams {rel.cams} stragglers "
+            f"{rel.straggler_cams} folded {rel.folded_frames} deadline_hit "
+            f"{rel.deadline_hit}; dispatches {dict(counts)}; heads == the "
+            f"same launches made directly, bitwise: {ok}")
+        assert ok, label
+    say(f"[crossroi] former reuse waves {rf.reuse_waves}: launched "
+        f"{rf.reuse_launched_tiles} of {rf.reuse_total_tiles} tiles")
+
+
+def crossroi_obs(torch, det, grids, frames, nxt):
+    """One warm step and one former release with obs off, then the same
+    inputs with obs on: the same kernel launches, the same number of
+    ``torch.cuda.synchronize`` calls, bitwise-equal outputs, and
+    ``kernel_counts()`` equal to the step's and the release's
+    ``count_kernels`` Counters together."""
+    import collections
+    from repro_torch import obs
+    from repro_torch.fleet.runtime import fleet_reuse_step
+    from repro_torch.kernels import _build, ops
+    from repro_torch.net.batcher import DeadlineGroupFormer
+    from repro_torch.serving.detector import PackedActivationCache
+    real_sync = torch.cuda.synchronize
+    n_sync = [0]
+
+    def counted_sync(*args, **kw):
+        n_sync[0] += 1
+        return real_sync(*args, **kw)
+
+    cams = list(range(len(grids[0])))
+    runs = {}
+    torch.cuda.synchronize = counted_sync
+    try:
+        for on in (False, True):
+            cache = PackedActivationCache()
+            fleet_reuse_step(det, frames, grids, cache)     # cold, obs off
+            real_sync()
+            obs.configure(enabled=on, reset=True)
+            n_sync[0] = 0
+            before = collections.Counter(_build.LAUNCHES)
+            with ops.count_kernels() as in_step:
+                outs, counts, _ = fleet_reuse_step(det, nxt, grids, cache)
+                heads = [h.clone() for h in flat(outs)]
+            with ops.count_kernels() as in_release:
+                rel = offer_all(DeadlineGroupFormer(det, cams,
+                                                    FORMER_DEADLINE_S),
+                                0.0, nxt[0], grids[0], cams)
+            real_sync()
+            launches = collections.Counter(_build.LAUNCHES) - before
+            mirror = obs.metrics.kernel_counts()
+            spans = obs.trace.span_count()
+            if on:
+                out = ROOT / "build" / "crossroi_trace.json"
+                out.parent.mkdir(parents=True, exist_ok=True)
+                doc = obs.export.chrome_trace(str(out))
+                names = collections.Counter(
+                    e["name"] for e in doc["traceEvents"] if e["ph"] == "X")
+            obs.configure(enabled=False, reset=True)
+            assert in_step == counts
+            runs[on] = (heads, [rel.outputs[c] for c in cams], launches,
+                        n_sync[0], dict(in_step + in_release), mirror, spans)
+    finally:
+        torch.cuda.synchronize = real_sync
+    (h0, r0, l0, s0, d0, m0, n0), (h1, r1, l1, s1, d1, m1, n1) = \
+        runs[False], runs[True]
+    same_bits = all(torch.equal(a, b) for a, b in zip(h0 + r0, h1 + r1))
+    launched = sum(l1.values()) > 0 or not nxt[0][0].is_cuda
+    ok = (same_bits and launched and l0 == l1 and s0 == s1 and d0 == d1
+          and m0 == {} and n0 == 0 and m1 == d1 and n1 > 0)
+    say(f"[crossroi] obs off/on, one warm step and one former release: "
+        f"launches {dict(l0)} / {dict(l1)}; torch.cuda.synchronize calls "
+        f"{s0} / {s1}; dispatches {d0} / {d1}; outputs bitwise equal "
+        f"{same_bits}; kernel_counts() with obs on {m1}; spans {n0} / {n1} "
+        f"({dict(names)}), Chrome trace written to build/"
+        f"crossroi_trace.json: {ok}")
+    assert ok
+
+
+def crossroi_path(torch, det, dev, fleet, off):
+    """Phase 3e on the card: the offline masks' tile grids, the fleet
+    steps, the deadline former and obs on/off."""
+    grids = crossroi_grids(fleet, off)
+    n_tiles = sum(int(g.sum()) for g in flat(grids))
+    shapes = sorted({g.shape for g in flat(grids)})
+    say(f"[crossroi] tile grids: the offline masks expanded to {TILE}-px "
+        f"tiles {shapes}: {n_tiles} active tiles (density "
+        f"{n_tiles / sum(g.size for g in flat(grids)):.4f})")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rng = np.random.default_rng(SEED + 3)
+    frames = {g.gid: [torch.randn((c.height, c.width, 3), generator=gen,
+                                  device=dev) for c in g.scene.cameras]
+              for g in fleet.groups}
+    nxt = crossroi_steps(torch, det, grids, frames, rng, gen)
+    crossroi_former(torch, det, grids, nxt, rng, gen)
+    crossroi_obs(torch, det, grids, frames, nxt)
+
+
+def crossroi_online(fleet, off):
+    """The online phase over frames 600-1200, analytic and with the
+    simulated transport: host numpy, no card."""
+    from repro_torch.core.pipeline import OnlineConfig
+    from repro_torch.fleet import run_fleet_online
+    t1 = CROSSROI_SECONDS * fleet.groups[0].scene.cfg.fps
+    for transport in ("analytic", "simulated"):
+        m = run_fleet_online(fleet, off.per_group,
+                             OnlineConfig(transport=transport),
+                             CROSSROI_PROFILE, t1)
+        if m.transport is not None:
+            tail = (f"p50 {m.transport.p50_s:.4f} s, p99 "
+                    f"{m.transport.p99_s:.4f} s over "
+                    f"{m.transport.latency_s.size} frames")
+        else:
+            tail = "p50/p99: one analytic latency per group"
+        say(f"[crossroi] run_fleet_online {transport} (host numbers, "
+            f"frames {CROSSROI_PROFILE}-{t1}): accuracy_mean "
+            f"{m.accuracy_mean:.4f} min {m.accuracy_min:.4f}, "
+            f"network_mbps_total {m.network_mbps_total:.3f}, latency_max_s "
+            f"{m.latency_max_s:.4f}, {tail}; host {m.wall_s:.3f} s")
+        assert 0.0 < m.accuracy_min <= m.accuracy_mean <= 1.0
+        assert np.isfinite(m.network_mbps_total) and \
+            m.network_mbps_total > 0
+        assert np.isfinite(m.latency_max_s) and m.latency_max_s > 0
+
+
 def run_path(torch, fn, *args):
     """Drive one path with every count set to 0 just before it; returns
     (its result, kernel launches, dispatches, peak GiB)."""
@@ -1864,6 +2187,18 @@ def main() -> int:
         torch, layer_paths, torch, det, frames, grids)
     say(f"[main] per-layer and single-camera paths: dispatches {disp}; "
         f"launches {launches['layers']}; peak memory {peak:.2f} GiB")
+    fleet, off = crossroi_offline()
+    _, launches["crossroi"], disp, peak = run_path(
+        torch, crossroi_path, torch, det, dev, fleet, off)
+    say(f"[main] CrossRoI's offline masks on the card (fleet steps, the "
+        f"deadline former, obs off/on): dispatches {disp}; launches "
+        f"{launches['crossroi']}; peak memory {peak:.2f} GiB")
+    for kname in ("tile_delta_gate_canvas", "tile_delta_gate",
+                  "roi_conv_entry", "roi_conv_stack", "sbnet_scatter_fleet"):
+        assert launches["crossroi"].get(kname, 0) > 0, kname
+    crossroi_online(fleet, off)
+    del fleet, off
+    torch.cuda.empty_cache()
     del det, frames, grids, rng, gen
     torch.cuda.empty_cache()
     from repro_torch.configs import get_config

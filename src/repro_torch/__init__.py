@@ -1,13 +1,23 @@
-"""CrossRoI's online fleet step and its RoI-packed transformer serving in
-PyTorch, with hand-written CUDA kernels for the NVIDIA H100 (``sm_90a``).
+"""CrossRoI in PyTorch, with hand-written CUDA kernels for the NVIDIA H100
+(``sm_90a``): the offline phase, the online fleet step and its RoI-packed
+transformer serving.
 
-The package runs the delta-gated fleet step: the cold super-launch
+The offline phase (``core``: the scene, noisy ReID, the tandem filters,
+the association table, the set cover, tile grouping, the codec model and
+the online metrics; ``fleet.topology`` and ``fleet.runtime.
+run_fleet_offline``/``run_fleet_online``) and the streaming runtime
+(``net.links``, ``net.batcher``: uplinks, ``simulate_transport``, the
+deadline group former) are host numpy, copies of the JAX package's;
+``obs`` records spans and metrics on every path (off by default).  The
+package runs the delta-gated fleet step: the cold super-launch
 (``fleet.runtime.fleet_inference_step``) and the warm, changed-tiles-only
 step (``fleet.runtime.fleet_reuse_step``), with the gate's references on a
 canvas or in packed per-tile windows; and the edge rate-control loop
-around it (``net``: static-tile fractions, the rate controller, the
-per-camera gate-threshold schedule); and the detector's single-camera path
-(``RoIDetector.roi_forward``, ``forward``) and per-layer chains
+around it (``net.encoder``: static-tile fractions, the rate controller,
+the per-camera gate-threshold schedule); the deadline group former's
+releases (``net.batcher.DeadlineGroupFormer``); and the detector's
+single-camera path (``RoIDetector.roi_forward``, ``forward``) and
+per-layer chains
 (``roi_forward_layers``, ``fleet_forward_layers``); and the RoI-packed
 serving engine (``serving.engine.ServingEngine``: packed prefill of the
 kept patch tokens, batched greedy decode over a persistent cache ring)

@@ -1,1 +1,22 @@
-"""The fleet runtime: the cold and the delta-gated fleet step."""
+"""Fleet layer: many intersections, one engine.
+
+Sits between the offline solver (``repro_torch.core``) and the serving
+stack (``repro_torch.serving``): ``topology`` composes the
+single-intersection scene into K independent camera groups with per-group
+traffic profiles; ``runtime`` runs the offline phase per group, the fleet
+online phase as one vectorized evaluation, and the kernel-level fleet
+steps (cold and delta-gated) as one super-launch chain for every group.
+"""
+from repro_torch.fleet.topology import (FleetConfig, FleetGroup, FleetScene,
+                                        GroupSpec, TRAFFIC_PROFILES,
+                                        build_fleet, cross_group_leakage)
+from repro_torch.fleet.runtime import (FleetOfflineResult, FleetOnlineMetrics,
+                                       fleet_inference_step, fleet_reuse_step,
+                                       run_fleet_offline, run_fleet_online)
+
+__all__ = [
+    "FleetConfig", "FleetGroup", "FleetScene", "GroupSpec",
+    "TRAFFIC_PROFILES", "build_fleet", "cross_group_leakage",
+    "FleetOfflineResult", "FleetOnlineMetrics", "fleet_inference_step",
+    "fleet_reuse_step", "run_fleet_offline", "run_fleet_online",
+]

@@ -34,16 +34,8 @@ from repro_torch.kernels.tile_delta import (COEF_BITS, GATE_BODY_BYTES,
                                             GATE_BODY_SABS, GATE_WIN_BYTES,
                                             GATE_WIN_EXACT, RUN_BITS,
                                             STATS_WIDTH)
-
-# the canonical dispatch-counter names, the same set as the JAX package's
-KERNEL_NAMES = frozenset({
-    "sbnet_gather", "sbnet_scatter", "sbnet_scatter_fleet",
-    "sbnet_scatter_changed",
-    "roi_conv", "roi_conv_packed", "roi_conv_fleet",
-    "roi_conv_entry", "roi_conv_stack",
-    "tile_delta", "tile_delta_gate", "tile_delta_halo",
-    "roi_attention",
-})
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.metrics import KERNEL_NAMES
 
 # kernel-dispatch counter: wrapper name -> number of dispatches issued from
 # Python, process-lifetime.  ``count_kernels()`` regions live on a
@@ -59,16 +51,19 @@ _COUNT_STACK: contextvars.ContextVar = contextvars.ContextVar(
 def record_dispatch(name: str, n: int = 1) -> None:
     """Count ``n`` dispatches under ``name``: bumps ``KERNEL_COUNTS`` and
     every ``count_kernels()`` region open in THIS context.  ``name`` must
-    come from ``KERNEL_NAMES`` -- a misspelt name raises instead of
-    counting zero forever."""
+    come from ``obs.metrics.KERNEL_NAMES`` -- a misspelt name raises
+    instead of counting zero forever.  With observability on, the same
+    bump lands on the ``kernel_dispatches`` counter family (label
+    ``kernel=name``)."""
     if name not in KERNEL_NAMES:
         raise ValueError(
             f"unknown kernel counter {name!r}: dispatch names must come "
-            f"from KERNEL_NAMES")
+            f"from obs.metrics.KERNEL_NAMES")
     with _COUNT_LOCK:
         KERNEL_COUNTS[name] += n
         for region in _COUNT_STACK.get():
             region[name] += n
+    obs_metrics.KERNEL_DISPATCHES.inc(n, kernel=name)
 
 
 @contextlib.contextmanager

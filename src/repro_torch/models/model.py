@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import forward as F
 from repro_torch.models import layers as L
@@ -38,7 +39,8 @@ def _front(params, cfg: ModelConfig, batch) -> torch.Tensor:
 
 def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None):
     """Zeroed KV caches for a serving session: {"blocks": (k, v)}, each
-    (L, B, max_seq, KH, Dh) in ``cfg.kv_cache_dtype``."""
+    (L, B, max_seq, KH, Dh) in ``cfg.kv_cache_dtype``, on ``device`` --
+    the CUDA card unless the caller passes one (``resolve_device``)."""
     _families(cfg)
     if cfg.global_every > 1 or cfg.window_size:
         raise NotImplementedError(
@@ -46,6 +48,7 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None):
             "danube3/gemma3 slice (ROADMAP.md)")
     shape = (cfg.num_layers, B, max_seq, cfg.num_kv_heads, cfg.head_dim)
     dt = getattr(torch, cfg.kv_cache_dtype)
+    device = resolve_device(device)
     return {"blocks": (torch.zeros(shape, dtype=dt, device=device),
                        torch.zeros(shape, dtype=dt, device=device))}
 

@@ -37,12 +37,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.pipeline import IO_ROUND_TRIP_OVERHEAD
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-
-# the gather/scatter byte tax of one packed round trip, as a fraction of a
-# dense layer (the system cost model's constant)
-IO_ROUND_TRIP_OVERHEAD = 0.30
 
 
 @dataclass

@@ -14,9 +14,11 @@ ring, and each greedy step is one batched ``decode_step`` over the group,
 with per-request positions as a (G,) vector -- so RoI-packed (start =
 n_kept) and dense (start = S) requests share a batch.
 
-Differences from the JAX engine: ring slots are views of the ring that
-prefill writes in place (the JAX engine donates the ring to a jitted
-update); the obs spans and metrics come with the obs slice.  The prefill
+The spans (``serve``, ``serve_flush``, ``serve_deadline``) and the
+``SERVE_EVENTS`` and ``BACKLOG_DEPTH`` metrics are recorded in ``obs`` at
+the JAX engine's points.  Differences from the JAX engine: ring slots are
+views of the ring that prefill writes in place (the JAX engine donates the
+ring to a jitted update).  The prefill
 runs the layers' ``blockwise_attention``, as the JAX engine does, not
 the B12 kernel (``kernels.ops.roi_attention``).
 """
@@ -31,6 +33,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import model as M
+from repro_torch.obs import metrics as obs_metrics, trace as obs_trace
 
 
 @dataclass
@@ -202,12 +205,14 @@ class ServingEngine:
         batched step each.  Returns {rid: generated tokens}."""
         results: Dict[int, np.ndarray] = {}
         group: List[Request] = []
-        for r in requests:
-            group.append(r)
-            if len(group) >= self.scfg.max_batch:
-                self._flush_group(group, greedy_steps, results)
-                group = []
-        self._flush_group(group, greedy_steps, results)
+        with obs_trace.span("serve", requests=len(requests)):
+            obs_metrics.SERVE_EVENTS.inc(len(requests), event="request")
+            for r in requests:
+                group.append(r)
+                if len(group) >= self.scfg.max_batch:
+                    self._flush_group(group, greedy_steps, results)
+                    group = []
+            self._flush_group(group, greedy_steps, results)
         return results
 
     def _flush_group(self, group: List[Request], greedy_steps: int,
@@ -228,22 +233,24 @@ class ServingEngine:
                 need.append(_round_up(len(r.tokens), pack_block) + gsteps)
             else:
                 need.append(len(r.tokens) + gsteps)
-        ring = self._ensure_ring(len(group), max(need))
-        rk, rv = ring["blocks"]
-        firsts, starts = [], []
-        for gi, r in enumerate(group):   # ragged per-request packing
-            slot = {"blocks": (rk[:, gi:gi + 1], rv[:, gi:gi + 1])}
-            if r.keep is not None and self.scfg.roi_sparsity:
-                res = self.roi_prefill(r.tokens, r.keep, block=pack_block,
-                                       caches=slot)
-                firsts.append(torch.argmax(res.logits[:, -1], dim=-1))
-                starts.append(res.n_kept)
-            else:
-                batch = {"tokens": np.asarray(r.tokens)[None]}
-                logits, _ = self.prefill(batch, caches=slot)
-                firsts.append(torch.argmax(logits[:, -1], dim=-1))
-                starts.append(len(r.tokens))
-        toks, _ = self._decode_stacked(ring, firsts, starts, gsteps)
+        with obs_trace.span("serve_flush", batch=len(group),
+                            decode_steps=gsteps):
+            ring = self._ensure_ring(len(group), max(need))
+            rk, rv = ring["blocks"]
+            firsts, starts = [], []
+            for gi, r in enumerate(group):   # ragged per-request packing
+                slot = {"blocks": (rk[:, gi:gi + 1], rv[:, gi:gi + 1])}
+                if r.keep is not None and self.scfg.roi_sparsity:
+                    res = self.roi_prefill(r.tokens, r.keep,
+                                           block=pack_block, caches=slot)
+                    firsts.append(torch.argmax(res.logits[:, -1], dim=-1))
+                    starts.append(res.n_kept)
+                else:
+                    batch = {"tokens": np.asarray(r.tokens)[None]}
+                    logits, _ = self.prefill(batch, caches=slot)
+                    firsts.append(torch.argmax(logits[:, -1], dim=-1))
+                    starts.append(len(r.tokens))
+            toks, _ = self._decode_stacked(ring, firsts, starts, gsteps)
         for gi, (r, ns) in enumerate(zip(group, steps)):
             results[r.rid] = toks[gi, :ns]
 
@@ -271,6 +278,10 @@ class ServingEngine:
             members = pending.pop(gid, [])
             if not members:
                 return
+            obs_metrics.BACKLOG_DEPTH.observe(len(members))
+            obs_metrics.SERVE_EVENTS.inc(
+                1, event="deadline_flush" if by_deadline
+                else "complete_flush")
             self._flush_group(members, greedy_steps, results)
             for r in members:
                 report.release_s[r.rid] = now
@@ -282,22 +293,26 @@ class ServingEngine:
                 report.complete_flushes += 1
                 late_quota[gid] = 0
 
-        for r in sorted(requests, key=lambda r: r.arrival_s):
-            now = r.arrival_s
-            # deadlines that expired while the stream was quiet
+        with obs_trace.span("serve_deadline", requests=len(requests)):
+            obs_metrics.SERVE_EVENTS.inc(len(requests), event="request")
+            for r in sorted(requests, key=lambda r: r.arrival_s):
+                now = r.arrival_s
+                # deadlines that expired while the stream was quiet
+                for gid in list(pending):
+                    oldest = min(m.arrival_s for m in pending[gid])
+                    if now - oldest >= deadline_s:
+                        flush(gid, oldest + deadline_s, by_deadline=True)
+                gid = r.group if r.group is not None else -1
+                if late_quota.get(gid, 0) > 0:
+                    report.straggler_requests += 1
+                    obs_metrics.SERVE_EVENTS.inc(1,
+                                                 event="straggler_request")
+                    late_quota[gid] -= 1
+                pending.setdefault(gid, []).append(r)
+                if len(pending[gid]) >= group_sizes.get(
+                        gid, self.scfg.max_batch):
+                    flush(gid, now, by_deadline=False)
             for gid in list(pending):
                 oldest = min(m.arrival_s for m in pending[gid])
-                if now - oldest >= deadline_s:
-                    flush(gid, oldest + deadline_s, by_deadline=True)
-            gid = r.group if r.group is not None else -1
-            if late_quota.get(gid, 0) > 0:
-                report.straggler_requests += 1
-                late_quota[gid] -= 1
-            pending.setdefault(gid, []).append(r)
-            if len(pending[gid]) >= group_sizes.get(gid,
-                                                    self.scfg.max_batch):
-                flush(gid, now, by_deadline=False)
-        for gid in list(pending):
-            oldest = min(m.arrival_s for m in pending[gid])
-            flush(gid, oldest + deadline_s, by_deadline=True)
+                flush(gid, oldest + deadline_s, by_deadline=True)
         return results, report

@@ -260,3 +260,16 @@ def test_no_hidden_device(monkeypatch):
         params_from_numpy({"embed": np.zeros((2, 2), np.float32)})
     cache = TM.init_cache(cfg, 1, 8, "cpu")
     assert cache["blocks"][0].device.type == "cpu"
+
+
+def test_init_cache_resolves_its_device(monkeypatch):
+    """``init_cache`` without a device runs on the card: with none it
+    raises ``resolve_device``'s error instead of allocating on the CPU."""
+    cfg = get_config(ARCH, smoke=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TM.init_cache(cfg, 1, 8)
+    k, v = TM.init_cache(cfg, 2, 8, device="cpu")["blocks"]
+    assert k.device.type == v.device.type == "cpu"
+    assert tuple(k.shape) == (cfg.num_layers, 2, 8, cfg.num_kv_heads,
+                              cfg.head_dim)

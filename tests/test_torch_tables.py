@@ -129,7 +129,9 @@ def _port_modules():
 def test_importing_the_port_loads_no_jax():
     mods = _port_modules()
     assert {"repro_torch.kernels.ops", "repro_torch.net",
-            "repro_torch.net.encoder"} <= set(mods)
+            "repro_torch.net.encoder", "repro_torch.obs",
+            "repro_torch.core.pipeline", "repro_torch.net.batcher",
+            "repro_torch.fleet.topology"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'"
