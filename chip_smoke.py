@@ -108,17 +108,21 @@ is non-zero:
    ``run_fleet_offline`` on the host (600 profile frames, the exact set
    cover; per group |M|, density, optimality and host seconds); each
    camera's 64-px mask expanded x4 to 16-px tiles; on those masks and
-   seeded frames, ``fleet_inference_step`` and a canvas cache's cold (==
-   the inference step bitwise), warm (5 of 20 cameras patched, threshold
-   0, == a cold recompute bitwise) and all-static (the gate alone) steps;
-   ``DeadlineGroupFormer`` on group 0's 5 cameras -- a full release, a
-   deadline release whose straggler rides the next release folded, and
-   reuse mode on a packed-reference cache in capture order with a folded
-   straggler -- every head bitwise equal to the same launches made
-   directly (the reuse waves copied); one warm step and one former release
+   seeded frames, ``fleet_inference_step`` and a canvas and a packed
+   cache in lockstep through cold (== the inference step bitwise, within
+   1e-4 of the plain composition), warm (5 of 20 cameras patched,
+   threshold 0: gate stats == the plain gate bitwise, maps within 1e-4 of
+   the plain composition and == a cold recompute bitwise) and all-static
+   (the gate alone) steps; ``DeadlineGroupFormer`` on group 0's 5 cameras
+   -- a full release, a deadline release whose straggler rides the next
+   release folded, and reuse mode on a packed-reference cache in capture
+   order with a folded straggler -- every released and folded head
+   bitwise equal to a cold ``fleet_forward`` of its frames, those within
+   1e-4 of the plain composition; one warm step and one former release
    with obs off and on: equal kernel launches, equal
-   ``torch.cuda.synchronize`` calls, equal bits, ``kernel_counts()`` equal
-   to the dispatch counts, the Chrome trace written to ``build/``; then
+   ``torch.cuda.synchronize`` calls and implicit synchronizations (torch's
+   sync debug mode), equal bits, ``kernel_counts()`` equal to the
+   dispatch counts, the Chrome trace written to ``build/``; then
    ``run_fleet_online`` over frames 600-1200, analytic and simulated
    (host numbers);
 3f. the serving path at full width, after the fleet's tensors are freed:
@@ -1093,6 +1097,14 @@ def plain_composition(torch, det, frames, grids):
     return ref.sbnet_scatter_fleet(_head_rows(packed, det.head), idx, canvas)
 
 
+def plain_err(torch, det, frames, grids, outs):
+    """The largest |difference| of the head maps ``outs`` from the plain
+    composition on the same frames and grids."""
+    want = plain_composition(torch, det, frames, grids)
+    return max(float((h - want[i, :h.shape[0], :h.shape[1]]).abs().max())
+               for i, h in enumerate(flat(outs)))
+
+
 # (label, threshold, patch amplitude or None for no new frame, interior)
 PLAN = ([("cold", 0.0, None, False)] + [("warm", 0.0, 0.0, False)] * 6
         + [("static", 0.0, None, False)]
@@ -1207,14 +1219,10 @@ def drive(torch, det, rng, gen, frames, grids, caches):
         kinds.append(step_kinds["canvas"])
         outs = res["canvas"][0]
         if label == "cold":
-            want = plain_composition(torch, det, frames, grids)
-            err = max(float((h - want[i, :h.shape[0], :h.shape[1]])
-                            .abs().max())
-                      for i, h in enumerate(flat(outs)))
+            err = plain_err(torch, det, frames, grids, outs)
             say(f"[step {step}] cold maps vs plain composition: "
                 f"max_abs_err={err}")
             assert err <= CONV_TOL, err
-            del want
         elif label == "warm":
             same, fc = equals_recompute(torch, det, frames, grids, outs)
             say(f"[step {step}] threshold-0 reuse == cold recompute "
@@ -1853,9 +1861,14 @@ def crossroi_grids(fleet, off):
 
 def crossroi_steps(torch, det, grids, frames, rng, gen):
     """The fleet steps on the offline masks: the cold super-launch, then a
-    canvas-reference cache's cold, warm (5 of 20 cameras patched) and
-    all-static steps.  Returns the warm step's frames."""
+    canvas-reference and a packed-reference cache in lockstep through cold,
+    warm (5 of 20 cameras patched) and all-static steps.  The cold and
+    warm maps are held against the plain composition, the warm step's gate
+    stats (B1's, and B5's through the lockstep) against the plain gate,
+    and the warm maps bitwise against a cold recompute.  Returns the warm
+    step's frames."""
     from repro_torch.fleet.runtime import fleet_inference_step
+    from repro_torch.kernels import ref
     from repro_torch.serving.detector import PackedActivationCache
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1863,25 +1876,38 @@ def crossroi_steps(torch, det, grids, frames, rng, gen):
     torch.cuda.synchronize()
     say(f"[crossroi] fleet_inference_step wall_ms="
         f"{(time.perf_counter() - t0) * 1e3:.3f} counts={dict(counts)}")
-    cache = PackedActivationCache()
-    outs, counts, stats = timed_step(torch, det, frames, grids, cache, 0.0,
-                                     "crossroi", 0, "cold")
-    check_kind("cold", counts, stats)
+    caches = {"canvas": PackedActivationCache(),
+              "packed": PackedActivationCache(ref_mode="packed")}
+
+    def step(fs, n, label):
+        res = step_both(torch, det, fs, grids, caches, 0.0, "crossroi", n,
+                        label)
+        for _, counts, stats in res.values():
+            check_kind(label, counts, stats)
+        return res["canvas"][0], res["canvas"][2]
+
+    outs, _ = step(frames, 0, "cold")
     same = all(torch.equal(a, b) for a, b in zip(flat(outs), flat(cold)))
+    err = plain_err(torch, det, frames, grids, outs)
     say(f"[crossroi 0] cold reuse step == fleet_inference_step bitwise: "
-        f"{same}")
-    assert same
+        f"{same}; maps vs plain composition: max_abs_err={err}")
+    assert same and err <= CONV_TOL, err
     nxt = with_patches(torch, frames, grids, rng, gen, 0.0)
-    outs, counts, stats = timed_step(torch, det, nxt, grids, cache, 0.0,
-                                     "crossroi", 1, "warm")
-    check_kind("warm", counts, stats)
+    outs, stats = step(nxt, 1, "warm")
+    cur_p, prev_p = (torch.nn.functional.pad(
+        det._stack_frames(flat(f), flat(grids))[0], (0, 0, 1, 1, 1, 1))
+        for f in (nxt, frames))
+    want = ref.tile_delta_gate_canvas(
+        cur_p, prev_p, det._fleet_tables(flat(grids))[2], TILE, TILE)
+    gate_same = np.array_equal(stats.gate_stats, want.cpu().numpy())
+    del cur_p, prev_p, want
+    err = plain_err(torch, det, nxt, grids, outs)
     same, fc = equals_recompute(torch, det, nxt, grids, outs)
-    say(f"[crossroi 1] threshold-0 reuse == cold recompute bitwise: {same} "
-        f"(recompute counts {fc})")
-    assert same
-    _, counts, stats = timed_step(torch, det, nxt, grids, cache, 0.0,
-                                  "crossroi", 2, "static")
-    check_kind("static", counts, stats)
+    say(f"[crossroi 1] gate stats == the plain gate bitwise: {gate_same}; "
+        f"maps vs plain composition: max_abs_err={err}; threshold-0 reuse "
+        f"== cold recompute bitwise: {same} (recompute counts {fc})")
+    assert gate_same and same and err <= CONV_TOL, err
+    step(nxt, 2, "static")
     return nxt
 
 
@@ -1910,7 +1936,9 @@ def crossroi_former(torch, det, grids, frames, rng, gen):
     """``DeadlineGroupFormer`` on group 0's cameras: a full release, a
     deadline release whose straggler rides the next release folded, and
     reuse mode (packed references, B5) with a folded straggler in capture
-    order -- every head bitwise equal to the same launches made directly."""
+    order.  Every released and folded head is held bitwise against a cold
+    ``fleet_forward`` of the frames it came from (threshold 0 makes reuse
+    exact), and those against the plain composition."""
     from repro_torch.kernels import ops
     from repro_torch.net.batcher import DeadlineGroupFormer
     from repro_torch.serving.detector import PackedActivationCache
@@ -1921,63 +1949,62 @@ def crossroi_former(torch, det, grids, frames, rng, gen):
         seq.append(with_patches(torch, {0: seq[-1]}, {0: gg}, rng, gen,
                                 0.0)[0])
     f0, f1, f2 = seq
+    cold = [det.fleet_forward(fs, gg) for fs in seq]
+    err = max(plain_err(torch, det, {0: fs}, {0: gg}, {0: hs})
+              for fs, hs in zip(seq, cold))
+    say(f"[crossroi] former's frames: cold fleet_forward vs plain "
+        f"composition: max_abs_err={err}")
+    assert err <= CONV_TOL, err
 
-    def direct(entries):
-        outs = det.fleet_forward([f for _, f in entries],
-                                 [gg[c] for c, _ in entries])
-        want, folded = {}, {}
-        for (c, _), o in zip(entries, outs):
-            if c in want:
-                folded.setdefault(c, []).append(want[c])
-            want[c] = o
-        return want, folded
+    def want(heads, folded=None):
+        """{cam: frame set} (and {cam: [older frame sets]}) as the cold
+        heads those frames give."""
+        return ({c: cold[k][c] for c, k in heads.items()},
+                {c: [cold[k][c] for k in ks]
+                 for c, ks in (folded or {}).items()})
 
+    last = cams[-1]
     former = DeadlineGroupFormer(det, cams, FORMER_DEADLINE_S)
     with ops.count_kernels() as c1:
         full = offer_all(former, 0.0, f0, gg, cams)
     with ops.count_kernels() as c2:
         assert offer_all(former, 1.0, f1, gg, cams[:-1]) is None
         late = former.poll(1.0 + FORMER_DEADLINE_S + 0.1)
-    assert former.offer(1.7, cams[-1], f1[-1], gg[-1]) is None
+    assert former.offer(1.7, last, f1[-1], gg[-1]) is None
     with ops.count_kernels() as c3:
-        assert former.offer(2.0, cams[-1], f2[-1], gg[-1]) is None
+        assert former.offer(2.0, last, f2[-1], gg[-1]) is None
         fold = offer_all(former, 2.01, f2, gg, cams[:-1])
     checks = {
-        "full": (full, c1, same_heads(torch, full, *direct(
-            [(c, f0[c]) for c in cams])) and not full.deadline_hit),
-        "deadline": (late, c2, same_heads(torch, late, *direct(
-            [(c, f1[c]) for c in cams[:-1]])) and late.deadline_hit),
-        "folded straggler": (fold, c3, same_heads(torch, fold, *direct(
-            [(c, f2[c]) for c in cams[:-1]]
-            + [(cams[-1], f1[-1]), (cams[-1], f2[-1])]))
-            and fold.straggler_cams == [cams[-1]]
+        "full": (full, c1, same_heads(torch, full, *want(
+            dict.fromkeys(cams, 0))) and not full.deadline_hit),
+        "deadline": (late, c2, same_heads(torch, late, *want(
+            dict.fromkeys(cams[:-1], 1))) and late.deadline_hit),
+        "folded straggler": (fold, c3, same_heads(torch, fold, *want(
+            dict.fromkeys(cams, 2), {last: [1]}))
+            and fold.straggler_cams == [last]
             and fold.folded_frames == 1 and former.reclaimed_launches == 1),
     }
-
-    # reuse mode: the releases' waves replayed directly on a second cache
     rf = DeadlineGroupFormer(det, cams, FORMER_DEADLINE_S,
                              reuse_cache=PackedActivationCache("packed"),
                              fold_gate="capture")
     with ops.count_kernels() as c4:
         r1 = offer_all(rf, 0.0, f0, gg, cams)
     with ops.count_kernels() as c5:
-        assert rf.offer(1.0, cams[-1], f1[-1], gg[-1]) is None
-        assert rf.offer(1.01, cams[-1], f2[-1], gg[-1]) is None
+        assert rf.offer(1.0, last, f1[-1], gg[-1]) is None
+        assert rf.offer(1.01, last, f2[-1], gg[-1]) is None
         r2 = offer_all(rf, 1.02, f1, gg, cams[:-1])
-    ref = PackedActivationCache("packed")
-    waves = [[h.clone() for h in det.fleet_forward_reuse(fs, gg, ref)[0]]
-             for fs in (f0, f1, f1[:-1] + [f2[-1]])]
-    checks["reuse"] = (r1, c4, same_heads(
-        torch, r1, dict(enumerate(waves[0]))))
+    checks["reuse"] = (r1, c4, same_heads(torch, r1, *want(
+        dict.fromkeys(cams, 0))))
     checks["reuse, folded straggler"] = (r2, c5, same_heads(
-        torch, r2, {**dict(enumerate(waves[1][:-1])), cams[-1]:
-                    waves[2][-1]}, {cams[-1]: [waves[1][-1]]})
+        torch, r2, *want({**dict.fromkeys(cams[:-1], 1), last: 2},
+                         {last: [1]}))
+        and r2.straggler_cams == [] and r2.folded_frames == 1
         and rf.reuse_waves == 3)
     for label, (rel, counts, ok) in checks.items():
         say(f"[crossroi] former {label}: cams {rel.cams} stragglers "
             f"{rel.straggler_cams} folded {rel.folded_frames} deadline_hit "
-            f"{rel.deadline_hit}; dispatches {dict(counts)}; heads == the "
-            f"same launches made directly, bitwise: {ok}")
+            f"{rel.deadline_hit}; dispatches {dict(counts)}; heads == a cold "
+            f"fleet_forward of their frames, bitwise: {ok}")
         assert ok, label
     say(f"[crossroi] former reuse waves {rf.reuse_waves}: launched "
         f"{rf.reuse_launched_tiles} of {rf.reuse_total_tiles} tiles")
@@ -1986,10 +2013,14 @@ def crossroi_former(torch, det, grids, frames, rng, gen):
 def crossroi_obs(torch, det, grids, frames, nxt):
     """One warm step and one former release with obs off, then the same
     inputs with obs on: the same kernel launches, the same number of
-    ``torch.cuda.synchronize`` calls, bitwise-equal outputs, and
-    ``kernel_counts()`` equal to the step's and the release's
-    ``count_kernels`` Counters together."""
+    ``torch.cuda.synchronize`` calls and of implicit synchronizations (a
+    copy to the host, ``.item()``: counted by torch's sync debug mode),
+    bitwise-equal outputs, and ``kernel_counts()`` equal to the step's and
+    the release's ``count_kernels`` Counters together.  A first pass with
+    obs off, not compared, takes the one-time synchronizations (on the
+    H100 one more, inside torch, than in later passes)."""
     import collections
+    import warnings
     from repro_torch import obs
     from repro_torch.fleet.runtime import fleet_reuse_step
     from repro_torch.kernels import _build, ops
@@ -2006,20 +2037,30 @@ def crossroi_obs(torch, det, grids, frames, nxt):
     runs = {}
     torch.cuda.synchronize = counted_sync
     try:
-        for on in (False, True):
+        for label, on in (("first", False), ("off", False), ("on", True)):
             cache = PackedActivationCache()
             fleet_reuse_step(det, frames, grids, cache)     # cold, obs off
             real_sync()
             obs.configure(enabled=on, reset=True)
             n_sync[0] = 0
             before = collections.Counter(_build.LAUNCHES)
-            with ops.count_kernels() as in_step:
-                outs, counts, _ = fleet_reuse_step(det, nxt, grids, cache)
-                heads = [h.clone() for h in flat(outs)]
-            with ops.count_kernels() as in_release:
-                rel = offer_all(DeadlineGroupFormer(det, cams,
-                                                    FORMER_DEADLINE_S),
-                                0.0, nxt[0], grids[0], cams)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    with ops.count_kernels() as in_step:
+                        outs, counts, _ = fleet_reuse_step(det, nxt, grids,
+                                                           cache)
+                        heads = [h.clone() for h in flat(outs)]
+                    with ops.count_kernels() as in_release:
+                        rel = offer_all(DeadlineGroupFormer(
+                            det, cams, FORMER_DEADLINE_S), 0.0, nxt[0],
+                            grids[0], cams)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            implicit = collections.Counter(
+                f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                if "synchroniz" in str(w.message))
             real_sync()
             launches = collections.Counter(_build.LAUNCHES) - before
             mirror = obs.metrics.kernel_counts()
@@ -2032,19 +2073,26 @@ def crossroi_obs(torch, det, grids, frames, nxt):
                     e["name"] for e in doc["traceEvents"] if e["ph"] == "X")
             obs.configure(enabled=False, reset=True)
             assert in_step == counts
-            runs[on] = (heads, [rel.outputs[c] for c in cams], launches,
-                        n_sync[0], dict(in_step + in_release), mirror, spans)
+            runs[label] = (heads, [rel.outputs[c] for c in cams], launches,
+                        (n_sync[0], implicit), dict(in_step + in_release),
+                        mirror, spans)
     finally:
         torch.cuda.synchronize = real_sync
     (h0, r0, l0, s0, d0, m0, n0), (h1, r1, l1, s1, d1, m1, n1) = \
-        runs[False], runs[True]
+        runs["off"], runs["on"]
     same_bits = all(torch.equal(a, b) for a, b in zip(h0 + r0, h1 + r1))
     launched = sum(l1.values()) > 0 or not nxt[0][0].is_cuda
-    ok = (same_bits and launched and l0 == l1 and s0 == s1 and d0 == d1
-          and m0 == {} and n0 == 0 and m1 == d1 and n1 > 0)
+    # the warm step's gate copies its stats to the host: the sync debug
+    # mode must see at least that one
+    ok = (same_bits and launched and l0 == l1 and s0 == s1
+          and sum(s0[1].values()) > 0
+          and d0 == d1 and m0 == {} and n0 == 0 and m1 == d1 and n1 > 0)
     say(f"[crossroi] obs off/on, one warm step and one former release: "
         f"launches {dict(l0)} / {dict(l1)}; torch.cuda.synchronize calls "
-        f"{s0} / {s1}; dispatches {d0} / {d1}; outputs bitwise equal "
+        f"{s0[0]} / {s1[0]}, implicit synchronizations "
+        f"{sum(s0[1].values())} / {sum(s1[1].values())} at {dict(s1[1])} "
+        f"(the first pass {dict(runs['first'][3][1])}); "
+        f"dispatches {d0} / {d1}; outputs bitwise equal "
         f"{same_bits}; kernel_counts() with obs on {m1}; spans {n0} / {n1} "
         f"({dict(names)}), Chrome trace written to build/"
         f"crossroi_trace.json: {ok}")
