@@ -122,9 +122,29 @@ is non-zero:
    with obs off and on: equal kernel launches, equal
    ``torch.cuda.synchronize`` calls and implicit synchronizations (torch's
    sync debug mode), equal bits, ``kernel_counts()`` equal to the
-   dispatch counts, the Chrome trace written to ``build/``; then
-   ``run_fleet_online`` over frames 600-1200, analytic and simulated
-   (host numbers);
+   dispatch counts, the Chrome trace written to ``build/``; the same
+   step and release off and on under the profiler, with equal
+   synchronize and memcpy records (a launcher's own runtime calls
+   included); then ``run_fleet_online`` over frames 600-1200, analytic
+   and simulated (host numbers);
+3g. CrossRoI's harnesses on 3e's masks: a 6-step ``make_frame_trace``
+   (5 of 20 cameras move a tile a step) moved to the card; ``drive_fleet``
+   against an inline ``fleet_reuse_step`` loop (equal dispatch counters
+   and profiler synchronize/memcpy records), its kept maps bitwise equal
+   to a cold ``superlaunch_forward`` of each step's frames, the last
+   within 1e-4 of the plain composition, its step host walls beside the
+   drive's wall bounded by one synchronize; ``drive_chaos`` with no
+   schedule == ``drive_fleet`` (maps bitwise, counts equal), then a
+   scripted freeze, noise and blackout with a liveness monitor, the
+   faulted step's gate stats bitwise equal to the plain gate on the
+   injected frames; ``run_adaptive_online`` on group 0 (frames 600-800,
+   coverage target 0.99) with the activation cache as mask listener: one
+   invalidation per re-solve, and the next step, cold on the re-solved
+   grids, == a cold recompute bitwise and within 1e-4 of the plain
+   composition, with its first-step wall; ``run_point`` at one sweep
+   point (dispatches == the drive's, its SLO panel); the sentinel's
+   self-test; and in 3f, on its engine, ``drive_serve`` (6 requests at
+   4 Hz, one 32-patch stream each);
 3f. the serving path at full width, after the fleet's tensors are freed:
    internvl2-26b (48 layers, d_model 6144, 48/8 heads of 128, d_ff
    16384; bf16 weights drawn on the card from a seeded generator) serves
@@ -138,7 +158,7 @@ is non-zero:
    on the fleet path of phases 3 and 3b, B10 and B11 on the rate-control
    loop, B6-B9 on phase 3d's paths, B12 on the engine's tensors in 3f),
    each path driven with the counts set to 0; phase 3e's path is driven
-   the same way and must launch B1-B5.
+   the same way and must launch B1-B5, phase 3g's B1-B4.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the ``src/repro_torch`` package beside this file, it exits
@@ -187,6 +207,8 @@ ARCH = "internvl2-26b"
 N_REQUESTS = 4
 DECODE_STEPS = 8
 SLICE_HEADS, SLICE_HEAD_DIM = 48, 128      # internvl2-26b's attention
+# phase 3g's serve leg on the same engine: Poisson arrivals
+SERVE_RATE_HZ, SERVE_REQUESTS, SERVE_PROMPT, SERVE_DEADLINE = 4.0, 6, 32, 0.5
 PADDED_HEAD_DIM = 120          # h2o-danube3-4b's: the kernel pads it to 128
 # B3's layer-by-layer route on the fleet: 9 layers (8 -> 16, then 16 -> 16
 # eight times), past the ring route's depth of 8
@@ -1801,6 +1823,21 @@ def serve_phase(torch, dev, keep, cfg):
         assert pairs == FLEET_PAIRS, pairs
     say(f"[serve] B12 entry point on the engine's tensors: dispatches "
         f"{disp}; launches {launches}")
+
+    # phase 3g's serve leg: the deadline group former under Poisson
+    # arrivals, each request one patch stream kept whole
+    from repro_torch.obs.loadgen import drive_serve
+    engine.roi_prefill, engine._decode_group = roi_prefill, decode_group
+    panel = drive_serve(engine, SERVE_RATE_HZ, n_requests=SERVE_REQUESTS,
+                        deadline_s=SERVE_DEADLINE, prompt_len=SERVE_PROMPT)
+    say(f"[3g serve] drive_serve at {SERVE_RATE_HZ} Hz, {SERVE_REQUESTS} "
+        f"requests of one {SERVE_PROMPT}-patch stream each, groups of 3 "
+        f"over 2 camera groups, deadline {SERVE_DEADLINE} s (waits on the "
+        f"stream's clock, serve_wall_s on the host's): {json.dumps(panel)}")
+    assert panel["served"] == SERVE_REQUESTS
+    assert panel["complete_flushes"] + panel["deadline_flushes"] > 0
+    assert 0.0 <= panel["wait_p50_s"] <= panel["wait_p99_s"] \
+        <= SERVE_DEADLINE + 1e-9
     return launches
 
 
@@ -2099,6 +2136,40 @@ def crossroi_obs(torch, det, grids, frames, nxt):
     assert ok
 
 
+def crossroi_obs_records(torch, det, grids, frames, nxt):
+    """The same warm step and former release with obs off and on under
+    the profiler: equal synchronize and memcpy records, which count the
+    runtime calls a launcher makes from its C code too (torch's sync
+    debug mode sees only torch's own).  A first pass, not compared,
+    takes the one-time work."""
+    from repro_torch import obs
+    from repro_torch.fleet.runtime import fleet_reuse_step
+    from repro_torch.net.batcher import DeadlineGroupFormer
+    from repro_torch.serving.detector import PackedActivationCache
+    cams = list(range(len(grids[0])))
+    recs = {}
+    for label, on in (("first", False), ("off", False), ("on", True)):
+        cache = PackedActivationCache()
+        fleet_reuse_step(det, frames, grids, cache)          # cold, obs off
+        torch.cuda.synchronize()
+
+        def work():
+            fleet_reuse_step(det, nxt, grids, cache)
+            offer_all(DeadlineGroupFormer(det, cams, FORMER_DEADLINE_S),
+                      0.0, nxt[0], grids[0], cams)
+
+        obs.configure(enabled=on, reset=True)
+        try:
+            _, recs[label] = sync_records(torch, work)
+        finally:
+            obs.configure(enabled=False, reset=True)
+    ok = recs["off"] == recs["on"] and sum(recs["off"].values()) > 0
+    say(f"[crossroi] obs off/on under the profiler, one warm step and one "
+        f"former release: synchronize and memcpy records {recs['off']} / "
+        f"{recs['on']} (the first pass {recs['first']}): {ok}")
+    assert ok
+
+
 def crossroi_path(torch, det, dev, fleet, off):
     """Phase 3e on the card: the offline masks' tile grids, the fleet
     steps, the deadline former and obs on/off."""
@@ -2116,6 +2187,7 @@ def crossroi_path(torch, det, dev, fleet, off):
     nxt = crossroi_steps(torch, det, grids, frames, rng, gen)
     crossroi_former(torch, det, grids, nxt, rng, gen)
     crossroi_obs(torch, det, grids, frames, nxt)
+    crossroi_obs_records(torch, det, grids, frames, nxt)
 
 
 def crossroi_online(fleet, off):
@@ -2143,6 +2215,278 @@ def crossroi_online(fleet, off):
         assert np.isfinite(m.network_mbps_total) and \
             m.network_mbps_total > 0
         assert np.isfinite(m.latency_max_s) and m.latency_max_s > 0
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: CrossRoI's harnesses on the card, on the offline masks
+# ---------------------------------------------------------------------------
+
+HARNESS_STEPS = 6
+HARNESS_STATIC = 0.75          # 5 of the 20 cameras move each step
+# the paper's >99% accuracy target as the drift adapter's coverage target:
+# on group 0 (uniform 21) over frames 600-800 the windowed coverage of the
+# exact cover's mask dips below it once (it stays above the default 0.95)
+DRIFT_GROUP, DRIFT_FRAMES, DRIFT_TARGET = 0, (600, 800), 0.99
+SWEEP_POINT = (4, 5, "episode:0.5", 0.75, "random:3:0")
+# a scripted chaos drive: a frozen camera, a noisy one, a dark one
+CHAOS_EVENTS = (("freeze", 1, 5, 0, 1, 1.0), ("noise", 2, 4, 1, 2, 1.5),
+                ("blackout", 1, 6, 2, 0, 1.0))
+CHAOS_CHECK_STEP = 2           # every fault above is active here
+SYNC_RECORDS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+
+
+def sync_records(torch, fn):
+    """``fn()`` under the profiler; returns its result and the counts of
+    the profiler's synchronize and memcpy records ({name: count}): the
+    runtime calls a launcher makes from C are recorded too."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, {e.key: e.count for e in prof.key_averages()
+                 if e.key in SYNC_RECORDS or e.key.startswith("cudaMemcpy")}
+
+
+def harness_trace(torch, dev, grids):
+    """``make_frame_trace`` on the offline masks' tile grids (frames of
+    the grids' extent), moved to the card once."""
+    from repro_torch.obs.loadgen import LoadgenConfig, make_frame_trace
+    cfg = LoadgenConfig(tile=TILE, steps=HARNESS_STEPS, seed=SEED)
+    t0 = time.perf_counter()
+    host = make_frame_trace(cfg, grids, HARNESS_STATIC)
+    t_host = time.perf_counter() - t0
+    frames = [{g: [torch.as_tensor(f, device=dev) for f in fs]
+               for g, fs in step.items()} for step in host]
+    torch.cuda.synchronize()
+    say(f"[3g loadgen] make_frame_trace: {HARNESS_STEPS} steps, static "
+        f"fraction {HARNESS_STATIC}, frames of the grids' extent "
+        f"{sorted({tuple(f.shape) for f in flat(frames[0])})}: {t_host:.2f} "
+        f"s on the host, {time.perf_counter() - t0 - t_host:.2f} s to the "
+        f"card")
+    return cfg, frames
+
+
+def same_maps(torch, a, b):
+    return list(a) == list(b) and all(
+        torch.equal(x, y) for g in b for x, y in zip(a[g], b[g]))
+
+
+def harness_drive(torch, det, grids, frames):
+    """``drive_fleet`` against an inline ``fleet_reuse_step`` loop: equal
+    dispatch counters and profiler synchronize/memcpy records; its kept
+    maps bitwise equal to a cold ``superlaunch_forward`` of each step's
+    frames, the last within 1e-4 of the plain composition.  Returns the
+    drive's dispatch counter and its kept maps."""
+    import collections
+    from repro_torch.fleet.runtime import fleet_reuse_step
+    from repro_torch.obs.loadgen import drive_fleet
+    from repro_torch.serving.detector import PackedActivationCache
+
+    def inline():
+        cache, total = PackedActivationCache(), collections.Counter()
+        for fs in frames:
+            total += fleet_reuse_step(det, fs, grids, cache)[1]
+        return total
+
+    def driven():
+        return drive_fleet(det, frames, grids, PackedActivationCache())
+
+    inline()                           # uncompared: one-time work
+    want, rec_inline = sync_records(torch, inline)
+    (reports, _, counts), rec_drive = sync_records(torch, driven)
+    ok = (counts == want and rec_drive == rec_inline
+          and sum(rec_inline.values()) > 0)
+    say(f"[3g loadgen] drive_fleet == an inline fleet_reuse_step loop: "
+        f"dispatches {dict(counts)} / {dict(want)}; the profiler's "
+        f"synchronize and memcpy records {rec_drive} / {rec_inline}: {ok}")
+    assert ok
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reports, kept, counts = drive_fleet(det, frames, grids,
+                                        PackedActivationCache(),
+                                        keep_outputs=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    walls = [r.wall_s * 1e3 for r in reports]
+    same = [same_maps(torch, k, det.superlaunch_forward(fs, grids))
+            for k, fs in zip(kept, frames)]
+    err = plain_err(torch, det, frames[-1], grids, kept[-1])
+    say(f"[3g loadgen] drive_fleet, kept maps: step host walls ms "
+        f"{np.round(walls, 3).tolist()} (sum {sum(walls):.3f}), the drive "
+        f"with its copies bounded by one synchronize {wall * 1e3:.3f} ms; "
+        f"computed tiles {[r.computed_tiles for r in reports]} of "
+        f"{reports[0].total_tiles}; kept maps == a cold superlaunch_forward "
+        f"of their frames, bitwise: {same}; last step vs plain composition: "
+        f"max_abs_err={err}")
+    assert all(same) and err <= CONV_TOL, err
+    assert [r.cold for r in reports] == [True] + [False] * (len(frames) - 1)
+    return counts, kept
+
+
+def harness_chaos(torch, det, grids, frames, counts, kept):
+    """``drive_chaos``: with no schedule it is ``drive_fleet`` (maps
+    bitwise, counts equal); with a scripted freeze, noise and blackout
+    and a liveness monitor, one faulted step's gate stats (B1's) equal
+    the plain gate on the injected frames, bitwise."""
+    from repro_torch.fleet import faults, runtime
+    from repro_torch.kernels import ref
+    from repro_torch.serving.detector import PackedActivationCache
+    _, got, total, det_none = faults.drive_chaos(
+        det, frames, grids, PackedActivationCache(), keep_outputs=True)
+    same = [same_maps(torch, a, b) for a, b in zip(got, kept)]
+    say(f"[3g chaos] drive_chaos with no schedule == drive_fleet: maps "
+        f"bitwise {same}, dispatches equal {total == counts}")
+    assert all(same) and total == counts and det_none == {}
+    del got
+
+    schedule = faults.FaultSchedule(tuple(
+        faults.FaultEvent(k, t0, t1, gid=g, cam=c, amp=a)
+        for k, t0, t1, g, c, a in CHAOS_EVENTS))
+    n_cams = len(flat(grids))
+    monitor = faults.LivenessMonitor(
+        n_cams, faults.LivenessConfig(freeze_window=2,
+                                      min_expected_rate=0.1))
+    stats_seen, real_step = [], runtime.fleet_reuse_step
+
+    def recording_step(*args, **kw):     # keeps each step's gate stats
+        out = real_step(*args, **kw)
+        stats_seen.append(out[2].gate_stats)
+        return out
+
+    cache = PackedActivationCache()
+    runtime.fleet_reuse_step = recording_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        reports, _, total, detections = faults.drive_chaos(
+            det, frames, grids, cache, schedule=schedule, monitor=monitor,
+            seed=SEED)
+    finally:
+        runtime.fleet_reuse_step = real_step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    inj = faults.FaultInjector(schedule, seed=SEED)
+    injected = [inj.apply(i, fs) for i, fs in enumerate(
+        frames[:CHAOS_CHECK_STEP + 1])]
+    cur_p, prev_p = (torch.nn.functional.pad(
+        det._stack_frames(flat(f), flat(grids))[0], (0, 0, 1, 1, 1, 1))
+        for f in (injected[-1], injected[-2]))
+    want = ref.tile_delta_gate_canvas(
+        cur_p, prev_p, det._fleet_tables(flat(grids))[2], TILE, TILE)
+    gate_same = np.array_equal(stats_seen[CHAOS_CHECK_STEP],
+                               want.cpu().numpy())
+    del cur_p, prev_p, want, injected
+    per_cam = faults.per_camera_changed(stats_seen[CHAOS_CHECK_STEP], 0.0,
+                                        cache.idx_np[:, 0], n_cams)
+    flat_of = faults.flat_cam_index(grids)
+    at = {k: flat_of[(g, c)] for k, _, _, g, c, _ in CHAOS_EVENTS}
+    say(f"[3g chaos] scripted faults {CHAOS_EVENTS} (kind, t0, t1, group, "
+        f"camera, amplitude): step {CHAOS_CHECK_STEP}'s gate stats == the "
+        f"plain gate on the injected frames, bitwise: {gate_same}; its "
+        f"changed tiles per camera {per_cam.tolist()}; raw-changed tiles "
+        f"per step {[r.changed_tiles for r in reports]}; detections "
+        f"{detections}, confirmed dead {sorted(monitor.confirmed)} (flat "
+        f"camera index of each fault {at}); dispatches {dict(total)}; "
+        f"injected steps {inj.injected_steps}; step host walls ms "
+        f"{np.round([r.wall_s * 1e3 for r in reports], 3).tolist()}, the "
+        f"drive (injection included) bounded by one synchronize "
+        f"{wall * 1e3:.3f} ms")
+    assert gate_same and len(stats_seen) == HARNESS_STEPS
+    # frozen and dark cameras repeat their last clean frame: no change
+    assert per_cam[at["freeze"]] == 0 and per_cam[at["blackout"]] == 0
+    assert per_cam[at["noise"]] > 0
+
+
+def harness_drift(torch, det, fleet, off, grids, frames):
+    """``run_adaptive_online`` on one group of phase 3e's scene with the
+    activation cache wired as a mask listener: the re-solve invalidates
+    it, and the next fleet step, cold on the re-solved grids, equals a
+    cold recompute bitwise and the plain composition within 1e-4."""
+    from repro_torch.fleet import DriftConfig, run_adaptive_online
+    from repro_torch.fleet.runtime import fleet_reuse_step
+    from repro_torch.serving.detector import PackedActivationCache
+    cache = PackedActivationCache()
+    fleet_reuse_step(det, frames[0], grids, cache)
+    fleet_reuse_step(det, frames[1], grids, cache)
+    before = cache.invalidations
+    g = fleet.groups[DRIFT_GROUP]
+    t0 = time.perf_counter()
+    res = run_adaptive_online(g.scene, off.per_group[DRIFT_GROUP],
+                              *DRIFT_FRAMES,
+                              DriftConfig(coverage_target=DRIFT_TARGET),
+                              listeners=[lambda _: cache.invalidate()])
+    host_s = time.perf_counter() - t0
+    ad = res.adapter
+    k = g.scene.cameras[0].tile // TILE
+    new = dict(grids)
+    new[DRIFT_GROUP] = [np.kron(ad.cam_grids[c.cam_id], np.ones((k, k), bool))
+                        for c in g.scene.cameras]
+    added = sum(int(a.sum()) - int(b.sum())
+                for a, b in zip(new[DRIFT_GROUP], grids[DRIFT_GROUP]))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    outs, counts, stats = fleet_reuse_step(det, frames[2], new, cache)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t1) * 1e3
+    same, fc = equals_recompute(torch, det, frames[2], new, outs)
+    err = plain_err(torch, det, frames[2], new, outs)
+    ev = [(e.t, e.tiles_added, e.constraints, round(e.coverage_before, 4),
+           round(e.wall_s, 4)) for e in ad.events]
+    say(f"[3g drift] run_adaptive_online, group {DRIFT_GROUP} frames "
+        f"{DRIFT_FRAMES[0]}-{DRIFT_FRAMES[1]}, coverage target "
+        f"{DRIFT_TARGET}: re-solves (frame, cells added, constraints, "
+        f"coverage before, host s) {ev}; |M| "
+        f"{len(off.per_group[DRIFT_GROUP].mask)} -> {len(ad.mask)} cells "
+        f"({added} more {TILE}-px tiles); the "
+        f"driver's host wall {host_s:.3f} s; cache invalidations {before} "
+        f"-> {cache.invalidations}; the next step: cold {stats.cold}, "
+        f"first-step wall {first_ms:.3f} ms (tables built for the new "
+        f"grids), dispatches {dict(counts)}; == a cold recompute bitwise "
+        f"{same} (recompute counts {fc}); vs plain composition "
+        f"max_abs_err={err}")
+    assert res.resolves >= 1 and cache.invalidations == before + \
+        res.resolves + ad.shrinks
+    assert stats.cold and added > 0 and same and err <= CONV_TOL, err
+
+
+def harness_point(torch, det, cfg, grids, frames, counts):
+    """``run_point`` at one sweep point on the card's trace: its
+    dispatches equal the drive's; prints its SLO panel."""
+    from repro_torch.obs.loadgen import SweepPoint, run_point
+    t0 = time.perf_counter()
+    res = run_point(cfg, det, SweepPoint(*SWEEP_POINT), grids=grids,
+                    frames_list=frames)
+    wall = time.perf_counter() - t0
+    say(f"[3g sweep] run_point {res['point']} in {wall:.2f} s (host): "
+        f"drive_wall_s {res['drive_wall_s']:.4f}, dispatches "
+        f"{res['dispatches']} == the drive's {res['dispatches'] == counts}, "
+        f"faults {res.get('faults')}; slo {json.dumps(res['slo'])}")
+    assert res["dispatches"] == dict(counts)
+    slo = res["slo"]
+    assert slo["n_steps"] == HARNESS_STEPS and \
+        0.0 < slo["accuracy_floor"] <= slo["accuracy_mean"] <= 1.0
+    assert np.isfinite(slo["p99_delay_s"]) and slo["p99_delay_s"] > 0
+
+
+def harness_path(torch, det, dev, fleet, off):
+    """Phase 3g on the card: the drivers, chaos, drift and a sweep point
+    over the offline masks' tile grids, and the sentinel's self-test."""
+    from repro_torch.obs import sentinel
+    t0 = time.perf_counter()
+    grids = crossroi_grids(fleet, off)
+    cfg, frames = harness_trace(torch, dev, grids)
+    counts, kept = harness_drive(torch, det, grids, frames)
+    harness_chaos(torch, det, grids, frames, counts, kept)
+    del kept
+    torch.cuda.empty_cache()
+    harness_drift(torch, det, fleet, off, grids, frames)
+    harness_point(torch, det, cfg, grids, frames, counts)
+    st = sentinel.self_test()
+    say(f"[3g sentinel] self_test: {st}")
+    assert all(v for k, v in st.items() if k != "flagged_metrics")
+    say(f"[3g] harness phase: {time.perf_counter() - t0:.1f} s")
 
 
 def run_path(torch, fn, *args):
@@ -2245,6 +2589,15 @@ def main() -> int:
                   "roi_conv_entry", "roi_conv_stack", "sbnet_scatter_fleet"):
         assert launches["crossroi"].get(kname, 0) > 0, kname
     crossroi_online(fleet, off)
+    torch.cuda.empty_cache()
+    _, launches["harness"], disp, peak = run_path(
+        torch, harness_path, torch, det, dev, fleet, off)
+    say(f"[main] phase 3g, the harnesses on the offline masks: dispatches "
+        f"{disp}; launches {launches['harness']}; peak memory {peak:.2f} "
+        f"GiB")
+    for kname in ("tile_delta_gate_canvas", "roi_conv_entry",
+                  "roi_conv_stack", "sbnet_scatter_fleet"):
+        assert launches["harness"].get(kname, 0) > 0, kname
     del fleet, off
     torch.cuda.empty_cache()
     del det, frames, grids, rng, gen

@@ -1,5 +1,5 @@
 """Fleet observability: tracing, typed metrics, SLO panels -- the port's
-copy of ``repro.obs`` without its harnesses (``loadgen``, ``sentinel``).
+copy of ``repro.obs``.
 
 All of it is off by default and adds no kernel launch and no device
 synchronize: spans stamp host timestamps around points the paths already
@@ -16,6 +16,15 @@ pass through.
 * ``obs.slo`` -- ``StepReport``/``FleetSLOReport`` panels (p50/p99 delay,
   deadline hit rate, bytes shed, accuracy floor, changed-tile fraction).
 
+On top of the panels sit the heavy-traffic harness (``obs.loadgen`` --
+SLO frontier sweeps over fleet scale x congestion x traffic profile x
+serve rate, driving the fleet step, the transport and the serving engine
+with zero added dispatches) and the gate that watches a benchmark history
+(``obs.sentinel`` -- git-SHA-aware regression detection with noise-robust
+min-of-reps / median-of-window baselines).  Both import the rest of the
+port inside their functions, so ``import repro_torch.obs`` loads neither
+``core`` nor ``net`` nor the detector.
+
 Switch it on with ``obs.configure(enabled=True)`` (or scoped: ``with
 obs.enabled(): ...``); ``configure(reset=True)`` clears the recorded spans
 and metric values.
@@ -24,7 +33,8 @@ from __future__ import annotations
 
 import contextlib
 
-from repro_torch.obs import export, metrics, slo, state, trace  # noqa: F401
+from repro_torch.obs import (export, loadgen, metrics,  # noqa: F401
+                             sentinel, slo, state, trace)
 
 
 def configure(enabled=None, reset: bool = False) -> bool:

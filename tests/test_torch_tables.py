@@ -131,7 +131,10 @@ def test_importing_the_port_loads_no_jax():
     assert {"repro_torch.kernels.ops", "repro_torch.net",
             "repro_torch.net.encoder", "repro_torch.obs",
             "repro_torch.core.pipeline", "repro_torch.net.batcher",
-            "repro_torch.fleet.topology"} <= set(mods)
+            "repro_torch.fleet.topology", "repro_torch.obs.sentinel",
+            "repro_torch.obs.loadgen", "repro_torch.fleet.faults",
+            "repro_torch.fleet.drift", "repro_torch.data",
+            "repro_torch.data.streams"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'"
@@ -144,9 +147,27 @@ def test_importing_the_port_loads_no_jax():
     assert out.stdout.strip() == "[]"
 
 
+@pytest.mark.parametrize("module", ["repro_torch", "repro_torch.obs"])
+def test_importing_the_package_or_obs_loads_no_core_or_net(module):
+    """``obs`` (its harnesses included) imports the rest of the port
+    inside its functions only."""
+    code = (f"import sys, {module}\n"
+            "print(sorted(m for m in sys.modules if m.startswith(("
+            "'repro_torch.core', 'repro_torch.net', "
+            "'repro_torch.serving', 'repro_torch.fleet'))))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_port_sources_import_no_jax_or_reference():
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) == 3
+    files += examples
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)\b(?!_torch)", re.M)
     for f in files:
         assert not pat.search(f.read_text()), f
