@@ -145,6 +145,21 @@ is non-zero:
    point (dispatches == the drive's, its SLO panel); the sentinel's
    self-test; and in 3f, on its engine, ``drive_serve`` (6 requests at
    4 Hz, one 32-patch stream each);
+3h. CrossRoI's sharded runtime on 3e's masks over 3g's trace plus an
+   all-static step: ``ShardedSuperlaunch`` at 1, 2 and 4 shards on the
+   one card (``make_fleet_mesh(n, devices=[card])``), each step through
+   ``sharded_fleet_step`` bitwise equal to ``superlaunch_forward_reuse``
+   with one launch of each of B1-B4 (``_build.LAUNCHES``), ``step_full``
+   == ``superlaunch_forward``, the cold maps within 1e-4 of the plain
+   composition, walls beside the single-device step's;
+   ``AsyncShardedPipeline`` at 2 shards with 3 submits before the first
+   collect == the synchronous steps, its overlap, consumer wait, p99 and
+   profiler synchronize/memcpy records; ``wire_shard_invalidation`` and
+   ``rebuild_group`` on a group-0 drift re-solve and ``drive_chaos_sharded``
+   with a shard loss (``shard_failover``), each colding one shard while
+   the others compute 0 tiles, == a cold recompute; ``drive_sharded`` ==
+   ``drive_fleet``; B12 at blocks without an instance of their own (C1)
+   against its plain version and the instance's launch;
 3f. the serving path at full width, after the fleet's tensors are freed:
    internvl2-26b (48 layers, d_model 6144, 48/8 heads of 128, d_ff
    16384; bf16 weights drawn on the card from a seeded generator) serves
@@ -158,7 +173,8 @@ is non-zero:
    on the fleet path of phases 3 and 3b, B10 and B11 on the rate-control
    loop, B6-B9 on phase 3d's paths, B12 on the engine's tensors in 3f),
    each path driven with the counts set to 0; phase 3e's path is driven
-   the same way and must launch B1-B5, phase 3g's B1-B4.
+   the same way and must launch B1-B5, phases 3g's and 3h's B1-B4 (3h's
+   launches are each row's ``launches_sharded``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the ``src/repro_torch`` package beside this file, it exits
@@ -2487,6 +2503,320 @@ def harness_path(torch, det, dev, fleet, off):
     say(f"[3g sentinel] self_test: {st}")
     assert all(v for k, v in st.items() if k != "flagged_metrics")
     say(f"[3g] harness phase: {time.perf_counter() - t0:.1f} s")
+    return grids, frames
+
+
+# ---------------------------------------------------------------------------
+# phase 3h: CrossRoI's sharded fleet runtime on the card
+# ---------------------------------------------------------------------------
+
+SHARD_COUNTS = (1, 2, 4)
+PIPE_SHARDS, PIPE_QUEUED = 2, 3
+DRIFT_SHARDS = 4               # each group on its own shard
+LOSS_SHARDS, LOST_SHARD = 4, 1
+SHARDED_KERNELS = ("tile_delta_gate_canvas", "roi_conv_entry",
+                   "roi_conv_stack", "sbnet_scatter_fleet")
+# B12 at blocks the kernel has no instance for (C1): (S, bq, bk) on
+# synthetic streams, then the serving slice's positions at two more
+C1_CASES = ((96, 16, 48), (512, 256, 16), (192, 96, 64))
+C1_SLICE_BLOCKS = ((16, 16), (256, 128))
+
+
+def sharded_runtime(det, dev, grids, n_shards):
+    from repro_torch.fleet.sharded import ShardedSuperlaunch
+    from repro_torch.launch.mesh import make_fleet_mesh
+    return ShardedSuperlaunch(det, grids, make_fleet_mesh(
+        n_shards, devices=[dev]))
+
+
+def sharded_expected(stats):
+    if stats.k_max == 0:
+        return {"tile_delta_gate": 1}
+    return {"tile_delta_gate": 1, "roi_conv_entry": 1, "roi_conv_stack": 1,
+            "sbnet_scatter_changed": 1}
+
+
+def sharded_steps(torch, det, dev, grids, frames, n_shards):
+    """``sharded_fleet_step`` at ``n_shards`` shards on the one card
+    beside the single-device ``superlaunch_forward_reuse``, step by step:
+    maps bitwise equal, dispatches and kernel launches one of each kernel
+    a step; ``step_full`` == ``superlaunch_forward``; the cold maps within
+    1e-4 of the plain composition.  Returns the per-step walls (host
+    clock ending in a synchronize) of both."""
+    from repro_torch.fleet.runtime import sharded_fleet_step
+    from repro_torch.kernels import _build
+    from repro_torch.serving.detector import PackedActivationCache
+    t0 = time.perf_counter()
+    rt = sharded_runtime(det, dev, grids, n_shards)
+    t_build = time.perf_counter() - t0
+    cache, pcache = rt.make_cache(), PackedActivationCache()
+    walls, walls_1, kinds, same, err = [], [], [], [], None
+    for i, f in enumerate(frames):
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        want, _ = det.superlaunch_forward_reuse(f, grids, pcache)
+        torch.cuda.synchronize()
+        b = time.perf_counter()
+        before = dict(_build.LAUNCHES)
+        got, counts, stats = sharded_fleet_step(rt, f, cache)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - b) * 1e3)
+        walls_1.append((b - a) * 1e3)
+        launched = {k: _build.LAUNCHES[k] - before.get(k, 0)
+                    for k in _build.LAUNCHES
+                    if _build.LAUNCHES[k] != before.get(k, 0)}
+        want_launch = {k: 1 for k in SHARDED_KERNELS} if stats.k_max \
+            else {"tile_delta_gate_canvas": 1}
+        assert dict(counts) == sharded_expected(stats), counts
+        assert launched == want_launch, launched
+        same.append(same_maps(torch, got, want))
+        kinds.append("cold" if stats.cold else
+                     "static" if stats.k_max == 0 else "warm")
+        if i == 0:
+            err = plain_err(torch, det, f, grids, got)
+    full = rt.step_full(frames[0])
+    full_same = same_maps(torch, full, det.superlaunch_forward(frames[0],
+                                                               grids))
+    say(f"[3h S={n_shards}] shard tiles {rt.plan.shard_tiles.tolist()} "
+        f"(imbalance {rt.plan.imbalance:.4f}), n_max {rt.n_max}, F_max "
+        f"{rt.F_max}, tables {t_build:.3f} s; steps {kinds}; == "
+        f"superlaunch_forward_reuse bitwise {same}; one launch of each "
+        f"kernel a step: True; step_full == superlaunch_forward bitwise "
+        f"{full_same}; cold vs plain composition max_abs_err={err}; walls "
+        f"ms sharded {np.round(walls, 3).tolist()}, single-device "
+        f"{np.round(walls_1, 3).tolist()}")
+    assert all(same) and full_same and err <= CONV_TOL, err
+    assert kinds[0] == "cold" and kinds[-1] == "static" and \
+        "warm" in kinds
+    del cache, pcache, full
+    return rt
+
+
+def sharded_pipeline(torch, det, dev, grids, frames):
+    """``AsyncShardedPipeline`` at ``PIPE_SHARDS`` shards with
+    ``PIPE_QUEUED`` submits before the first collect: every collected
+    map bitwise equal to the synchronous step's; its overlap, consumer
+    wait and p99 latency; the profiler's synchronize and memcpy records
+    of the same drive."""
+    from repro_torch.fleet.sharded import AsyncShardedPipeline
+    from repro_torch.obs.loadgen import kept_maps
+    rt = sharded_runtime(det, dev, grids, PIPE_SHARDS)
+    cache = rt.make_cache()
+    want = [kept_maps(rt.step_reuse(f, cache)[0]) for f in frames]
+
+    def drive():
+        pipe = AsyncShardedPipeline(rt, rt.make_cache())
+        for f in frames[:PIPE_QUEUED]:
+            pipe.submit(f)
+        outs = [pipe.collect()]
+        for f in frames[PIPE_QUEUED:]:
+            pipe.submit(f)
+        return pipe, outs + pipe.drain()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe, outs = drive()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    same = [same_maps(torch, got, w) for (_, got, _), w in zip(outs, want)]
+    del outs
+    (pipe2, _), rec = sync_records(torch, drive)
+    say(f"[3h pipeline] S={PIPE_SHARDS}, {PIPE_QUEUED} submits before the "
+        f"first collect: collected maps == the synchronous steps bitwise "
+        f"{same}; overlap_fraction {pipe.overlap_fraction:.4f}, blocked_s "
+        f"{pipe.blocked_s:.6f}, p99_latency_s {pipe.p99_latency_s:.6f}, "
+        f"host planning {pipe.host_s:.6f} s, the drive {wall:.3f} ms "
+        f"bounded by one synchronize; under the profiler overlap "
+        f"{pipe2.overlap_fraction:.4f}, synchronize and memcpy records "
+        f"{rec}")
+    assert all(same) and len(same) == len(frames)
+    assert pipe.overlap_fraction > 0.5
+
+
+def sharded_drift(torch, det, dev, fleet, off, grids, frames):
+    """``wire_shard_invalidation`` on phase 3g's group-0 re-solve, with
+    ``rebuild_group`` on the re-solved grids at ``TILE``-px tiles: only
+    the owning shard goes cold, the other shards compute 0 tiles on their
+    held frames, and every map equals a cold recompute on the new grids
+    bitwise."""
+    from repro_torch.fleet import DriftConfig, wire_shard_invalidation
+    from repro_torch.fleet.drift import DriftAdapter
+    from repro_torch.fleet.runtime import sharded_fleet_step
+    rt = sharded_runtime(det, dev, grids, DRIFT_SHARDS)
+    cache = rt.make_cache()
+    sharded_fleet_step(rt, frames[0], cache)
+    sharded_fleet_step(rt, frames[1], cache)
+    g = fleet.groups[DRIFT_GROUP]
+    k = g.scene.cameras[0].tile // TILE
+    ad = DriftAdapter(g.scene, off.per_group[DRIFT_GROUP],
+                      DriftConfig(coverage_target=DRIFT_TARGET))
+    # the adapter's grids are its 64-px cells and the runtime's the
+    # detector's tiles: invalidation is wired as it is, the rebuild with
+    # the cells expanded to tiles
+    wire_shard_invalidation({DRIFT_GROUP: ad}, cache)
+
+    def rebuild(a):
+        rt.rebuild_group(DRIFT_GROUP, [
+            np.kron(a.cam_grids[c.cam_id], np.ones((k, k), bool))
+            for c in a.cameras], cache=cache)
+
+    ad.add_mask_listener(rebuild)
+    t0 = time.perf_counter()
+    for t in range(*DRIFT_FRAMES):         # run_adaptive_online's stream
+        ad.observe(t, g.scene.detections[t])
+    host_s = time.perf_counter() - t0
+    res = ad
+    owner = cache.owner_shard(DRIFT_GROUP)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got, counts, stats = sharded_fleet_step(rt, frames[1], cache)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t1) * 1e3
+    new = rt.grids
+    want = det.superlaunch_forward(frames[1], new)
+    same = same_maps(torch, got, want)
+    others = [c for s, c in enumerate(stats.per_shard_computed)
+              if s != owner]
+    say(f"[3h drift] group {DRIFT_GROUP} re-solved {res.resolves} time(s) "
+        f"({host_s:.3f} s host), owned by shard {owner} of {DRIFT_SHARDS}; "
+        f"shard invalidations {cache.shard_invalidations.tolist()}; the "
+        f"next step: cold shards {stats.cold_shards}, computed per shard "
+        f"{stats.per_shard_computed}, dispatches {dict(counts)}, wall "
+        f"{first_ms:.3f} ms; == a cold superlaunch_forward on the new "
+        f"grids bitwise {same}")
+    assert res.resolves >= 1 and stats.cold_shards == 1
+    assert cache.shard_invalidations[owner] >= 1 and \
+        cache.shard_invalidations.sum() == cache.shard_invalidations[owner]
+    assert same and all(c == 0 for c in others), others
+
+
+def sharded_loss(torch, det, dev, grids, frames):
+    """``drive_chaos_sharded``: with no schedule it is ``drive_sharded``;
+    a loss of shard ``LOST_SHARD`` at step 2 (``shard_failover``) colds
+    that shard alone, the others compute 0 tiles on held frames, and
+    every map equals a cold recompute bitwise."""
+    from repro_torch.fleet import faults
+    from repro_torch.obs.loadgen import drive_sharded
+    held = [frames[0], frames[1], frames[1]]
+    rt = sharded_runtime(det, dev, grids, LOSS_SHARDS)
+    _, plain, plain_tot = drive_sharded(rt, held, rt.make_cache(),
+                                        keep_outputs=True)
+    _, none, none_tot, none_lost = faults.drive_chaos_sharded(
+        rt, held, rt.make_cache(), keep_outputs=True)
+    same_none = [same_maps(torch, a, b) for a, b in zip(none, plain)]
+    del none
+    schedule = faults.FaultSchedule((faults.FaultEvent(
+        "shard", 2, 3, shard=LOST_SHARD),))
+    reps, outs, tot, lost = faults.drive_chaos_sharded(
+        rt, held, rt.make_cache(), schedule=schedule, keep_outputs=True)
+    st = reps[2]
+    want = det.superlaunch_forward(held[2], grids)
+    same = same_maps(torch, outs[2], want)
+    say(f"[3h shard loss] drive_chaos_sharded with no schedule == "
+        f"drive_sharded: maps {same_none}, dispatches "
+        f"{none_tot == plain_tot}; shard {LOST_SHARD} of {LOSS_SHARDS} "
+        f"lost at step 2: groups {lost}; that step computed "
+        f"{st.computed_tiles} tiles (shard {LOST_SHARD}'s "
+        f"{rt.plan.shard_tiles[LOST_SHARD]}), dispatches {st.dispatches}; "
+        f"== a cold recompute bitwise {same}")
+    assert all(same_none) and none_tot == plain_tot and none_lost == {}
+    assert lost == {2: rt.groups_on_shard(LOST_SHARD)} and st.cold
+    assert st.computed_tiles == rt.plan.shard_tiles[LOST_SHARD] and same
+
+
+def sharded_drivers(torch, det, dev, grids, frames):
+    """``drive_sharded`` against ``drive_fleet``: kept maps bitwise equal
+    at every step; the dispatches equal on every warm step, and on the
+    cold step the sharded one's are the single-device cold step's plus
+    the gate, its scatter counted as the changed-only one."""
+    from repro_torch.obs.loadgen import drive_fleet, drive_sharded
+    from repro_torch.serving.detector import PackedActivationCache
+    rt = sharded_runtime(det, dev, grids, PIPE_SHARDS)
+    srep, souts, stot = drive_sharded(rt, frames, rt.make_cache(),
+                                      keep_outputs=True)
+    frep, fouts, ftot = drive_fleet(det, frames, grids,
+                                    PackedActivationCache(),
+                                    keep_outputs=True)
+    same = [same_maps(torch, a, b) for a, b in zip(souts, fouts)]
+    del souts, fouts
+    cold = dict(frep[0].dispatches)
+    cold["tile_delta_gate"] = 1
+    cold["sbnet_scatter_changed"] = cold.pop("sbnet_scatter_fleet")
+    disp = [srep[0].dispatches == cold] + [
+        a.dispatches == b.dispatches for a, b in zip(srep[1:], frep[1:])]
+    say(f"[3h drivers] drive_sharded (S={PIPE_SHARDS}) vs drive_fleet: "
+        f"kept maps bitwise {same}; dispatches per step as the "
+        f"single-device step's (the cold step plus the gate) {disp}; "
+        f"totals {dict(stot)} / {dict(ftot)}; step host walls ms "
+        f"{np.round([r.wall_s * 1e3 for r in srep], 3).tolist()} / "
+        f"{np.round([r.wall_s * 1e3 for r in frep], 3).tolist()}")
+    assert all(same) and all(disp)
+
+
+def c1_blocks(torch, dev, grids):
+    """C1: B12 at blocks the kernel has no instance for, bf16: real rows
+    within the bars of the plain version at those blocks, bitwise equal
+    to ``kernel_blocks``' instance on the tokens padded to it, visited
+    counts == the host bound; on synthetic streams and on the serving
+    slice's positions (48 heads of 128)."""
+    from repro_torch.kernels import ops, roi_attention
+    PAD = roi_attention.PAD_POS
+    rng = np.random.default_rng(SEED + 9)
+    keep = fleet_keep(grids)
+    _, slice_pos, _ = ops.pack_tokens(
+        torch.zeros((keep.shape[0], 1)), torch.as_tensor(keep))
+    cases = []
+    for S, bq, bk in C1_CASES:
+        pos = np.full(S, PAD, np.int32)
+        n = int(0.7 * S)
+        pos[:n] = np.sort(rng.choice(4 * S, n, replace=False))
+        cases.append((S, 4, 64, bq, bk, pos))
+    for bq, bk in C1_SLICE_BLOCKS:
+        cases.append((FLEET_PACKED, SLICE_HEADS, SLICE_HEAD_DIM, bq, bk,
+                      slice_pos.numpy()))
+    lines = []
+    for S, H, D, bq, bk, pos in cases:
+        errs, skip_same, vis_ok, (q, k, v, p, out, _) = attention_case(
+            torch, dev, S, H, D, bq, bk, pos, torch.bfloat16, SEED + S)
+        kq, kk = roi_attention.kernel_blocks(bq, bk)
+        lcm = int(np.lcm(kq, kk))
+        Sp = -(-S // lcm) * lcm
+        pad = [torch.nn.functional.pad(t, (0, 0, 0, 0, 0, Sp - S))
+               for t in (q, k, v)]
+        pp = torch.nn.functional.pad(p, (0, Sp - S), value=PAD)
+        direct, _ = roi_attention.roi_attention(*pad, pp, kq, kk)
+        real = p != PAD
+        direct_same = bool(torch.equal(out[real], direct[:S][real]))
+        lines.append((S, H, bq, bk, (kq, kk, Sp), errs[0], round(errs[1], 4),
+                      skip_same, vis_ok, direct_same))
+        assert errs[0] <= ATTN_TOL["bfloat16"] and errs[1] <= 1.0, errs
+        assert skip_same and vis_ok and direct_same
+    say(f"[3h C1] B12 at blocks outside BLOCKS_Q {roi_attention.BLOCKS_Q} "
+        f"(bf16; S, H, block_q, block_k, the instance run (block_q, "
+        f"block_k, padded S), max err, share of the per-element bar, skip "
+        f"== exhaustive, visited == host bound, == the instance's launch "
+        f"bitwise): {lines}")
+
+
+def sharded_path(torch, det, dev, fleet, off, grids, frames):
+    """Phase 3h on the card: the sharded runtime at 1, 2 and 4 shards on
+    phase 3e's masks over phase 3g's trace plus an all-static step, the
+    async pipeline, a drift re-solve, a shard loss, the drivers, and
+    B12's C1 blocks."""
+    t0 = time.perf_counter()
+    trace = list(frames) + [frames[-1]]
+    for n in SHARD_COUNTS:
+        sharded_steps(torch, det, dev, grids, trace, n)
+        torch.cuda.empty_cache()
+    sharded_pipeline(torch, det, dev, grids, trace)
+    torch.cuda.empty_cache()
+    sharded_drift(torch, det, dev, fleet, off, grids, frames)
+    sharded_loss(torch, det, dev, grids, frames)
+    torch.cuda.empty_cache()
+    sharded_drivers(torch, det, dev, grids, frames)
+    torch.cuda.empty_cache()
+    c1_blocks(torch, dev, grids)
+    say(f"[3h] sharded phase: {time.perf_counter() - t0:.1f} s")
 
 
 def run_path(torch, fn, *args):
@@ -2590,15 +2920,22 @@ def main() -> int:
         assert launches["crossroi"].get(kname, 0) > 0, kname
     crossroi_online(fleet, off)
     torch.cuda.empty_cache()
-    _, launches["harness"], disp, peak = run_path(
+    (h_grids, h_frames), launches["harness"], disp, peak = run_path(
         torch, harness_path, torch, det, dev, fleet, off)
     say(f"[main] phase 3g, the harnesses on the offline masks: dispatches "
         f"{disp}; launches {launches['harness']}; peak memory {peak:.2f} "
         f"GiB")
-    for kname in ("tile_delta_gate_canvas", "roi_conv_entry",
-                  "roi_conv_stack", "sbnet_scatter_fleet"):
+    for kname in SHARDED_KERNELS:
         assert launches["harness"].get(kname, 0) > 0, kname
-    del fleet, off
+    torch.cuda.empty_cache()
+    _, launches["sharded"], disp, peak = run_path(
+        torch, sharded_path, torch, det, dev, fleet, off, h_grids, h_frames)
+    say(f"[main] phase 3h, the sharded runtime on the offline masks: "
+        f"dispatches {disp}; launches {launches['sharded']}; peak memory "
+        f"{peak:.2f} GiB")
+    for kname in SHARDED_KERNELS:
+        assert launches["sharded"].get(kname, 0) > 0, kname
+    del fleet, off, h_grids, h_frames
     torch.cuda.empty_cache()
     del det, frames, grids, rng, gen
     torch.cuda.empty_cache()
@@ -2611,6 +2948,7 @@ def main() -> int:
         n_launch = launches[path].get(kname, 0)
         rows.append(dict(name=kname, route="cuda", source=source,
                          replaces=replaces, launches=n_launch, path=path,
+                         launches_sharded=launches["sharded"].get(kname, 0),
                          **results[kname]))
         assert n_launch > 0, f"{kname} never launched on the {path} path"
     say(json.dumps({"kernels": rows}))

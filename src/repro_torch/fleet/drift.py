@@ -1,6 +1,5 @@
 """Online mask-drift adaptation (paper §5.5, made continuous) -- the port's
-copy of ``repro.fleet.drift``, less ``wire_shard_invalidation``, which
-comes with the port's sharded runtime.
+copy of ``repro.fleet.drift``.
 
 The offline RoI mask encodes where traffic *was* during profiling.  When
 traffic shifts — a closed lane, a rerouted approach, rush-hour turning
@@ -386,3 +385,26 @@ def run_adaptive_online(scene: Scene, offline: OfflineResult,
             adapter.maybe_shrink(t, scene)
     return AdaptiveRunResult(adapter, np.asarray(frame_t),
                              np.asarray(apps), np.asarray(covs))
+
+
+def wire_shard_invalidation(adapters: Dict[int, DriftAdapter], cache,
+                            runtime=None) -> None:
+    """Fan drift re-solves out to the sharded serving cache: each group's
+    ``DriftAdapter`` gets a mask listener that cold-marks only the shard
+    owning that group (``ShardedActivationCache.invalidate_group``); the
+    other shards keep serving warm through the re-solve.  With ``runtime``
+    (a ``fleet.sharded.ShardedSuperlaunch``) the listener also rebuilds
+    the tables from the adapter's re-solved grids (``rebuild_group``
+    keeps the other shards' cache rows even when the shared row bucket
+    grows).
+
+    adapters: {gid: DriftAdapter} for the groups the runtime serves (a
+    subset is fine: unwired groups never invalidate)."""
+    for gid, ad in adapters.items():
+        def _on_update(a, gid=gid):
+            cache.invalidate_group(gid)
+            if runtime is not None:
+                runtime.rebuild_group(
+                    gid, [a.cam_grids[c.cam_id] for c in a.cameras],
+                    cache=cache)
+        ad.add_mask_listener(_on_update)

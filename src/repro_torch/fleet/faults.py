@@ -1,7 +1,5 @@
 """Fault injection, liveness detection, and coverage failover for the
-fleet -- the port's copy of ``repro.fleet.faults``, less the sharded
-runtime's shard loss (``shard_failover``, ``drive_chaos_sharded``), which
-comes with the port's sharded runtime.
+fleet -- the port's copy of ``repro.fleet.faults``.
 
 CrossRoI's premise is to REMOVE cross-camera redundancy: the set-cover
 mask assigns each ground region to the cheapest camera that sees it, so
@@ -489,6 +487,24 @@ def degraded_coverage(adapter, detections, dead_cams: Sequence[int]
 
 
 # ---------------------------------------------------------------------------
+# shard loss (detect -> restore on the sharded serving path)
+# ---------------------------------------------------------------------------
+
+def shard_failover(runtime, cache, shard: int) -> List[int]:
+    """Lose one shard's serving state: cold-mark every group the shard
+    owns (``ShardedActivationCache.invalidate_group``).  The next
+    ``sharded_fleet_step`` recomputes those groups in the same launches
+    that serve the other shards -- that recompute is the restore; the
+    packed activations are derived state, with no checkpoint to reload.
+    Returns the affected gids."""
+    gids = runtime.groups_on_shard(shard)
+    for gid in gids:
+        cache.invalidate_group(gid)
+    obs_metrics.FAULT_EVENTS.inc(1, event="shard_lost")
+    return list(gids)
+
+
+# ---------------------------------------------------------------------------
 # chaos drivers (production loops + optional fault/liveness hooks)
 # ---------------------------------------------------------------------------
 
@@ -549,3 +565,43 @@ def drive_chaos(det, frames_list: Sequence[Dict[int, List]],
             if newly:
                 detections[i] = newly
     return reports, outputs, total, detections
+
+
+def drive_chaos_sharded(runtime, frames_list: Sequence[Dict[int, List]],
+                        cache, threshold: float = 0.0,
+                        schedule: Optional[FaultSchedule] = None,
+                        keep_outputs: bool = False, seed: int = 0):
+    """``obs.loadgen.drive_sharded`` with fault injection and shard loss.
+
+    A shard-loss event fires at its ``t0`` before that step runs: the
+    owning groups are cold-marked and the step itself restores them
+    (``sharded_fleet_step`` asserts the dispatch structure throughout).
+    With no schedule it is ``drive_sharded``: the same maps and dispatch
+    Counter.  Kept outputs are copies (``obs.loadgen.kept_maps``), taken
+    after the step's wall.
+
+    Returns (reports, outputs, total Counter, lost: {step: [gids]})."""
+    from repro_torch.fleet.runtime import sharded_fleet_step
+    from repro_torch.obs.loadgen import kept_maps
+    from repro_torch.obs.slo import StepReport
+
+    inj = FaultInjector(schedule, seed=seed)
+    reports: List = []
+    outputs = []
+    lost: Dict[int, List[int]] = {}
+    total: collections.Counter = collections.Counter()
+    for i, frames in enumerate(frames_list):
+        frames = inj.apply(i, frames)
+        if schedule is not None:
+            for e in schedule.shard_starts(i):
+                gids = shard_failover(runtime, cache, e.shard)
+                lost.setdefault(i, []).extend(gids)
+        t0 = time.perf_counter()
+        outs, counts, stats = sharded_fleet_step(runtime, frames, cache,
+                                                 threshold)
+        reports.append(StepReport.from_reuse(
+            i, time.perf_counter() - t0, counts, stats))
+        total += counts
+        if keep_outputs:
+            outputs.append(kept_maps(outs))
+    return reports, outputs, total, lost

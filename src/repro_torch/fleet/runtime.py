@@ -18,9 +18,11 @@
   number of groups and layers.  ``fleet_reuse_step`` is the delta-gated
   variant: one ``tile_delta_gate`` dispatch prices every active tile
   against the cache, the same chain runs on the changed tiles only, and
-  one changed-only scatter updates the persistent head-map canvas.  Both
-  assert their dispatch structure on every step and record their spans
-  and metrics in ``obs`` (off by default).
+  one changed-only scatter updates the persistent head-map canvas.
+  ``sharded_fleet_step`` runs one step of the sharded runtime
+  (``fleet.sharded``): the same launches, each once per step whatever the
+  shard count.  All three assert their dispatch structure on every step
+  and record their spans and metrics in ``obs`` (off by default).
 
 The offline and online phases are host numpy, the same code as the JAX
 package's; the two steps run on the detector's device.
@@ -312,4 +314,42 @@ def fleet_reuse_step(det, frames: Dict[int, List],
     conv = sum(v for k, v in total.items() if k != "tile_delta_gate")
     assert conv <= 3, \
         f"reuse step must keep the <=3-dispatch conv ceiling: {dict(total)}"
+    return outs, total, stats
+
+
+def sharded_fleet_step(runtime, frames: Dict[int, List], cache,
+                       threshold=0.0):
+    """One delta-gated step of a ``fleet.sharded.ShardedSuperlaunch``,
+    with ``fleet_reuse_step``'s every-step dispatch assertion: each kernel
+    is counted once per step whatever the shard count, so the per-shard
+    ceiling and the fleet-wide count coincide -- the gate and the
+    <=3-dispatch conv chain on changed steps, the gate alone on
+    all-static steps (the persistent canvas is served as it stands),
+    nothing on an all-empty fleet.  The sharded path gates on cold steps
+    too: cold and warm shards share one set of launches.  Returns ({gid:
+    head maps}, dispatch Counter, ShardedReuseStats)."""
+    t0 = time.perf_counter()
+    with kops.count_kernels() as c, \
+            obs_trace.span("sharded_fleet_step", step=cache.steps) as sp:
+        outs, stats = runtime.step_reuse(frames, cache, threshold)
+        sp.set(computed=stats.computed, cold_shards=stats.cold_shards)
+    obs_metrics.observe_fleet_step(stats, time.perf_counter() - t0,
+                                   path="sharded")
+    total: collections.Counter = collections.Counter(c)
+    if stats.total_tiles == 0:
+        expected = {}
+    elif stats.k_max == 0:
+        expected = {"tile_delta_gate": 1}
+    else:
+        expected = {"tile_delta_gate": 1, "roi_conv_entry": 1,
+                    "roi_conv_stack":
+                        1 if runtime.det.num_conv_layers > 1 else 0,
+                    "sbnet_scatter_changed": 1}
+    expected = {k: v for k, v in expected.items() if v}
+    observed = {k: total[k] for k in expected}
+    assert observed == expected and not set(total) - set(expected), \
+        f"sharded dispatch structure broken: {dict(total)}"
+    conv = sum(v for k, v in total.items() if k != "tile_delta_gate")
+    assert conv <= 3, \
+        f"sharded step must keep the <=3-dispatch conv ceiling: {dict(total)}"
     return outs, total, stats

@@ -153,6 +153,63 @@ def superlaunch_tables(grids_per_group):
     return idx, nbr, tile_offsets, cam_starts
 
 
+class ShardPlan:
+    """Which camera groups each shard of the sharded runtime serves,
+    balanced by active-tile count (longest processing time first: sort
+    the groups by tiles, biggest first, and place each on the
+    least-loaded shard; max load <= mean load + the largest group).
+    Groups keep their offered order within a shard, so a shard's flat
+    tables are ``superlaunch_tables`` of an order-preserving
+    subsequence."""
+
+    def __init__(self, assignment: np.ndarray, tile_counts: np.ndarray,
+                 n_shards: int):
+        self.assignment = np.asarray(assignment, np.int64)   # (K,)
+        self.tile_counts = np.asarray(tile_counts, np.int64)  # (K,)
+        self.n_shards = int(n_shards)
+
+    @property
+    def n_groups(self) -> int:
+        return int(self.assignment.shape[0])
+
+    def shard_groups(self, s: int) -> "list[int]":
+        """Group positions assigned to shard ``s``, in offered order."""
+        return [int(i) for i in np.nonzero(self.assignment == s)[0]]
+
+    @property
+    def shard_tiles(self) -> np.ndarray:
+        """(S,) active tiles per shard."""
+        out = np.zeros(self.n_shards, np.int64)
+        np.add.at(out, self.assignment, self.tile_counts)
+        return out
+
+    @property
+    def imbalance(self) -> float:
+        """max / mean shard tile load (1.0 = balanced)."""
+        loads = self.shard_tiles
+        mean = float(loads.mean()) if loads.size else 0.0
+        return float(loads.max()) / mean if mean > 0 else 1.0
+
+
+def shard_plan(grids_per_group, n_shards: int) -> ShardPlan:
+    """The group -> shard assignment for ``n_shards`` shards of the
+    per-group camera grids (``superlaunch_tables``'s argument).
+    Deterministic: ties go to the earlier group and the lower shard."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    tiles = np.array([sum(int(np.count_nonzero(np.asarray(g, bool)))
+                          for g in gs) for gs in grids_per_group],
+                     np.int64)
+    order = np.argsort(-tiles, kind="stable")
+    loads = np.zeros(n_shards, np.int64)
+    assignment = np.zeros(tiles.shape[0], np.int64)
+    for gi in order:
+        s = int(np.argmin(loads))
+        assignment[gi] = s
+        loads[s] += tiles[gi]
+    return ShardPlan(assignment, tiles, n_shards)
+
+
 def dilate_changed(changed: np.ndarray, nbr: np.ndarray) -> np.ndarray:
     """One dilation of a per-tile bool set through the (n, 8) neighbour
     table (which never crosses cameras)."""
@@ -443,7 +500,7 @@ __all__ = ["KERNEL_NAMES", "KERNEL_COUNTS", "record_dispatch",
            "GATE_BODY_RUNS", "GATE_BODY_SABS", "GATE_WIN_EXACT",
            "GATE_WIN_BYTES", "mask_to_indices", "neighbor_table",
            "fleet_indices", "fleet_neighbor_table", "superlaunch_tables",
-           "dilate_changed", "reuse_sets", "compact_tables",
+           "ShardPlan", "shard_plan", "dilate_changed", "reuse_sets", "compact_tables",
            "roi_conv_entry", "roi_conv_fleet", "roi_conv",
            "roi_conv_batched", "roi_conv_packed", "roi_conv_stack",
            "sbnet_gather", "sbnet_scatter", "sbnet_scatter_fleet",

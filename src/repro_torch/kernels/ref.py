@@ -287,20 +287,11 @@ def roi_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     unchanged by either rule.  Returns (out, visited (H, S // block_q)
     int32 the ``hi`` of each q-block).  One head's (S, S) logits at a
     time."""
-    from repro_torch.kernels.roi_attention import (PAD_POS,
-                                                   block_min_positions)
+    from repro_torch.kernels.roi_attention import visit_bounds
     S, H, D = q.shape
     dev = q.device
-    nq, nk = S // block_q, S // block_k
-    if causal_skip:
-        kmin = block_min_positions(positions, block_k)
-        pos_q = positions.reshape(nq, block_q)
-        pmax = torch.where(pos_q != PAD_POS, pos_q, -1).amax(dim=1)
-        hits = kmin[None, :] <= pmax[:, None]
-        j = torch.arange(1, nk + 1, device=dev)
-        hi = torch.where(hits, j, 0).amax(dim=1)
-    else:
-        hi = torch.full((nq,), nk, device=dev)
+    nq = S // block_q
+    hi = visit_bounds(positions, block_q, block_k, causal_skip)
     hi_row = hi.repeat_interleave(block_q)
     kblock = torch.arange(S, device=dev) // block_k
     visible = (positions[:, None] >= positions[None, :]) \

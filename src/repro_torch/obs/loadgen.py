@@ -1,6 +1,5 @@
 """Heavy-traffic load generation: the SLO frontier sweep harness -- the
-port's copy of ``repro.obs.loadgen``, less ``drive_sharded``, which comes
-with the port's sharded runtime.
+port's copy of ``repro.obs.loadgen``.
 
 The paper's headline numbers (42-65% network reduction, 25-34% delay
 reduction at >99% accuracy) are one point; this module measures the
@@ -205,6 +204,32 @@ def drive_fleet(det, frames_list: Sequence[Dict[int, List]],
         t0 = time.perf_counter()
         outs, counts, stats = fleet_reuse_step(det, frames, grids, cache,
                                                threshold, qstep)
+        reports.append(StepReport.from_reuse(
+            i, time.perf_counter() - t0, counts, stats))
+        total += counts
+        if keep_outputs:
+            outputs.append(kept_maps(outs))
+    return reports, outputs, total
+
+
+def drive_sharded(runtime, frames_list: Sequence[Dict[int, List]], cache,
+                  threshold: float = 0.0, keep_outputs: bool = False):
+    """``drive_fleet``'s contract over a ``fleet.sharded.
+    ShardedSuperlaunch`` (each kernel counted once a step; the dispatch
+    structure is asserted inside ``sharded_fleet_step`` every step).
+    Kept outputs are copies (``kept_maps``), taken after the step's
+    wall."""
+    import collections
+
+    from repro_torch.fleet.runtime import sharded_fleet_step
+
+    reports: List[StepReport] = []
+    outputs = []
+    total: collections.Counter = collections.Counter()
+    for i, frames in enumerate(frames_list):
+        t0 = time.perf_counter()
+        outs, counts, stats = sharded_fleet_step(runtime, frames, cache,
+                                                 threshold)
         reports.append(StepReport.from_reuse(
             i, time.perf_counter() - t0, counts, stats))
         total += counts

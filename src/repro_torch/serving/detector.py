@@ -153,7 +153,8 @@ class PackedActivationCache:
       tile interiors, and at every threshold <= 0.
 
     The final layer's packed activations are not kept: the head maps come
-    from ``canvas``, and only the sharded runtime reads them back."""
+    from ``canvas``; the sharded runtime's cache
+    (``ShardedActivationCache``) keeps them."""
 
     def __init__(self, ref_mode: str = "canvas"):
         if ref_mode not in ("canvas", "packed"):
@@ -185,6 +186,71 @@ class PackedActivationCache:
         self.idx_np = None
         self.nbr_np = None
         self.cls_np = None
+        self.invalidations += 1
+
+    @property
+    def compute_fraction(self) -> float:
+        """Lifetime convolved-tile fraction vs full recompute (padding rows
+        included -- they are real launched work)."""
+        return self.launched_tiles / max(self.total_tiles, 1)
+
+
+class ShardedActivationCache:
+    """The ``PackedActivationCache`` sharded along the group axis: the
+    state of ``fleet.sharded.ShardedSuperlaunch``.
+
+    Each tensor is stacked per shard with one padded shape for all
+    shards, and held as a list of blocks, one per device of the mesh
+    (``distributed.shardings``; a one-device mesh has the one block
+    ``(S, ...)``): the final layer's packed activations ``packed`` (S,
+    n_max, th, tw, C_last), the persistent head-map canvas ``canvas`` (S,
+    F_max + 1, H, W, A) and the gate's reference canvas ``ref_canvas``
+    (S, F_max + 1, H + 2, W + 2, 3), camera slot F_max of each shard a
+    sacrificial plane that padding rows point at; ``epoch_np`` (S, n_max)
+    is the host's refresh-epoch table.  Validity is per shard: a drift
+    re-solve on one group cold-marks only the shard that owns it
+    (``invalidate_group``), and the next step recomputes that shard's
+    rows in the same launches that serve the warm shards."""
+
+    def __init__(self, plan: "kops.ShardPlan", gids=None):
+        self.plan = plan
+        self.gids = list(gids) if gids is not None else None
+        self.valid = np.zeros(plan.n_shards, bool)
+        self.packed: Optional[List[torch.Tensor]] = None
+        self.canvas: Optional[List[torch.Tensor]] = None
+        self.ref_canvas: Optional[List[torch.Tensor]] = None
+        self.epoch_np: Optional[np.ndarray] = None
+        self.canvas_bytes_last = 0
+        self.canvas_bytes_total = 0
+        self.invalidations = 0
+        self.shard_invalidations = np.zeros(plan.n_shards, np.int64)
+        self.steps = 0
+        self.cold_steps = 0          # steps with at least one cold shard
+        self.launched_tiles = 0
+        self.total_tiles = 0
+
+    def owner_shard(self, group) -> int:
+        """The shard owning ``group`` (a gid when the cache was built with
+        ``gids``, else a plan position)."""
+        pos = self.gids.index(group) if self.gids is not None else int(group)
+        return int(self.plan.assignment[pos])
+
+    def invalidate_group(self, group) -> None:
+        """Cold-mark only the shard owning ``group``; every other shard's
+        rows stay valid."""
+        s = self.owner_shard(group)
+        self.valid[s] = False
+        self.shard_invalidations[s] += 1
+        self.invalidations += 1
+
+    def invalidate(self, _adapter=None) -> None:
+        """Drop everything (the ``PackedActivationCache`` hook); takes and
+        ignores a ``DriftAdapter``, so it can be a mask listener."""
+        self.valid[:] = False
+        self.packed = None
+        self.canvas = None
+        self.ref_canvas = None
+        self.epoch_np = None
         self.invalidations += 1
 
     @property

@@ -157,6 +157,39 @@ def test_visit_bounds_equal_the_reference(S, H, D, bq, bk, keep_frac):
         assert bound.sum() == real_q * (real_q + 1) // 2
 
 
+# blocks that divide S but that the kernel has no instance for (C1): the
+# CUDA route runs them on kernel_blocks' instance over padded tokens and
+# takes the visited counts from visit_bounds at the caller's blocks
+ANY_BLOCKS = [(96, 16, 16), (96, 16, 48), (96, 48, 32), (512, 256, 128),
+              (512, 256, 16), (192, 96, 64), (256, 32, 32), (384, 128, 96)]
+
+
+@pytest.mark.parametrize("S,bq,bk", ANY_BLOCKS)
+@pytest.mark.parametrize("keep_frac", [0.0, 0.3, 1.0])
+def test_visit_bounds_at_any_dividing_blocks(S, bq, bk, keep_frac):
+    """The CUDA route's visited counts at blocks outside the kernel's
+    instances: ``visit_bounds`` equals the JAX package's host bound, the
+    plain version's visited counts (every k-block without the skip), and
+    the instance ``kernel_blocks`` picks takes the padded length."""
+    rng = np.random.default_rng(S + bq + bk)
+    n_kept = int(keep_frac * S)
+    pos = _packed_positions(rng, S, n_kept)
+    tpos = torch.from_numpy(pos)
+    hi = tattn.visit_bounds(tpos, bq, bk)
+    np.testing.assert_array_equal(hi.numpy(),
+                                  jops.attention_visit_bound(pos, bq, bk))
+    q, k, v = (torch.from_numpy(a) for a in _qkv(rng, S, 2, 16))
+    _, vis = tref.roi_attention(q, k, v, tpos, bq, bk)
+    assert torch.equal(vis, hi.to(torch.int32)[None].expand(2, S // bq))
+    assert (tattn.visit_bounds(tpos, bq, bk, causal_skip=False)
+            == S // bk).all()
+    kq, kk = tattn.kernel_blocks(bq, bk)
+    assert kq in tattn.BLOCKS_Q and kk % tattn.SUB_CHUNK == 0
+    assert kq >= min(bq, tattn.BLOCKS_Q[-1]) and bk <= kk < bk + 32
+    if bq in tattn.BLOCKS_Q and bk % tattn.SUB_CHUNK == 0:
+        assert (kq, kk) == (bq, bk)
+
+
 def test_all_padding_stream_gives_zeros():
     S = 128
     pos = torch.full((S,), PAD, dtype=torch.int32)

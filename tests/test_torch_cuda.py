@@ -857,6 +857,48 @@ def test_cuda_roi_attention_matches_plain_version(cuda, dtype, tol, S, H, D,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 0.05)])
+@pytest.mark.parametrize("S,H,D,bq,bk", [
+    (96, 2, 32, 16, 16), (96, 2, 32, 16, 48), (192, 2, 64, 96, 64),
+    (512, 2, 64, 256, 128), (512, 1, 128, 256, 16)])
+def test_cuda_roi_attention_any_dividing_blocks(cuda, dtype, tol, S, H, D,
+                                                bq, bk):
+    """C1: blocks the kernel has no instance for, against the plain
+    version at those blocks on real rows; real rows bitwise equal to a
+    launch of ``kernel_blocks``' instance on the tokens padded to it; the
+    visited counts equal the host bound at the caller's blocks; skip ==
+    exhaustive on real rows."""
+    rng = np.random.default_rng(S + bq + bk)
+    n_kept = int(0.7 * S)
+    pos = _packed_positions(rng, S, n_kept)
+    q, k, v = (torch.as_tensor(rng.normal(size=(S, H, D)), dtype=dtype,
+                               device=cuda) for _ in range(3))
+    p = torch.as_tensor(pos, device=cuda)
+    out, vis = tops.roi_attention(q, k, v, p, bq, bk, return_stats=True)
+    full = tops.roi_attention(q, k, v, p, bq, bk, causal_skip=False)
+    want, want_vis = tref.roi_attention(q, k, v, p, bq, bk)
+    kq, kk = roi_attention.kernel_blocks(bq, bk)
+    Sp = -(-S // np.lcm(kq, kk)) * int(np.lcm(kq, kk))
+    pad = [torch.nn.functional.pad(t, (0, 0, 0, 0, 0, Sp - S))
+           for t in (q, k, v)]
+    pp = torch.nn.functional.pad(p, (0, Sp - S), value=roi_attention.PAD_POS)
+    direct, _ = roi_attention.roi_attention(*pad, pp, kq, kk)
+    assert out.shape == (S, H, D) and vis.shape == (H, S // bq)
+    g, w = out[:n_kept].float(), want[:n_kept].float()
+    assert (g - w).abs().max().item() <= tol
+    if dtype == torch.bfloat16:
+        share = ((g - w).abs() / (2.0 ** -7 * w.abs() + 1e-3)).max().item()
+        assert share <= 1.0
+    assert torch.equal(out[:n_kept], direct[:n_kept])
+    assert torch.equal(out[:n_kept], full[:n_kept])
+    bound = tops.attention_visit_bound(pos, bq, bk)
+    np.testing.assert_array_equal(vis.cpu().numpy(),
+                                  np.broadcast_to(bound, (H, S // bq)))
+    assert torch.equal(vis, want_vis)
+
+
+@pytest.mark.cuda
 def test_cuda_roi_attention_all_padding_and_dense(cuda):
     """An all-padding stream visits nothing and gives exact zeros; keep-all
     positions give plain causal attention."""

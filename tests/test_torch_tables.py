@@ -134,7 +134,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.fleet.topology", "repro_torch.obs.sentinel",
             "repro_torch.obs.loadgen", "repro_torch.fleet.faults",
             "repro_torch.fleet.drift", "repro_torch.data",
-            "repro_torch.data.streams"} <= set(mods)
+            "repro_torch.data.streams", "repro_torch.fleet.sharded",
+            "repro_torch.launch.mesh",
+            "repro_torch.distributed.shardings"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'"
@@ -147,10 +149,13 @@ def test_importing_the_port_loads_no_jax():
     assert out.stdout.strip() == "[]"
 
 
-@pytest.mark.parametrize("module", ["repro_torch", "repro_torch.obs"])
+@pytest.mark.parametrize("module", ["repro_torch", "repro_torch.obs",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.distributed.shardings"])
 def test_importing_the_package_or_obs_loads_no_core_or_net(module):
     """``obs`` (its harnesses included) imports the rest of the port
-    inside its functions only."""
+    inside its functions only; the fleet mesh and its placement import
+    none of it."""
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.startswith(("
             "'repro_torch.core', 'repro_torch.net', "
@@ -164,6 +169,9 @@ def test_importing_the_package_or_obs_loads_no_core_or_net(module):
 
 def test_port_sources_import_no_jax_or_reference():
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
+    port = ROOT / "src" / "repro_torch"
+    assert {port / "fleet" / "sharded.py", port / "launch" / "mesh.py",
+            port / "distributed" / "shardings.py"} <= set(files)
     files.append(ROOT / "chip_smoke.py")
     examples = sorted((ROOT / "examples").glob("torch_*.py"))
     assert len(examples) == 3

@@ -10,7 +10,21 @@ dispatches, as the real wrappers do.  Import the fixture into a test
 module with ``from torch_jax_oracle import jax_oracle``.
 ``detector_pair`` builds the two packages' detectors on the same
 weights.
+
+The JAX package's sharded runtime (``repro.fleet.sharded``) calls four
+Pallas kernels under module-level names inside ``shard_map`` programs.
+The ``jax_sharded_oracle`` fixture swaps them for traceable jnp
+compositions (``install_sharded_shims``), which count nothing: the
+runtime counts each kernel itself, once per step.  ``run_jax_sharded``
+runs a script against the shimmed runtime in a subprocess with several
+forced host devices, as ``tests/test_sharded.py`` runs its multi-shard
+case.
 """
+import os
+import subprocess
+import sys
+import textwrap
+
 import numpy as np
 import pytest
 
@@ -19,6 +33,7 @@ import jax.numpy as jnp
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels import tile_delta as jtile_delta
 from repro.kernels.roi_conv import assemble_rims
 from repro.serving import detector as jdet
 from repro_torch.serving import detector as tdet
@@ -155,3 +170,94 @@ def detector_pair(seed=0, channels=(8, 16, 16), tile=8):
         [np.asarray(w) for w in jd.weights], np.asarray(jd.head),
         device="cpu")
     return jd, td
+
+
+# ---------------------------------------------------------------------------
+# the sharded runtime's four kernels as traceable jnp
+# ---------------------------------------------------------------------------
+
+def _sh_gate(xp, ref_c, idx, th, tw, qstep=8.0, coef_bits=6, run_bits=10,
+             block=1, interpret=True):
+    """``tile_delta_gate_canvas``: the body and window stats of the
+    kernel's ``_batched_stats`` on the gathered window pairs, and the
+    exact ``!=`` count."""
+    cur = jops.gather_windows(xp, idx, th, tw)
+    prev = jops.gather_windows(ref_c, idx, th, tw)
+    body = jtile_delta._batched_stats(cur[:, 1:1 + th, 1:1 + tw],
+                                      prev[:, 1:1 + th, 1:1 + tw], qstep,
+                                      coef_bits, run_bits)
+    win_bytes = jtile_delta._batched_stats(cur, prev, qstep, coef_bits,
+                                           run_bits)[0]
+    exact = jnp.sum((cur != prev).astype(jnp.int32), axis=(1, 2, 3))
+    out = jnp.zeros((idx.shape[0], 8), jnp.int32)
+    for c, v in enumerate(body):
+        out = out.at[:, c].set(v)
+    return out.at[:, jops.GATE_WIN_EXACT].set(exact) \
+              .at[:, jops.GATE_WIN_BYTES].set(win_bytes)
+
+
+def _sh_entry(x, w, idx, th, tw, block=1, interpret=True):
+    """``roi_conv_entry``: the SAME-padded frames' haloed windows, a VALID
+    3x3 conv, ReLU."""
+    xp = jnp.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    win = jops.gather_windows(xp, idx, th, tw)
+    return jax.nn.relu(jax.lax.conv_general_dilated(
+        win, w, (1, 1), "VALID", dimension_numbers=("NHWC", "HWIO", "NHWC")))
+
+
+def _sh_stack(packed, ws, nbr, block=128, interpret=True):
+    """``roi_conv_stack``: the ``assemble_rims`` layers, each with ReLU."""
+    for w in ws:
+        packed = jax.nn.relu(_packed_layer(packed, w, nbr))
+    return packed
+
+
+def _sh_scatter(packed, idx, base, block=1, interpret=True):
+    """``sbnet_scatter_changed``: the rows in order, each tile written over
+    ``base`` (a later row wins a shared target)."""
+    th, tw = packed.shape[1:3]
+
+    def one(i, b):
+        r = idx[i]
+        return jax.lax.dynamic_update_slice(
+            b, packed[i][None], (r[0], r[1] * th, r[2] * tw, 0))
+
+    return jax.lax.fori_loop(0, packed.shape[0], one, base)
+
+
+SHARDED_SHIMS = {"_raw_gate_canvas": _sh_gate, "_raw_entry": _sh_entry,
+                 "_raw_stack": _sh_stack,
+                 "_raw_scatter_changed": _sh_scatter}
+
+
+def install_sharded_shims(setattr_fn=setattr):
+    """Swap the four kernels of ``repro.fleet.sharded`` for the jnp
+    compositions above (``setattr_fn``: a monkeypatch's ``setattr`` in a
+    test, plain ``setattr`` in a subprocess)."""
+    from repro.fleet import sharded as jsharded
+    for name, fn in SHARDED_SHIMS.items():
+        setattr_fn(jsharded, name, fn)
+
+
+@pytest.fixture
+def jax_sharded_oracle(monkeypatch):
+    install_sharded_shims(monkeypatch.setattr)
+
+
+def run_jax_sharded(script: str, devices: int = 2, timeout: int = 600):
+    """Run ``script`` in a fresh interpreter that sees ``devices`` host
+    devices, with ``src/`` and ``tests/`` importable and the sharded
+    shims installed; returns its standard output."""
+    tests = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.dirname(tests)
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={devices}"
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.pathsep.join([os.path.join(root, "src"), tests])
+    code = ("from torch_jax_oracle import install_sharded_shims\n"
+            "install_sharded_shims()\n" + textwrap.dedent(script))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=timeout, env=env)
+    assert r.returncode == 0, \
+        f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr[-3000:]}"
+    return r.stdout
