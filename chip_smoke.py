@@ -169,6 +169,33 @@ is non-zero:
    the kept patches alone (the pruned-prompt identity); B12 through its
    entry point on the engine's own layer-0 and last-layer q/k/v, against
    its plain version and the engine's ``blockwise_attention``;
+3i. the windowed, local/global and MoE decoders on the serving path,
+   after 3f's tensors are freed, each at full width with bf16 weights
+   drawn on the card: h2o-danube3-4b (24 layers, a window of 4,096 on
+   every layer), gemma3-27b (62 layers, 5:1 local (window 1,024) :
+   global, 2 trailing local layers), deepseek-moe-16b (28 layers, 64
+   experts top-6, 2 shared, the first layer dense) and
+   qwen3-moe-235b-a22b at 4 of its 94 layers (437.9 GiB of bf16 at full
+   depth; 128 experts top-8, 4 KV heads).  Each serves 4 requests
+   through ``serve`` with 16 greedy steps -- 2 dense prompts past the
+   window (4,608 tokens for h2o, 1,536 for gemma3, 1,024 for the MoE
+   models) and 2 keep-lists no longer than the window -- with each
+   prefill's and decode step's host-clock ms and the peak memory; each
+   group decode step's row 0 against request 0 served alone (a B = 1
+   prefill and decode fed the same tokens, a MoE model routed as the
+   group routed it), within 0.05 of the largest |logit|; the window
+   models hold the ring identity (a dense prompt that wraps the ring, 16
+   greedy decode steps, each step's logits against a fresh prefill of
+   the prompt and the tokens so far, within the same bar); the MoE
+   models print the served prefill's dropped share and aux loss per
+   layer and hold the same teacher-forced check on the dropless
+   ``capacity_factor = E / K`` -- in bf16 on every step with every real
+   row of the fresh prefill routed as the decode path routed it (the
+   fresh prefill on its own routing printed beside it, with each step's
+   count of layers whose routing of the new token flips and the first
+   flip's margin and input difference), and on every step with the same
+   weights drawn in float32 on their own routing; the phase launches
+   none of the kernels;
 4. a ``kernels`` JSON line with each kernel's launches on its path (B1-B5
    on the fleet path of phases 3 and 3b, B10 and B11 on the rate-control
    loop, B6-B9 on phase 3d's paths, B12 on the engine's tensors in 3f),
@@ -180,7 +207,9 @@ The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the ``src/repro_torch`` package beside this file, it exits
 non-zero and prints no result.
 """
+import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -2819,6 +2848,439 @@ def sharded_path(torch, det, dev, fleet, off, grids, frames):
     say(f"[3h] sharded phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 3i: the windowed, local/global and MoE decoders on the serving path
+# ---------------------------------------------------------------------------
+
+# (arch, depth or None for full, dense prompt length): the dense prompts
+# are longer than the window (4,096 for h2o, 1,024 for gemma3's local
+# layers); qwen3-moe-235b-a22b's 94 layers are 437.9 GiB of bf16, so it
+# runs at full width and 4 layers
+DECODERS = (("h2o-danube3-4b", None, 4608), ("gemma3-27b", None, 1536),
+            ("deepseek-moe-16b", None, 1024),
+            ("qwen3-moe-235b-a22b", 4, 1024))
+DECODER_STEPS = 16             # greedy steps served and teacher-forced
+DECODER_KEEP = 0.5             # the keep-list requests' kept share
+IDENTITY_REL_TOL = PRUNED_REL_TOL   # of the largest |logit|, as phase 3f
+
+
+def decoder_prompts(cfg, dense_len):
+    """Two dense prompts of ``dense_len`` token ids and two keep-list
+    prompts no longer than the window (packed, at most the window: the
+    packed-prompt ring of ROADMAP C-R4 stays out), from the seed."""
+    rng = np.random.default_rng((SEED, 300))
+    roi_len = min(cfg.window_size or dense_len, dense_len)
+    out = []
+    for i, n in enumerate((dense_len, roi_len, dense_len, roi_len)):
+        keep = rng.random(n) < DECODER_KEEP if i % 2 else None
+        out.append((rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    keep))
+    return out
+
+
+def teacher_prefill(torch, M, params, cfg, toks):
+    """The logits of a fresh prefill of ``toks`` at its last row, the
+    tokens padded to a multiple of 128 with ``PAD_POS`` rows (which no
+    real row sees) so that the KV chunks and query blocks stay whole."""
+    from repro_torch.kernels import ops
+    packed, positions, n = ops.pack_tokens(
+        toks, torch.ones_like(toks, dtype=torch.bool))
+    logits, _ = M.prefill(params, cfg, {"tokens": packed[None]}, None,
+                          positions=positions[None], last_index=n - 1)
+    return logits[0, -1].float()
+
+
+@contextlib.contextmanager
+def routing_tape(torch, forced=None, row=None):
+    """Patch ``models.moe.router_topk`` while the block runs.  Yields a
+    list with one dict a call: the call's own top-k indices (``idx``)
+    and, with ``row``, that row's MoE input (``x``) and top-(k + 1)
+    probabilities (``top``).  Where ``forced`` (one entry a call, in
+    call order) holds a (B, n, k) index tensor, rows [0, n) take those
+    experts, weighted by the call's own probabilities renormalised, as
+    ``router_topk`` weights its own choice."""
+    from repro_torch.models import moe
+    orig = moe.router_topk
+    tape = []
+
+    def topk(x, router_w, k):
+        vals, idx, aux = orig(x, router_w, k)
+        rec = {"idx": idx}
+        f = None if forced is None else forced[len(tape)]
+        if row is not None or f is not None:
+            probs = torch.softmax(torch.einsum(
+                "bsd,de->bse", x.float(), router_w.float()), dim=-1)
+        if row is not None:
+            rec["x"] = x[0, row].float()
+            rec["top"] = probs[0, row].topk(k + 1).values
+        if f is not None:
+            n = f.shape[1]
+            v = probs[:, :n].gather(-1, f)
+            vals, idx = vals.clone(), idx.clone()
+            vals[:, :n] = v / torch.clamp_min(v.sum(dim=-1, keepdim=True),
+                                              1e-9)
+            idx[:, :n] = f
+        tape.append(rec)
+        return vals, idx, aux
+
+    moe.router_topk = topk
+    try:
+        yield tape
+    finally:
+        moe.router_topk = orig
+    assert forced is None or len(tape) == len(forced), (len(tape),
+                                                        len(forced))
+
+
+def same_experts(a, b):
+    """Equal expert sets along the last dim (top-k order aside)."""
+    return bool((a.sort(dim=-1).values == b.sort(dim=-1).values).all())
+
+
+def decode_identity(torch, dev, M, params, cfg, prompt, force=False):
+    """Prefill ``prompt`` into fresh caches, greedy-decode DECODER_STEPS
+    tokens, and hold each step's logits against a fresh prefill of the
+    prompt and the tokens so far.  Returns a dict: ``shares``, each
+    step's largest error as a share of that step's max |logit|;
+    ``scale``, the largest |logit|; ``shapes``, the caches'.  A MoE
+    model adds ``flips``, each step's count of MoE layers whose top-k for
+    the new token differs between the decode and the fresh prefill;
+    ``first``, per step, the first such layer's (index, decode's margin
+    between its k-th and (k+1)-th probability, that layer's input
+    difference as a share of its largest |x|, the same share at the first
+    MoE layer), or None; ``prompt_flips``, the (row, layer) pairs of the
+    prompt that the fresh prefill routes otherwise than the prompt's own
+    prefill did.  With ``force``, each step also runs the fresh prefill
+    with every real row routed as the decode path routed it (the prompt
+    as its prefill, each new token as its decode step): ``forced``, those
+    steps' shares."""
+    S = prompt.shape[0]
+    K = cfg.experts_per_token
+    toks = torch.as_tensor(prompt, dtype=torch.long, device=dev)
+    caches = M.init_cache(cfg, 1, S + DECODER_STEPS, dev)
+    with routing_tape(torch) as tape:
+        logits, _ = M.prefill(params, cfg, {"tokens": toks[None]}, caches)
+    routed = [r["idx"] for r in tape]             # per MoE layer (1, S, K)
+    out = {"shares": [], "flips": [], "first": [], "forced": []}
+    scale = 0.0
+    for i in range(DECODER_STEPS):
+        tok = logits[0, -1].argmax().reshape(1, 1)
+        toks = torch.cat([toks, tok[0]])
+        with routing_tape(torch, row=0) as dec:
+            logits, _ = M.decode_step(params, cfg, tok, caches, S + i)
+        got = logits[0, -1].float()
+        assert torch.isfinite(got).all()
+        row = len(toks) - 1
+        with routing_tape(torch, row=row) as tea:
+            want = teacher_prefill(torch, M, params, cfg, toks)
+        s = float(want.abs().max())
+        scale = max(scale, s)
+        out["shares"].append(float((got - want).abs().max()) / s)
+        if not dec:
+            continue
+        if i == 0:
+            out["prompt_flips"] = sum(
+                int((t["idx"][0, :S].sort(dim=-1).values
+                     != p["idx"][0].sort(dim=-1).values).any(dim=-1).sum())
+                for t, p in zip(tea, tape))
+        flipped = [j for j, (d, t) in enumerate(zip(dec, tea))
+                   if not same_experts(d["idx"][0, 0], t["idx"][0, row])]
+        out["flips"].append(len(flipped))
+
+        def gap(j):
+            x = dec[j]["x"]
+            return float((x - tea[j]["x"]).abs().max() / x.abs().max())
+
+        if flipped:
+            j = flipped[0]
+            top = dec[j]["top"]
+            out["first"].append((j, float(top[K - 1] - top[K]), gap(j),
+                                 gap(0)))
+        else:
+            out["first"].append(None)
+        routed = [torch.cat([r, d["idx"]], dim=1)
+                  for r, d in zip(routed, dec)]
+        if force:
+            with routing_tape(torch, forced=routed):
+                want = teacher_prefill(torch, M, params, cfg, toks)
+            out["forced"].append(float((got - want).abs().max())
+                                 / float(want.abs().max()))
+    out["scale"] = scale
+    out["shapes"] = {k: tuple(v[0].shape) for k, v in caches.items()}
+    return out
+
+
+def fmt(xs):
+    return "[" + ", ".join(f"{x:.3g}" for x in xs) + "]"
+
+
+def fmt_first(first):
+    return "[" + ", ".join(
+        "-" if f is None else
+        f"(layer {f[0]}, margin {f[1]:.2e}, input {f[2]:.2e}; first "
+        f"{f[3]:.2e})" for f in first) + "]"
+
+
+def moe_layer_stats(torch, dev, F, params, cfg, prompt):
+    """The served config's prefill of ``prompt``, layer by layer: each MoE
+    layer's dropped share and aux loss."""
+    x = F._embed(params, cfg, torch.as_tensor(prompt, device=dev)[None])
+    rope = F._rope(cfg, x.shape[1], device=dev)
+    dense = F._sub(params, "dense_")
+    for i in range(cfg.first_dense_layers):
+        x, _ = F.dense_block(x, F.layer_params(dense, i), cfg,
+                             rope_sincos=rope)
+    stack = F._sub(params, "blocks_")
+    dropped, aux = [], []
+    for i in range(cfg.num_layers - cfg.first_dense_layers):
+        x, a, d, _ = F.moe_block(x, F.layer_params(stack, i), cfg,
+                                 rope_sincos=rope)
+        dropped.append(round(float(d), 5))
+        aux.append(round(float(a), 4))
+    return dropped, aux
+
+
+def moe_identity_bf16(torch, dev, M, params, cfg, prompt):
+    """The MoE identity on the dropless ``capacity_factor = E / K``, bf16.
+    Each step's fresh prefill runs twice: with its own routing, where the
+    layers whose routing of the new token flips against the decode's are
+    counted and the first flip is described (bf16 rounding moves
+    near-tied experts), and with every real row routed as the decode path
+    routed it -- every step of that within the bar."""
+    dl = cfg.replace(capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    n_moe = cfg.num_layers - cfg.first_dense_layers
+    t0 = time.perf_counter()
+    r = decode_identity(torch, dev, M, params, dl, prompt, force=True)
+    say(f"[3i] {cfg.name} MoE identity, bf16, on the dropless capacity "
+        f"factor {dl.capacity_factor:g} (E / K): {DECODER_STEPS} decode "
+        f"steps against fresh prefills of the prompt and the tokens so far; "
+        f"caches {r['shapes']}; max |logit| {r['scale']:.4f}; error per "
+        f"step as a share of it, the prefill routed as the decode "
+        f"{fmt(r['forced'])} (bar {IDENTITY_REL_TOL}), the prefill on its "
+        f"own routing {fmt(r['shares'])}; MoE layers whose "
+        f"top-{cfg.experts_per_token} for the new token differ between "
+        f"decode and prefill, per step {r['flips']}; the first of them "
+        f"(decode's k-th minus (k+1)-th probability there, the layer's "
+        f"input difference as a share of its max |x|, the same at the first "
+        f"MoE layer) {fmt_first(r['first'])}; prompt (row, layer) pairs the "
+        f"fresh prefill routes otherwise than the prompt's own "
+        f"{r['prompt_flips']} of {len(prompt) * n_moe}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert len(r["forced"]) == DECODER_STEPS
+    assert max(r["forced"]) <= IDENTITY_REL_TOL, r["forced"]
+
+
+def moe_identity_f32(torch, dev, M, cfg, prompt):
+    """The same identity with the weights drawn in float32 from the same
+    seed (the bf16 weights are their rounding) and float32 caches, each
+    fresh prefill on its own routing: every step within the bar."""
+    from repro_torch.models.params import init_params
+    f32 = cfg.replace(capacity_factor=cfg.num_experts / cfg.experts_per_token,
+                      dtype="float32", kv_cache_dtype="float32")
+    params = init_params(f32, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    t0 = time.perf_counter()
+    r = decode_identity(torch, dev, M, params, f32, prompt)
+    say(f"[3i] {cfg.name} MoE identity, float32 weights and caches "
+        f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB): max |logit| "
+        f"{r['scale']:.4f}; error per step as a share of it "
+        f"{fmt(r['shares'])} (bar {IDENTITY_REL_TOL}); routing flips per "
+        f"step {r['flips']}; prompt (row, layer) pairs routed otherwise "
+        f"{r['prompt_flips']}; {time.perf_counter() - t0:.1f} s")
+    assert max(r["shares"]) <= IDENTITY_REL_TOL, r["shares"]
+
+
+def engine_vs_solo(torch, dev, M, params, cfg, prompt, steps, tape):
+    """Request 0 of the served group alone: a B = 1 prefill of its prompt
+    into fresh caches and DECODER_STEPS decode steps fed the group's
+    row-0 tokens, each step's logits against the group decode's row 0.
+    ``steps``: the group decode's (row-0 token, row-0 position, row-0
+    logits) per step; ``tape``: the serve's routing (request 0's prefill
+    first, then the group decode's (G, 1, k) calls), which a MoE model's
+    solo run follows.  Returns (each step's largest error as a share of
+    the group row's max |logit|, whether the solo prefill's greedy token
+    is the group's first input, the (step, layer) pairs whose own routing
+    differed)."""
+    S = prompt.shape[0]
+    n_moe = len([r for r in tape if r["idx"].shape[0] > 1]) // len(steps)
+    pre = [r["idx"] for r in tape[:n_moe]]
+    dec = [r["idx"][:1] for r in tape if r["idx"].shape[0] > 1]
+    assert all(p.shape[1] == S for p in pre)
+    toks = torch.as_tensor(prompt, dtype=torch.long, device=dev)[None]
+    caches = M.init_cache(cfg, 1, S + DECODER_STEPS, dev)
+    with routing_tape(torch, forced=pre):
+        logits, _ = M.prefill(params, cfg, {"tokens": toks}, caches)
+    first_same = int(logits[0, -1].argmax()) == int(steps[0][0])
+    shares, flips = [], 0
+    for i, (tok, pos, want) in enumerate(steps):
+        assert pos == S + i, (pos, S, i)
+        force = dec[i * n_moe:(i + 1) * n_moe]
+        with routing_tape(torch, forced=force) as own:
+            logits, _ = M.decode_step(params, cfg, tok.reshape(1, 1),
+                                      caches, pos)
+        flips += sum(not same_experts(o["idx"], f)
+                     for o, f in zip(own, force))
+        got = logits[0, -1].float()
+        assert torch.isfinite(got).all()
+        shares.append(float((got - want).abs().max())
+                      / float(want.abs().max()))
+    return shares, first_same, flips
+
+
+def decoder_phase(torch, dev):
+    """Phase 3i: each of DECODERS at full width with bf16 weights drawn on
+    the card -- ``serve`` of 2 dense prompts past the window and 2
+    keep-list prompts with DECODER_STEPS greedy steps, timed per prefill
+    and decode step, its row 0 against request 0 alone
+    (``engine_vs_solo``); the ring identity (window models) or the MoE
+    identities (``moe_identity_bf16``, ``moe_identity_f32``) over
+    DECODER_STEPS teacher-forced steps; the MoE layers' dropped shares
+    and aux losses at the served capacity factor; peak memory per
+    model."""
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.models import forward as F, model as M
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    for arch, depth, dense_len in DECODERS:
+        cfg = get_config(arch)
+        cut = ""
+        if depth is not None:
+            cut = (f" (depth cut from {cfg.num_layers} layers, "
+                   f"{cfg.param_count() * 2 / 2 ** 30:.1f} GiB of bf16, to "
+                   f"{depth})")
+            cfg = cfg.replace(num_layers=depth)
+        # the engines' timing wrappers close over the engine: collect the
+        # last model's cycle before the next model is drawn
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        torch.cuda.synchronize()
+        pattern = (f"window {cfg.window_size}" if cfg.window_size else
+                   "full attention")
+        if cfg.global_every > 1:
+            pattern = (f"{cfg.global_every - 1}:1 local (window "
+                       f"{cfg.window_size}) : global")
+        if cfg.family == "moe":
+            pattern += (f", {cfg.num_experts} experts top-"
+                        f"{cfg.experts_per_token}, {cfg.num_shared_experts} "
+                        f"shared, {cfg.first_dense_layers} dense first")
+        say(f"[3i] {arch}: {cfg.num_layers} layers{cut or ' (full depth)'}"
+            f", d_model {cfg.d_model}, heads {cfg.num_heads}/"
+            f"{cfg.num_kv_heads} of {cfg.head_dim}, {pattern}; "
+            f"{count_params(params) / 1e9:.3f} B parameters "
+            f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB, "
+            f"{cfg.dtype}) drawn in {time.perf_counter() - t0:.1f} s")
+
+        # serve: 2 dense prompts past the window, 2 keep-lists
+        engine = ServingEngine(cfg, ServeConfig(max_batch=4,
+                                                roi_sparsity=True), params)
+        prefill_ms, decode_ms = [], []
+
+        def timed(fn, into):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                into.append(round((time.perf_counter() - t) * 1e3, 3))
+                return out
+            return run
+
+        engine.prefill = timed(engine.prefill, prefill_ms)
+        engine.roi_prefill = timed(engine.roi_prefill, prefill_ms)
+        group_decode = timed(engine._decode_group, decode_ms)
+        row0 = []           # the group decode's row 0: token, position, logits
+
+        def decode_group(tokens, caches, pos):
+            logits, caches = group_decode(tokens, caches, pos)
+            row0.append((tokens[0].clone(), int(pos[0]),
+                         logits[0, -1].float().clone()))
+            return logits, caches
+
+        engine._decode_group = decode_group
+        prompts = decoder_prompts(cfg, dense_len)
+        reqs = [Request(i, tokens=t, keep=k, max_new_tokens=DECODER_STEPS)
+                for i, (t, k) in enumerate(prompts)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with routing_tape(torch) as tape:
+            out = engine.serve(reqs, greedy_steps=DECODER_STEPS)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ring = {k: tuple(v[0].shape) for k, v in engine._ring.items()}
+        kept = [None if k is None else int(k.sum()) for _, k in prompts]
+        say(f"[3i] {arch} serve: requests of {[len(t) for t, _ in prompts]}"
+            f" tokens ({kept} kept), {DECODER_STEPS} greedy steps: wall {wall * 1e3:.1f} "
+            f"ms; prefill ms {prefill_ms}; decode ms per step {decode_ms}; "
+            f"peak memory {peak:.2f} GiB; group caches {ring}; tokens "
+            f"{ {k: v.tolist() for k, v in out.items()} }")
+        assert sorted(out) == [0, 1, 2, 3] and len(prefill_ms) == 4
+        assert len(decode_ms) == DECODER_STEPS
+        assert all(t.shape == (DECODER_STEPS,) and (t >= 0).all()
+                   and (t < cfg.vocab_size).all() for t in out.values())
+        if cfg.window_size:
+            assert all(s[2] == min(cfg.window_size, dense_len
+                                   + DECODER_STEPS)
+                       for k, s in ring.items() if k != "global")
+        # the engine's group path (per-row slots at mixed positions, every
+        # cache key's slot views, the stacked decode) against request 0
+        # served alone
+        t0 = time.perf_counter()
+        shares, first_same, flips = engine_vs_solo(
+            torch, dev, M, params, cfg, prompts[0][0], row0, tape)
+        say(f"[3i] {arch} served request 0 against itself alone (a B = 1 "
+            f"prefill and decode fed the group's row-0 tokens"
+            f"{', routed as the group routed it' if tape else ''}): error "
+            f"per step as a share of the group row's max |logit| "
+            f"{fmt(shares)} (bar {IDENTITY_REL_TOL}); the solo prefill's "
+            f"greedy token {'is' if first_same else 'is not'} the group's "
+            f"first; (step, layer) pairs the solo would route otherwise "
+            f"{flips}; {time.perf_counter() - t0:.1f} s")
+        assert len(shares) == DECODER_STEPS, shares
+        assert max(shares) <= IDENTITY_REL_TOL, shares
+        # the wrappers hold the engine, and through it the weights
+        del engine, group_decode, decode_group, row0, tape
+
+        # the ring identity, or the MoE identity on the dropless config
+        prompt = prompts[0][0]
+        if cfg.family != "moe":
+            t0 = time.perf_counter()
+            r = decode_identity(torch, dev, M, params, cfg, prompt)
+            say(f"[3i] {arch} ring identity (the prompt of {len(prompt)} "
+                f"wraps the window of {cfg.window_size}): {DECODER_STEPS} "
+                f"decode steps against fresh prefills of the prompt and the "
+                f"tokens so far; caches {r['shapes']}; max |logit| "
+                f"{r['scale']:.4f}; error per step as a share of it "
+                f"{fmt(r['shares'])} (bar {IDENTITY_REL_TOL}); "
+                f"{time.perf_counter() - t0:.1f} s")
+            assert max(r["shares"]) <= IDENTITY_REL_TOL, r["shares"]
+        else:
+            dropped, aux = moe_layer_stats(torch, dev, F, params, cfg,
+                                           prompt)
+            say(f"[3i] {arch} served prefill (capacity factor "
+                f"{cfg.capacity_factor}, S={len(prompt)}): dropped share "
+                f"per MoE layer {dropped}; aux loss per layer {aux}")
+            assert all(0.0 <= d < 1.0 for d in dropped)
+            moe_identity_bf16(torch, dev, M, params, cfg, prompt)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            moe_identity_f32(torch, dev, M, cfg, prompt)
+            params = None
+        del params
+        torch.cuda.synchronize()
+        say(f"[3i] {arch}: peak memory over the model's serve and "
+            f"identities {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+            f"GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def run_path(torch, fn, *args):
     """Drive one path with every count set to 0 just before it; returns
     (its result, kernel launches, dispatches, peak GiB)."""
@@ -2941,6 +3403,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     from repro_torch.configs import get_config
     launches["serve"] = serve_phase(torch, dev, keep, get_config(ARCH))
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[3i] after phase 3f: {torch.cuda.memory_allocated() / 2 ** 30:.2f}"
+        f" GiB allocated")
+    _, launches["decoders"], disp, _ = run_path(torch, decoder_phase, torch,
+                                                dev)
+    say(f"[main] phase 3i, the windowed, local/global and MoE decoders: "
+        f"kernel launches {launches['decoders']}, dispatches {disp} (none of "
+        f"the twelve kernels lies on this path)")
+    assert launches["decoders"] == {} and disp == {}
 
     rows = []
     for kname, (source, replaces) in KERNELS.items():

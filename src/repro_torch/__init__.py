@@ -20,8 +20,12 @@ single-camera path (``RoIDetector.roi_forward``, ``forward``) and
 per-layer chains
 (``roi_forward_layers``, ``fleet_forward_layers``); and the RoI-packed
 serving engine (``serving.engine.ServingEngine``: packed prefill of the
-kept patch tokens, batched greedy decode over a persistent cache ring)
-for the dense/vlm model family (``configs``, ``models``; internvl2-26b).
+kept patch tokens, batched greedy decode over a persistent cache ring;
+``launch.serve``) for the attention decoder families (``configs``,
+``models``: dense and vlm, with sliding-window rings and gemma3's
+local/global pattern, and moe; internvl2-26b, h2o-danube3-4b,
+gemma3-27b, mistral-nemo-12b, deepseek-67b, deepseek-moe-16b,
+qwen3-moe-235b-a22b).
 Thirteen CUDA kernels carry them, built from ``kernels/csrc`` with
 ``nvcc`` at first use:
 

@@ -1,7 +1,8 @@
 """Config dataclasses: the port's copy of ``ModelConfig`` (every field of
-the JAX package's, so that configurations read the same) and
-``ServeConfig``.  Parameter counts cover the families the port runs,
-dense and vlm.
+the JAX package's, so that configurations read the same, and ``qk_norm``,
+which the JAX package infers from the config's name) and
+``ServeConfig``.  Parameter counts cover the families the port runs:
+dense, vlm and moe.
 """
 from __future__ import annotations
 
@@ -41,6 +42,8 @@ class ModelConfig:
     num_shared_experts: int = 0
     shared_d_ff: int = 0  # total hidden dim of the shared-expert MLP
     first_dense_layers: int = 0  # deepseek-moe: leading dense layers
+    qk_norm: bool = False  # RMSNorm on q and k per head (qwen3); the port's
+    #                        own field: the JAX package keys it on the name
     router_aux_coef: float = 0.001
     capacity_factor: float = 1.25
 
@@ -102,7 +105,7 @@ class ModelConfig:
 
 def _param_counts(cfg: ModelConfig) -> dict:
     """Analytic per-component parameter counts (``models/params.py``)."""
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(
             f"parameter counts of the {cfg.family!r} family are not ported "
             f"yet (ROADMAP.md)")
@@ -110,13 +113,23 @@ def _param_counts(cfg: ModelConfig) -> dict:
     counts: dict = {"embed": cfg.vocab_size * d}
     if not cfg.tie_embeddings:
         counts["unembed"] = cfg.vocab_size * d
-    attn = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
-    if cfg.act in ("silu", "gelu_glu"):       # GLU family: 3 mats, no bias
-        mlp = 3 * d * cfg.d_ff
-    else:                                     # plain gelu mlp with biases
-        mlp = 2 * d * cfg.d_ff + cfg.d_ff + d
-    counts["attn"] = cfg.num_layers * attn
-    counts["mlp"] = cfg.num_layers * mlp
+
+    def mlp_params(ff: int) -> int:
+        if cfg.act in ("silu", "gelu_glu"):   # GLU family: 3 mats, no bias
+            return 3 * d * ff
+        return 2 * d * ff + ff + d            # plain gelu mlp with biases
+
+    counts["attn"] = cfg.num_layers * (d * cfg.q_dim + 2 * d * cfg.kv_dim
+                                       + cfg.q_dim * d)
+    if cfg.family == "moe":
+        n_moe = cfg.num_layers - cfg.first_dense_layers
+        counts["dense_mlp"] = cfg.first_dense_layers * mlp_params(cfg.d_ff)
+        counts["moe_routed"] = n_moe * cfg.num_experts * 3 * d * cfg.moe_d_ff
+        counts["moe_shared"] = (
+            n_moe * 3 * d * cfg.shared_d_ff if cfg.num_shared_experts else 0)
+        counts["router"] = n_moe * d * cfg.num_experts
+    else:
+        counts["mlp"] = cfg.num_layers * mlp_params(cfg.d_ff)
     counts["norms"] = cfg.num_layers * 2 * d + d
     if cfg.frontend == "vit_patch":
         counts["frontend_proj"] = cfg.frontend_dim * d + d

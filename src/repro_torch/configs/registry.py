@@ -1,7 +1,7 @@
 """Architecture registry: ``get_config(arch)`` for the configurations the
 port runs.  The ids are the JAX package's; an architecture whose family
-or layer pattern the port does not run yet raises ``NotImplementedError``
-(``ROADMAP.md`` queues it)."""
+the port does not run yet raises ``NotImplementedError`` (``ROADMAP.md``
+queues it)."""
 from __future__ import annotations
 
 import importlib
@@ -10,13 +10,17 @@ from typing import List
 from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES = {
+    "deepseek-67b": "repro_torch.configs.deepseek_67b",
+    "gemma3-27b": "repro_torch.configs.gemma3_27b",
+    "h2o-danube3-4b": "repro_torch.configs.h2o_danube3_4b",
+    "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
     "internvl2-26b": "repro_torch.configs.internvl2_26b",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
 }
-# the JAX package's other architectures: MoE, rwkv/ssm, hybrid, encdec and
-# the window / local-global attention patterns come with later slices
-_NOT_PORTED = ("deepseek-67b", "gemma3-27b", "h2o-danube3-4b",
-               "mistral-nemo-12b", "whisper-small", "zamba2-2.7b",
-               "rwkv6-7b", "qwen3-moe-235b-a22b", "deepseek-moe-16b")
+# the JAX package's other architectures: rwkv (ssm), the zamba2 hybrid
+# and whisper's encoder-decoder come with later slices
+_NOT_PORTED = ("rwkv6-7b", "zamba2-2.7b", "whisper-small")
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)
 

@@ -1,11 +1,19 @@
-"""Forward passes of the dense/vlm uniform stack, the port's copy of the
-parts of ``repro.models.forward`` the serving engine runs.
+"""Forward passes of the attention decoder families, the port's copy of
+the parts of ``repro.models.forward`` the serving engine runs: the dense
+and vlm trunk (a uniform stack, full or sliding-window, or gemma3's
+local/global pattern) and the moe trunk.
 
 Modes: ``prefill`` (the whole prompt; fills the KV caches when given
-them) and ``decode`` (one token per sequence against the caches).  The
+them) and ``decode`` (one token per sequence against the caches).  Each
 layer stack is a Python loop over the stacked ``(L, ...)`` parameters, in
 place of ``lax.scan``.  Caches are written in place: the KV tensors the
 caller passes come back updated, not copied.
+
+A sliding-window layer whose cache holds exactly ``window`` slots keeps a
+ring: position p lives in slot p mod window.  Decode writes in position
+order, so each slot's position follows from the current one and no
+position cache is kept.  (The serving engine's persistent group cache is
+another thing, its "group cache ring": one slot per request.)
 """
 from __future__ import annotations
 
@@ -15,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_layer
 
 
 def _sub(params: Dict, prefix: str) -> Dict:
@@ -87,39 +96,55 @@ def attn_sublayer(x, lp: Dict, cfg: ModelConfig, *, window: int = 0,
                   prefix: str = ""):
     """Returns (attn_out (B, S, D), cache or None).  ``cache`` is (k_cache,
     v_cache) (B, Smax, KH, Dh), written in place: rows [0, S) in prefill,
-    each sequence's row ``pos`` (a scalar or (B,) tensor) in decode."""
-    if window > 0:
-        raise NotImplementedError(
-            "sliding-window layers come with the danube3/gemma3 slice "
-            "(ROADMAP.md)")
+    each sequence's row ``pos`` (a scalar or (B,) tensor) in decode -- or,
+    with ``window > 0`` and Smax == window, the ring's slots: prefill
+    writes the last min(window, S) rows at their row index mod window,
+    decode slot pos mod window."""
     B, S, _ = x.shape
     H, Dh = cfg.num_heads, cfg.head_dim
     G = H // cfg.num_kv_heads
     q, k, v = project_qkv(x, lp, cfg, rope_sincos, prefix)
+    ring = cache is not None and window > 0 and cache[0].shape[1] == window
 
     if mode == "decode":
         k_cache, v_cache = cache
         Smax = k_cache.shape[1]
-        # one row per sequence; like dynamic_update_slice, a start past
-        # the end is clamped to the last row
-        at = torch.as_tensor(pos, device=x.device).reshape(-1) \
-            .expand(B).clamp(0, Smax - 1)
+        pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(B)
+        if ring:
+            # each row writes slot pos mod window.  Slot s holds position
+            # pos - ((pos - s) mod window), valid once >= 0: that is s <=
+            # pos, or every slot once pos >= window - 1 -- the slots below
+            # a length of pos + 1, each inside the window already
+            at, clen, win = pos % Smax, pos + 1, 0
+        else:
+            # one row per sequence; like dynamic_update_slice, a start
+            # past the end is clamped to the last row
+            at = pos.clamp(0, Smax - 1)
+            clen, win = at + 1, window
         rows = torch.arange(B, device=x.device)
         k_cache[rows, at] = k[:, 0].to(k_cache.dtype)
         v_cache[rows, at] = v[:, 0].to(v_cache.dtype)
         if cfg.decode_grouped_attn:
-            o = L.decode_attention_grouped(q, k_cache, v_cache, at + 1,
-                                           softcap=cfg.logit_softcap)
+            o = L.decode_attention_grouped(
+                q, k_cache, v_cache, clen, window=win,
+                softcap=cfg.logit_softcap)
         else:
-            o = L.decode_attention(q, L.repeat_kv(k_cache, G),
-                                   L.repeat_kv(v_cache, G), at + 1,
-                                   softcap=cfg.logit_softcap)
+            o = L.decode_attention(
+                q, L.repeat_kv(k_cache, G), L.repeat_kv(v_cache, G),
+                clen, window=win, softcap=cfg.logit_softcap)
     elif mode == "prefill":
-        if cache is not None:
+        if ring:
+            # the last rows, each at its row index mod window (padding
+            # rows of a packed prompt included, as in the JAX package)
+            take = min(window, S)
+            idx = (torch.arange(take, device=x.device) + (S - take)) % window
+            cache[0][:, idx] = k[:, S - take:].to(cache[0].dtype)
+            cache[1][:, idx] = v[:, S - take:].to(cache[1].dtype)
+        elif cache is not None:
             cache[0][:, :S] = k.to(cache[0].dtype)
             cache[1][:, :S] = v.to(cache[1].dtype)
         o = L.blockwise_attention(
-            q, L.repeat_kv(k, G), L.repeat_kv(v, G),
+            q, L.repeat_kv(k, G), L.repeat_kv(v, G), window=window,
             softcap=cfg.logit_softcap, q_positions=positions,
             kv_positions=positions)
     else:
@@ -145,22 +170,105 @@ def dense_block(x, lp, cfg: ModelConfig, *, window=0, rope_sincos,
     return x, new_cache
 
 
+def moe_block(x, lp, cfg: ModelConfig, *, rope_sincos, mode="prefill",
+              cache=None, pos=0, positions=None):
+    """Full attention, then the MoE layer (with the shared experts when
+    the layer has them).  Returns (x, aux, dropped, cache)."""
+    h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    a, new_cache = attn_sublayer(
+        h, lp, cfg, rope_sincos=rope_sincos, mode=mode, cache=cache,
+        pos=pos, positions=positions)
+    x = x + a
+    h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    shared = None
+    if "shared_wg" in lp:
+        shared = (lp["shared_wg"], lp["shared_wu"], lp["shared_wd"])
+    y, aux, dropped = moe_layer(h, lp["router"], lp["moe_wg"], lp["moe_wu"],
+                                lp["moe_wd"], cfg, shared=shared)
+    return x + y, aux, dropped, new_cache
+
+
+def _run_stack(x, params, prefix: str, n: int, cfg: ModelConfig, caches,
+               *, window: int, rope_sincos, mode, pos, positions):
+    """Layers 0..n-1 of the dense stack under ``prefix``, layer i against
+    cache i of ``caches`` ((n, B, Smax, KH, Dh) pair) when given."""
+    stack = _sub(params, prefix)
+    for i in range(n):
+        cache = (caches[0][i], caches[1][i]) if caches is not None else None
+        x, _ = dense_block(x, layer_params(stack, i), cfg, window=window,
+                           rope_sincos=rope_sincos, mode=mode, cache=cache,
+                           pos=pos, positions=positions)
+    return x
+
+
 def dense_trunk(params, cfg: ModelConfig, x, *, mode="prefill", caches=None,
                 pos=0, positions=None):
-    """Runs the uniform stack of dense blocks over (B, S, D) ``x``.
-    ``caches``: {"blocks": (k, v)} of (L, B, Smax, KH, Dh), written in
-    place.  Returns (x, caches)."""
-    if cfg.global_every > 1 or cfg.window_size:
-        raise NotImplementedError(
-            "the local/global and sliding-window layer patterns come with "
-            "the gemma3/danube3 slice (ROADMAP.md)")
-    B, S, _ = x.shape
-    stack = _sub(params, "blocks_")
-    rope_sc = _rope(cfg, S, pos0=pos, positions=positions, device=x.device)
-    ck, cv = caches["blocks"] if caches is not None else (None, None)
-    for i in range(cfg.num_layers):
-        cache = (ck[i], cv[i]) if ck is not None else None
-        x, _ = dense_block(x, layer_params(stack, i), cfg,
-                           rope_sincos=rope_sc, mode=mode, cache=cache,
-                           pos=pos, positions=positions)
+    """Runs the dense blocks over (B, S, D) ``x``: the uniform stack
+    ``blocks_`` (every layer at ``cfg.window_size``), or with
+    ``cfg.global_every > 1`` gemma3's pattern -- ``n_super`` super-blocks
+    of ``global_every - 1`` local layers (window ``cfg.window_size``,
+    RoPE theta 10,000) and one global layer (full attention at
+    ``cfg.rope_theta``), then the trailing local layers.  ``caches``:
+    {"blocks": (k, v)}, or {"local", "global"[, "trail"]}, each pair of
+    (L, B, Smax, KH, Dh), written in place.  Returns (x, caches)."""
+    S = x.shape[1]
+    kw = dict(mode=mode, pos=pos, positions=positions)
+    caches_of = (lambda key: caches[key]) if caches is not None \
+        else (lambda key: None)
+    if cfg.global_every <= 1:
+        rope = _rope(cfg, S, pos0=pos, positions=positions, device=x.device)
+        x = _run_stack(x, params, "blocks_", cfg.num_layers, cfg,
+                       caches_of("blocks"), window=cfg.window_size,
+                       rope_sincos=rope, **kw)
+        return x, caches
+    n_super = cfg.num_layers // cfg.global_every
+    n_lp = cfg.global_every - 1
+    n_trail = cfg.num_layers - n_super * cfg.global_every
+    rope_l = _rope(cfg, S, pos0=pos, positions=positions, theta=10_000.0,
+                   device=x.device)
+    rope_g = _rope(cfg, S, pos0=pos, positions=positions,
+                   theta=cfg.rope_theta, device=x.device)
+    local, glob = _sub(params, "local_"), _sub(params, "global_")
+    lc, gc = caches_of("local"), caches_of("global")
+    for sb in range(n_super):
+        # local layer sb * n_lp + j: the JAX package's (n_super, n_lp)
+        # reshape of the local stack, in the same order
+        for i in range(sb * n_lp, (sb + 1) * n_lp):
+            cache = (lc[0][i], lc[1][i]) if lc is not None else None
+            x, _ = dense_block(x, layer_params(local, i), cfg,
+                               window=cfg.window_size, rope_sincos=rope_l,
+                               cache=cache, **kw)
+        cache = (gc[0][sb], gc[1][sb]) if gc is not None else None
+        x, _ = dense_block(x, layer_params(glob, sb), cfg, window=0,
+                           rope_sincos=rope_g, cache=cache, **kw)
+    if n_trail:
+        x = _run_stack(x, params, "trail_", n_trail, cfg, caches_of("trail"),
+                       window=cfg.window_size, rope_sincos=rope_l, **kw)
     return x, caches
+
+
+def moe_trunk(params, cfg: ModelConfig, x, *, mode="prefill", caches=None,
+              pos=0, positions=None):
+    """The ``cfg.first_dense_layers`` dense layers (``dense_``), then the
+    MoE blocks (``blocks_``), all at full attention.  ``caches``:
+    {"blocks": (k, v)[, "dense": (k, v)]}, written in place.  Returns (x,
+    caches, aux, dropped): the router's load-balance loss and the dropped
+    share, each summed over the MoE layers."""
+    S = x.shape[1]
+    rope = _rope(cfg, S, pos0=pos, positions=positions, device=x.device)
+    kw = dict(mode=mode, pos=pos, positions=positions)
+    if cfg.first_dense_layers:
+        x = _run_stack(x, params, "dense_", cfg.first_dense_layers, cfg,
+                       caches["dense"] if caches is not None else None,
+                       window=0, rope_sincos=rope, **kw)
+    stack = _sub(params, "blocks_")
+    aux_tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    drop_tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    ck, cv = caches["blocks"] if caches is not None else (None, None)
+    for i in range(cfg.num_layers - cfg.first_dense_layers):
+        cache = (ck[i], cv[i]) if ck is not None else None
+        x, aux, dropped, _ = moe_block(x, layer_params(stack, i), cfg,
+                                       rope_sincos=rope, cache=cache, **kw)
+        aux_tot = aux_tot + aux
+        drop_tot = drop_tot + dropped
+    return x, caches, aux_tot, drop_tot

@@ -1,5 +1,6 @@
 """Transformer building blocks, the port's copy of ``repro.models.layers``
-for the families it runs (dense and vlm, full attention).
+for the families it runs (dense, vlm and moe; full and sliding-window
+attention).
 
 Parameters are plain dicts of tensors; layer stacks carry a leading ``L``
 dim.  Prefill attention is blockwise online softmax with float32
@@ -7,27 +8,21 @@ accumulators, never an (S, S) tensor: the KV chunks run in order, and all
 query rows of a chunk run as one batched tensor.  Each row's running max,
 denominator and accumulator see the chunks in the same order as the JAX
 package's nested scan, so the numbers follow from the chunk size alone.
+With a window, attention is banded: each query block sees only the
+``window + q_block`` keys before its end, so a sliding-window layer
+spends O(S * window), not O(S^2).
 
 Callers repeat K/V to the full head count (``repeat_kv``) before
-attention; the KV cache keeps only the KV heads.  The sliding-window
-branch and ring-buffer caches (h2o-danube3, gemma3) come with their slice
-and raise here.
+attention; the KV cache keeps only the KV heads.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 NEG_INF = -1e30
-
-
-def _no_window(window: int) -> None:
-    if window > 0:
-        raise NotImplementedError(
-            "sliding-window attention comes with the danube3/gemma3 slice "
-            "(ROADMAP.md)")
 
 
 # ---------------------------------------------------------------------------
@@ -42,11 +37,16 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
 
 
 def rope_table(positions: torch.Tensor, head_dim: int, theta: float):
-    """(sin, cos) tables from integer positions; shape (..., head_dim/2)."""
+    """(sin, cos) tables from integer positions; shape (..., head_dim/2).
+    The frequencies 1 / theta^(2i / head_dim) are rounded to float32 once,
+    from float64: the values XLA folds into the JAX engine's compiled
+    tables, one float32 step off eager float32 ``pow`` in places -- a step
+    that turns the angle at ``PAD_POS`` (2^31) by whole radians."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=positions.device) / head_dim
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                         device=positions.device), exps)
+    freqs = (1.0 / torch.pow(torch.tensor(theta, dtype=torch.float64,
+                                          device=positions.device),
+                             exps.double())).float()
     ang = positions.float()[..., None] * freqs
     return torch.sin(ang), torch.cos(ang)
 
@@ -101,8 +101,14 @@ def blockwise_attention(
     ``causal``, <= the query's.  ``q_block`` (halved until it divides Sq,
     as in the JAX package) only groups query rows, whose results do not
     depend on it, so all query blocks run together; ``kv_chunk`` (halved
-    until it divides Skv) fixes each row's online-softmax steps."""
-    _no_window(window)
+    until it divides Skv) fixes each row's online-softmax steps.
+
+    ``window > 0`` (self-attention, Sq == Skv) is banded attention
+    (``_banded_attention``): a key is visible when also > the query's
+    position - window."""
+    if window > 0:
+        return _banded_attention(q, k, v, window, softcap, q_block,
+                                 q_offset, q_positions, kv_positions)
     if causal_skip:
         raise NotImplementedError(
             "the unrolled causal-skip variant is the training path's and "
@@ -111,13 +117,8 @@ def blockwise_attention(
     Skv = k.shape[1]
     dev = q.device
     scale = 1.0 / (D ** 0.5)
-    if q_positions is None:
-        off = torch.as_tensor(q_offset, device=dev).reshape(-1, 1)
-        q_positions = (torch.arange(Sq, device=dev)[None, :] + off) \
-            .expand(B, Sq).to(torch.int32)
-    if kv_positions is None:
-        kv_positions = torch.arange(Skv, device=dev, dtype=torch.int32) \
-            .expand(B, Skv)
+    q_positions, kv_positions = _default_positions(
+        q_positions, kv_positions, q_offset, B, Sq, Skv, dev)
 
     kv_chunk = max(min(kv_chunk, Skv), 1)
     while Skv % kv_chunk:
@@ -148,11 +149,76 @@ def blockwise_attention(
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
-def _decode_valid(cache_len, Smax: int, device) -> torch.Tensor:
-    """(B or 1, Smax) bool: the cache slots below each sequence's
-    length."""
+def _default_positions(q_positions, kv_positions, q_offset, B, Sq, Skv,
+                       dev):
+    if q_positions is None:
+        off = torch.as_tensor(q_offset, device=dev).reshape(-1, 1)
+        q_positions = (torch.arange(Sq, device=dev)[None, :] + off) \
+            .expand(B, Sq).to(torch.int32)
+    if kv_positions is None:
+        kv_positions = torch.arange(Skv, device=dev, dtype=torch.int32) \
+            .expand(B, Skv)
+    return q_positions, kv_positions
+
+
+def _banded_attention(q, k, v, window, softcap, q_block, q_offset,
+                      q_positions, kv_positions) -> torch.Tensor:
+    """The JAX package's banded route: query block ``b`` (``q_block``
+    halved until it divides Sq) takes one softmax step over the static
+    span of keys ``[b * q_block - window, (b + 1) * q_block)``, left-padded
+    with keys at position -1, under the mask ``kpos >= 0 & qpos >= kpos &
+    kpos > qpos - window``.  Every row sees its own key, so its result
+    depends on its span only through which keys are visible: the rows run
+    in chunks of up to 512 whole query blocks, each against the keys of
+    its blocks' spans, masked to each row's own span -- so a ``q_block``
+    halved to 1 (an odd Sq) costs no more than 512 -- and the padding is
+    never built."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    if Sq != Skv:
+        raise ValueError(f"banded attention is self-attention: Sq {Sq} != "
+                         f"Skv {Skv}")
+    dev = q.device
+    scale = 1.0 / (D ** 0.5)
+    q_positions, kv_positions = _default_positions(
+        q_positions, kv_positions, q_offset, B, Sq, Skv, dev)
+    q_block = max(min(q_block, Sq), 1)
+    while Sq % q_block:
+        q_block //= 2
+    rows = q_block * max(1, 512 // q_block)
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
+    for r0 in range(0, Sq, rows):
+        r1 = min(r0 + rows, Sq)
+        k0 = max(r0 - window, 0)
+        qh = (q[:, r0:r1].float() * scale).permute(0, 2, 1, 3)  # (B,H,R,D)
+        kc = k[:, k0:r1].float().permute(0, 2, 3, 1)            # (B,H,D,K)
+        vc = v[:, k0:r1].float().permute(0, 2, 1, 3)            # (B,H,K,D)
+        qpos = q_positions[:, r0:r1, None]
+        kpos = kv_positions[:, None, k0:r1]
+        start = torch.arange(r0, r1, device=dev) // q_block * q_block
+        key = torch.arange(k0, r1, device=dev)
+        span = (key[None, :] >= start[:, None] - window) \
+            & (key[None, :] < start[:, None] + q_block)
+        mask = span & (kpos >= 0) & (qpos >= kpos) & (kpos > qpos - window)
+        s = _softcap(torch.matmul(qh, kc), softcap)
+        s = torch.where(mask[:, None], s, NEG_INF)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        o = torch.matmul(p, vc) / torch.clamp_min(
+            p.sum(dim=-1), 1e-30)[..., None]
+        out[:, r0:r1] = o.permute(0, 2, 1, 3).to(q.dtype)
+    return out
+
+
+def _decode_valid(cache_len, Smax: int, device, window: int = 0
+                  ) -> torch.Tensor:
+    """(B or 1, Smax) bool: the cache slots below each sequence's length
+    and, with a window, above its length - 1 - window."""
     clen = torch.as_tensor(cache_len, device=device).reshape(-1, 1)
-    return torch.arange(Smax, device=device)[None, :] < clen
+    kpos = torch.arange(Smax, device=device)[None, :]
+    valid = kpos < clen
+    if window > 0:
+        valid = valid & (kpos > clen - 1 - window)
+    return valid
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -160,11 +226,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      softcap: float = 0.0) -> torch.Tensor:
     """Single-step decode attention over a cache (full heads).  q: (B, 1,
     H, D); k_cache, v_cache: (B, Smax, H, D); cache_len: scalar or (B,)
-    count of valid slots (the newly written token included)."""
-    _no_window(window)
+    count of valid slots (the newly written token included); with a
+    window, only the last ``window`` of them are."""
     B, _, H, D = q.shape
     scale = 1.0 / (D ** 0.5)
-    valid = _decode_valid(cache_len, k_cache.shape[1], q.device)
+    valid = _decode_valid(cache_len, k_cache.shape[1], q.device, window)
     qf = (q.float() * scale).permute(0, 2, 1, 3)                 # (B,H,1,D)
     s = _softcap(torch.matmul(qf, k_cache.float().permute(0, 2, 3, 1)),
                  softcap)                                         # (B,H,1,S)
@@ -181,12 +247,11 @@ def decode_attention_grouped(q: torch.Tensor, k_cache: torch.Tensor,
     """GQA decode without materialising ``repeat_kv``: q regrouped to (B,
     KH, G, D) against the KH-headed cache; the same math as
     ``decode_attention``."""
-    _no_window(window)
     B, _, H, D = q.shape
     Smax, KH = k_cache.shape[1], k_cache.shape[2]
     G = H // KH
     scale = 1.0 / (D ** 0.5)
-    valid = _decode_valid(cache_len, Smax, q.device)
+    valid = _decode_valid(cache_len, Smax, q.device, window)
     qg = (q.float() * scale).reshape(B, KH, G, D)
     s = _softcap(torch.matmul(qg, k_cache.float().permute(0, 2, 3, 1)),
                  softcap)                                        # (B,KH,G,S)
@@ -200,13 +265,22 @@ def decode_attention_grouped(q: torch.Tensor, k_cache: torch.Tensor,
 # MLP
 # ---------------------------------------------------------------------------
 
+def activation(h: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """SiLU (``silu``, ``swiglu``) or tanh-GELU (``gelu_glu``), written op
+    by op in ``h``'s dtype as ``jax.nn.silu`` and ``jax.nn.gelu`` expand:
+    in bfloat16 each op rounds, as XLA's do, where torch's fused
+    ``F.silu``/``F.gelu`` round once (a bfloat16 step apart in ~40% of
+    elements)."""
+    if act in ("silu", "swiglu"):
+        return h * torch.reciprocal(1 + torch.exp(-h))
+    # the constants rounded to h's dtype, as jnp casts them, kept on the
+    # host: no copy to the card per call
+    c1, c2 = (float(torch.tensor(c, dtype=h.dtype))
+              for c in (0.044715, math.sqrt(2 / math.pi)))
+    return h * (0.5 * (1 + torch.tanh(c2 * (h + c1 * (h * h * h)))))
+
+
 def glu_mlp(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
             w2: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """SwiGLU / GeGLU: act(x@w1) * (x@w3) @ w2."""
-    h = x @ w1
-    g = x @ w3
-    if act in ("silu", "swiglu"):
-        h = F.silu(h)
-    else:  # gelu_glu
-        h = F.gelu(h, approximate="tanh")
-    return (h * g) @ w2
+    return (activation(x @ w1, act) * (x @ w3)) @ w2

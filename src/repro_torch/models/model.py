@@ -1,10 +1,10 @@
-"""Model API of the families the port runs (dense and vlm):
+"""Model API of the families the port runs (dense, vlm and moe):
 
-  init_cache(cfg, batch, max_seq, device)         -> {"blocks": (k, v)}
+  init_cache(cfg, batch, max_seq, device)         -> {name: (k, v)}
   prefill(params, cfg, batch, caches, ...)        -> (last_logits, caches)
   decode_step(params, cfg, tokens, caches, pos)   -> (logits, caches)
 
-Batch schemas: dense ``{tokens (B, S)}``; vlm ``{tokens (B, S_txt),
+Batch schemas: dense and moe ``{tokens (B, S)}``; vlm ``{tokens (B, S_txt),
 patches (B, S_img, frontend_dim)}``, the projected patches ahead of the
 text tokens.  ``decode_step`` takes ``pos`` as a scalar or a (B,) vector
 of per-sequence positions: the batch dimension written out where the JAX
@@ -21,9 +21,16 @@ from repro_torch.models import layers as L
 
 
 def _families(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(
             f"the {cfg.family!r} family is not ported yet (ROADMAP.md)")
+
+
+def _trunk(params, cfg: ModelConfig, x, **kw):
+    if cfg.family == "moe":
+        x, caches, _, _ = F.moe_trunk(params, cfg, x, **kw)
+        return x, caches
+    return F.dense_trunk(params, cfg, x, **kw)
 
 
 def _front(params, cfg: ModelConfig, batch) -> torch.Tensor:
@@ -38,19 +45,42 @@ def _front(params, cfg: ModelConfig, batch) -> torch.Tensor:
 
 
 def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None):
-    """Zeroed KV caches for a serving session: {"blocks": (k, v)}, each
-    (L, B, max_seq, KH, Dh) in ``cfg.kv_cache_dtype``, on ``device`` --
-    the CUDA card unless the caller passes one (``resolve_device``)."""
+    """Zeroed KV caches for a serving session, each a (k, v) pair of (L, B,
+    Smax, KH, Dh) in ``cfg.kv_cache_dtype`` on ``device`` -- the CUDA card
+    unless the caller passes one (``resolve_device``):
+
+    * a uniform stack: {"blocks"}, Smax = max_seq, or min(window,
+      max_seq) with a window -- a ring once it holds ``window`` slots;
+    * gemma3's pattern: {"local", "global"[, "trail"]}, the local and
+      trailing layers' rings of min(window, max_seq), the global layers'
+      caches of max_seq;
+    * moe: {"blocks"[, "dense"]} of max_seq."""
     _families(cfg)
-    if cfg.global_every > 1 or cfg.window_size:
-        raise NotImplementedError(
-            "ring-buffer caches of windowed layers come with the "
-            "danube3/gemma3 slice (ROADMAP.md)")
-    shape = (cfg.num_layers, B, max_seq, cfg.num_kv_heads, cfg.head_dim)
     dt = getattr(torch, cfg.kv_cache_dtype)
     device = resolve_device(device)
-    return {"blocks": (torch.zeros(shape, dtype=dt, device=device),
-                       torch.zeros(shape, dtype=dt, device=device))}
+
+    def kv(n, Smax):
+        shape = (n, B, Smax, cfg.num_kv_heads, cfg.head_dim)
+        return (torch.zeros(shape, dtype=dt, device=device),
+                torch.zeros(shape, dtype=dt, device=device))
+
+    if cfg.family == "moe":
+        nd = cfg.first_dense_layers
+        caches = {"blocks": kv(cfg.num_layers - nd, max_seq)}
+        if nd:
+            caches["dense"] = kv(nd, max_seq)
+        return caches
+    if cfg.global_every > 1:
+        n_super = cfg.num_layers // cfg.global_every
+        n_trail = cfg.num_layers - n_super * cfg.global_every
+        W = min(cfg.window_size, max_seq)
+        caches = {"local": kv(n_super * (cfg.global_every - 1), W),
+                  "global": kv(n_super, max_seq)}
+        if n_trail:
+            caches["trail"] = kv(n_trail, W)
+        return caches
+    Smax = min(cfg.window_size, max_seq) if cfg.window_size else max_seq
+    return {"blocks": kv(cfg.num_layers, Smax)}
 
 
 def prefill(params, cfg: ModelConfig, batch, caches, *, positions=None,
@@ -60,8 +90,8 @@ def prefill(params, cfg: ModelConfig, batch, caches, *, positions=None,
     last KEPT row, not its last padded one."""
     _families(cfg)
     x = _front(params, cfg, batch)
-    x, caches = F.dense_trunk(params, cfg, x, mode="prefill", caches=caches,
-                              positions=positions)
+    x, caches = _trunk(params, cfg, x, mode="prefill", caches=caches,
+                       positions=positions)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if last_index is None:
         xe = x[:, -1:]
@@ -76,7 +106,6 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, pos):
     or (B,))."""
     _families(cfg)
     x = F._embed(params, cfg, tokens)
-    x, caches = F.dense_trunk(params, cfg, x, mode="decode", caches=caches,
-                              pos=pos)
+    x, caches = _trunk(params, cfg, x, mode="decode", caches=caches, pos=pos)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return F._unembed(params, cfg, x), caches

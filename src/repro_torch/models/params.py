@@ -1,6 +1,10 @@
-"""Parameter trees of the dense/vlm uniform stack, under the JAX
-package's names (stacked ``(L, ...)`` tensors ``blocks_wq``, ...,
-``frontend_w``, ``frontend_b``).
+"""Parameter trees of the attention decoder families, under the JAX
+package's names: stacked ``(L, ...)`` tensors under ``blocks_`` (a
+uniform stack), ``local_``/``global_``/``trail_`` (gemma3's pattern) or
+``dense_`` and ``blocks_`` (moe: the first dense layers, then the MoE
+blocks with ``router``, ``moe_w{g,u,d}`` and ``shared_w{g,u,d}``), and
+``frontend_w``, ``frontend_b`` (vlm); each attention layer has
+``qnorm``/``knorm`` when ``cfg.qk_norm`` is set.
 
 ``init_params`` draws random weights on a device from a
 ``torch.Generator`` (truncated-normal fan-in, ones for norms, zeros for
@@ -27,27 +31,81 @@ def _dt(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+def _attn_block(cfg: ModelConfig, mk: Creator, L: int) -> Dict:
+    d, dt = cfg.d_model, _dt(cfg)
+    qd, kvd = cfg.q_dim, cfg.kv_dim
+    p = {"wq": mk("wq", (L, d, qd), dt, d), "wk": mk("wk", (L, d, kvd), dt, d),
+         "wv": mk("wv", (L, d, kvd), dt, d),
+         "wo": mk("wo", (L, qd, d), dt, qd)}
+    if cfg.qk_norm:
+        p["qnorm"] = mk("qnorm", (L, cfg.head_dim), torch.float32, -1)
+        p["knorm"] = mk("knorm", (L, cfg.head_dim), torch.float32, -1)
+    return p
+
+
+def _norms(cfg: ModelConfig, mk: Creator, L: int) -> Dict:
+    return {n: mk(n, (L, cfg.d_model), torch.float32, -1)
+            for n in ("ln1", "ln2")}
+
+
+def _dense_stack(cfg: ModelConfig, mk: Creator, L: int) -> Dict:
+    d, dt, ff = cfg.d_model, _dt(cfg), cfg.d_ff
+    p = _attn_block(cfg, mk, L)
+    p.update({"w1": mk("w1", (L, d, ff), dt, d),
+              "w3": mk("w3", (L, d, ff), dt, d),
+              "w2": mk("w2", (L, ff, d), dt, ff)})
+    p.update(_norms(cfg, mk, L))
+    return p
+
+
+def _moe_stack(cfg: ModelConfig, mk: Creator, L: int) -> Dict:
+    d, dt = cfg.d_model, _dt(cfg)
+    E, Fe = cfg.num_experts, cfg.moe_d_ff
+    p = _attn_block(cfg, mk, L)
+    p.update(_norms(cfg, mk, L))
+    p["router"] = mk("router", (L, d, E), torch.float32, d)
+    p["moe_wg"] = mk("moe_wg", (L, E, d, Fe), dt, d)
+    p["moe_wu"] = mk("moe_wu", (L, E, d, Fe), dt, d)
+    p["moe_wd"] = mk("moe_wd", (L, E, Fe, d), dt, Fe)
+    if cfg.num_shared_experts:
+        Fs = cfg.shared_d_ff
+        p["shared_wg"] = mk("shared_wg", (L, d, Fs), dt, d)
+        p["shared_wu"] = mk("shared_wu", (L, d, Fs), dt, d)
+        p["shared_wd"] = mk("shared_wd", (L, Fs, d), dt, Fs)
+    return p
+
+
 def param_tree(cfg: ModelConfig, mk: Creator) -> Dict:
-    """``mk(name, shape, dtype, scale)`` per leaf; scale -1 for ones, 0
-    for zeros, n > 0 for the fan-in n."""
-    if cfg.family not in ("dense", "vlm") or cfg.global_every > 1:
+    """``mk(name, shape, dtype, scale)`` per leaf, in the JAX package's
+    order; scale -1 for ones, 0 for zeros, n > 0 for the fan-in n."""
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(
             f"parameters of {cfg.name!r} ({cfg.family}) are not ported yet "
             f"(ROADMAP.md)")
-    d, dt, V, L = cfg.d_model, _dt(cfg), cfg.vocab_size, cfg.num_layers
-    qd, kvd, ff = cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    d, dt, V = cfg.d_model, _dt(cfg), cfg.vocab_size
     p: Dict = {"embed": mk("embed", (V, d), dt, 1.0)}
     if not cfg.tie_embeddings:
         p["unembed"] = mk("unembed", (V, d), dt, d)
     p["final_norm"] = mk("final_norm", (d,), torch.float32, -1)
-    for name, shape, dtype, scale in (
-            ("wq", (L, d, qd), dt, d), ("wk", (L, d, kvd), dt, d),
-            ("wv", (L, d, kvd), dt, d), ("wo", (L, qd, d), dt, qd),
-            ("w1", (L, d, ff), dt, d), ("w3", (L, d, ff), dt, d),
-            ("w2", (L, ff, d), dt, ff),
-            ("ln1", (L, d), torch.float32, -1),
-            ("ln2", (L, d), torch.float32, -1)):
-        p["blocks_" + name] = mk("blocks_" + name, shape, dtype, scale)
+
+    def stack(prefix, leaves):
+        p.update({prefix + k: v for k, v in leaves.items()})
+
+    if cfg.family == "moe":
+        nd = cfg.first_dense_layers
+        if nd:
+            stack("dense_", _dense_stack(cfg, mk, nd))
+        stack("blocks_", _moe_stack(cfg, mk, cfg.num_layers - nd))
+    elif cfg.global_every > 1:            # gemma3's local/global pattern
+        n_super = cfg.num_layers // cfg.global_every
+        n_trail = cfg.num_layers - n_super * cfg.global_every
+        stack("local_", _dense_stack(cfg, mk,
+                                     n_super * (cfg.global_every - 1)))
+        stack("global_", _dense_stack(cfg, mk, n_super))
+        if n_trail:
+            stack("trail_", _dense_stack(cfg, mk, n_trail))
+    else:
+        stack("blocks_", _dense_stack(cfg, mk, cfg.num_layers))
     if cfg.frontend == "vit_patch":
         p["frontend_w"] = mk("frontend_w", (cfg.frontend_dim, d), dt,
                              cfg.frontend_dim)
@@ -60,7 +118,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random parameters on ``device`` (the card unless the caller passes
     one), drawn from ``generator`` (on the same device): truncated normal
     in [-2 std, 2 std] with std 1/sqrt(fan-in) (0.02 for fan-in <= 1),
-    cast to the leaf's dtype, in float32 chunks of at most 1 GiB."""
+    cast to the leaf's dtype, in float32 chunks of at most 1 GiB (whole
+    rows over the leaf's leading dims)."""
     device = resolve_device(device)
 
     def mk(name, shape, dtype, scale):
@@ -70,7 +129,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             return torch.zeros(shape, dtype=dtype, device=device)
         std = 1.0 / math.sqrt(max(scale, 1.0)) if scale > 1 else 0.02
         out = torch.empty(shape, dtype=dtype, device=device)
-        rows = out.view(shape[0], -1)
+        # rows over the fewest leading dims whose row fits in a chunk
+        lead = next(i for i in range(1, len(shape) + 1)
+                    if math.prod(shape[i:]) <= _CHUNK)
+        rows = out.view(math.prod(shape[:lead]), -1)
         step = max(1, _CHUNK // rows.shape[1])
         for i in range(0, rows.shape[0], step):
             tmp = torch.empty(rows[i:i + step].shape, dtype=torch.float32,

@@ -88,17 +88,20 @@ class ServingEngine:
         self.scfg = scfg
         self.params = params
         self.device = params["embed"].device
-        # the group decode step: one batched dispatch for the whole group
-        self._decode_group = lambda t, c, pos: M.decode_step(
-            self.params, cfg, t, c, pos)
-        # the persistent group cache ring: {"blocks": (k, v)} of (L, G,
-        # Smax, KH, Dh), reused across flushes.  Stale slot contents are
-        # harmless: decode attends only rows this request's prefill and
-        # decode wrote (rows past the current position are masked).
+        # the persistent group cache ring: ``init_cache``'s dict of (k, v)
+        # pairs of (L, G, Smax, KH, Dh), one batch row a request, reused
+        # across flushes.  Stale slot contents are harmless: decode attends
+        # only rows this request's prefill and decode wrote (rows past the
+        # current position are masked).
         self._ring = None
         self._ring_sig: Optional[Tuple[int, int]] = None
         self.ring_rebuilds = 0          # ring (re)allocations
         self.cache_stack_count = 0      # decode_tokens_group's stacks
+
+    def _decode_group(self, tokens, caches, pos):
+        """The group decode step: one batched dispatch for the whole
+        group, ``pos`` a (G,) vector."""
+        return M.decode_step(self.params, self.cfg, tokens, caches, pos)
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
@@ -166,9 +169,9 @@ class ServingEngine:
         every call (counted in ``cache_stack_count``); ``serve`` prefills
         straight into the persistent ring instead."""
         self.cache_stack_count += 1
-        caches = {"blocks": tuple(
-            torch.cat([c["blocks"][j] for c in caches_list], dim=1)
-            for j in range(2))}
+        caches = {key: tuple(torch.cat([c[key][j] for c in caches_list],
+                                       dim=1) for j in range(2))
+                  for key in caches_list[0]}
         return self._decode_stacked(caches, first_tokens, start_pos, n_steps)
 
     def _decode_stacked(self, caches, first_tokens, start_pos,
@@ -236,10 +239,10 @@ class ServingEngine:
         with obs_trace.span("serve_flush", batch=len(group),
                             decode_steps=gsteps):
             ring = self._ensure_ring(len(group), max(need))
-            rk, rv = ring["blocks"]
             firsts, starts = [], []
             for gi, r in enumerate(group):   # ragged per-request packing
-                slot = {"blocks": (rk[:, gi:gi + 1], rv[:, gi:gi + 1])}
+                slot = {key: (k[:, gi:gi + 1], v[:, gi:gi + 1])
+                        for key, (k, v) in ring.items()}
                 if r.keep is not None and self.scfg.roi_sparsity:
                     res = self.roi_prefill(r.tokens, r.keep,
                                            block=pack_block, caches=slot)

@@ -931,3 +931,92 @@ def test_cuda_roi_attention_rejects_what_it_does_not_take(cuda):
     pos = torch.zeros(128, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         roi_attention.roi_attention(q, q, q, pos, 64, 64)     # D = 136
+
+
+# ---------------------------------------------------------------------------
+# the windowed and MoE decoders' plain PyTorch on the card (no kernel of
+# their own): the same functions on CUDA and CPU tensors, at SMOKE widths
+# ---------------------------------------------------------------------------
+
+def _both(cuda, *arrays):
+    return ([torch.as_tensor(a) for a in arrays],
+            [torch.as_tensor(a).to(cuda) for a in arrays])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,window,q_block,n_pad", [
+    (256, 32, 64, 0), (200, 48, 512, 40), (129, 16, 512, 0)])
+def test_cuda_banded_attention_matches_cpu(cuda, S, window, q_block, n_pad):
+    """Banded blockwise attention (PAD rows included) within 1e-5 of the
+    CPU's."""
+    from repro_torch.models import layers as TL
+    rng = np.random.default_rng(S)
+    q, k, v = (rng.normal(size=(2, S, 4, 16)).astype(np.float32)
+               for _ in range(3))
+    pos = np.stack([np.sort(rng.choice(2 * S, S, replace=False))
+                    for _ in range(2)]).astype(np.int32)
+    if n_pad:
+        pos[:, -n_pad:] = roi_attention.PAD_POS
+    cpu, dev = _both(cuda, q, k, v, pos)
+    want, got = (TL.blockwise_attention(*t[:3], window=window,
+                                        q_block=q_block, q_positions=t[3],
+                                        kv_positions=t[3])
+                 for t in (cpu, dev))
+    assert (got.cpu() - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cf,shared", [(4.0, True), (0.5, False)])
+def test_cuda_moe_layer_matches_cpu(cuda, cf, shared):
+    """``moe_layer`` with and without drops: the routing and the dropped
+    share equal, y and the aux loss within 1e-5 of the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as TMoE
+    cfg = get_config("deepseek-moe-16b", smoke=True).replace(
+        capacity_factor=cf, dtype="float32")
+    rng = np.random.default_rng(int(cf * 10))
+    D, E, Fe = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    arrays = [rng.normal(size=s) / np.sqrt(s[-2]) for s in
+              ((2, 40, D), (D, E), (E, D, Fe), (E, D, Fe), (E, Fe, D))]
+    if shared:
+        arrays += [rng.normal(size=s) / np.sqrt(s[0]) for s in
+                   ((D, 64), (D, 64), (64, D))]
+    cpu, dev = _both(cuda, *(a.astype(np.float32) for a in arrays))
+    outs = [TMoE.moe_layer(*t[:5], cfg, shared=tuple(t[5:]) or None)
+            for t in (cpu, dev)]
+    (wy, waux, wdrop), (gy, gaux, gdrop) = outs
+    _, wi, _ = TMoE.router_topk(cpu[0], cpu[1], cfg.experts_per_token)
+    _, gi, _ = TMoE.router_topk(dev[0], dev[1], cfg.experts_per_token)
+    assert torch.equal(gi.cpu(), wi)
+    assert (gy.cpu() - wy).abs().max().item() <= 1e-5
+    assert abs(float(gaux) - float(waux)) <= 1e-5
+    assert float(gdrop) == float(wdrop) and (float(wdrop) > 0) == (cf < 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["h2o-danube3-4b", "gemma3-27b",
+                                  "deepseek-moe-16b", "qwen3-moe-235b-a22b"])
+def test_cuda_decoders_match_cpu(cuda, arch):
+    """A prompt past the window prefilled into the rings, then three
+    decode steps of a (2,) group at different positions: logits within
+    1e-4 of the CPU's, float32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+    from repro_torch.models.params import init_params
+    cfg = get_config(arch, smoke=True).replace(dtype="float32",
+                                               kv_cache_dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 73))
+    logits = []
+    for dev in ("cpu", cuda):
+        p = {k: v.to(dev) for k, v in params.items()}
+        t = torch.as_tensor(toks, device=dev)
+        caches = TM.init_cache(cfg, 2, 80, dev)
+        out = [TM.prefill(p, cfg, {"tokens": t[:, :70]}, caches)[0]]
+        pos = torch.tensor([70, 66], device=dev)
+        for i in range(3):
+            out.append(TM.decode_step(p, cfg, t[:, 70 + i:71 + i], caches,
+                                      pos + i)[0])
+        logits.append([o.cpu() for o in out])
+    for want, got in zip(*logits):
+        assert (got - want).abs().max().item() <= 1e-4

@@ -24,14 +24,17 @@ from repro.models import model as JM
 from repro.models.params import init_params as jinit_params
 from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServingEngine as JEngine
-from repro_torch.configs import ServeConfig, get_config
+from repro_torch.configs import ARCH_IDS, ServeConfig, get_config
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.models.params import (count_params, init_params,
-                                       params_from_numpy)
+                                       param_tree, params_from_numpy)
 from repro_torch.serving.engine import Request, ServingEngine
 
 ARCH = "internvl2-26b"
+PORTED = ["internvl2-26b", "h2o-danube3-4b", "gemma3-27b",
+          "mistral-nemo-12b", "deepseek-67b", "deepseek-moe-16b",
+          "qwen3-moe-235b-a22b"]
 F32 = dict(dtype="float32", kv_cache_dtype="float32")
 
 
@@ -225,30 +228,69 @@ def test_attention_layers_match_jax(softcap):
     np.testing.assert_allclose(grouped.numpy(), full.numpy(), atol=1e-5)
 
 
-def test_configs_and_params_mirror_reference():
+@pytest.mark.parametrize("arch", PORTED)
+def test_configs_and_params_mirror_reference(arch):
     """The registry, parameter counts and the random parameter tree
-    (names, shapes, dtypes, norms of ones, the truncated fan-in normal)."""
+    (names, shapes, dtypes, norms of ones, the truncated fan-in normal)
+    of each ported arch."""
     for smoke in (False, True):
-        assert get_config(ARCH, smoke).param_count() == \
-            jget_config(ARCH, smoke).param_count()
+        # every field of the JAX package's config; ``qk_norm`` is the
+        # port's own, set where the JAX package keys it on the name
+        port = dataclasses.asdict(get_config(arch, smoke))
+        assert port.pop("qk_norm") == arch.startswith("qwen3")
+        assert port == dataclasses.asdict(jget_config(arch, smoke))
+        assert get_config(arch, smoke).param_count() == \
+            jget_config(arch, smoke).param_count()
+        assert get_config(arch, smoke).active_param_count() == \
+            jget_config(arch, smoke).active_param_count()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("gemma3-27b")
+        get_config("rwkv6-7b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    cfg = get_config(ARCH, smoke=True)
+    cfg = get_config(arch, smoke=True)
     tp = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    jspecs = JM.param_specs(jget_config(ARCH, smoke=True))
+    jspecs = JM.param_specs(jget_config(arch, smoke=True))
     assert sorted(tp) == sorted(jspecs)
     for name, t in tp.items():
         assert tuple(t.shape) == jspecs[name].shape, name
         assert str(t.dtype).split(".")[-1] == str(jspecs[name].dtype), name
-    assert count_params(tp) == cfg.param_count()
-    assert bool((tp["blocks_ln1"] == 1).all())
-    assert bool((tp["frontend_b"] == 0).all())
-    w1 = tp["blocks_w1"].float()
+    assert count_params(tp) == sum(int(np.prod(s.shape))
+                                   for s in jspecs.values())
+    for name in tp:
+        if name.endswith(("ln1", "ln2", "norm")):
+            assert bool((tp[name] == 1).all()), name
+    if cfg.frontend == "vit_patch":
+        assert bool((tp["frontend_b"] == 0).all())
+    wq = next(tp[k] for k in sorted(tp) if k.endswith("_wq")).float()
     std = 1 / np.sqrt(cfg.d_model)
-    assert float(w1.abs().max()) <= 2 * std + 1e-3
-    assert abs(float(w1.std()) / std - 0.88) < 0.05   # truncated at 2 std
+    assert float(wq.abs().max()) <= 2 * std + 1e-3
+    assert abs(float(wq.std()) / std - 0.88) < 0.05   # truncated at 2 std
+
+
+def test_qk_norm_follows_the_flag_not_the_name():
+    """A renamed qwen3 config keeps its q/k norms and a dense config named
+    like qwen3 gains none: the tree reads ``cfg.qk_norm`` only."""
+    def norms(cfg):
+        return sorted(k for k in param_tree(cfg, lambda *a: None)
+                      if k.endswith(("qnorm", "knorm")))
+
+    qwen = get_config("qwen3-moe-235b-a22b", smoke=True)
+    assert norms(qwen) == ["blocks_knorm", "blocks_qnorm"]
+    assert norms(qwen.replace(name="renamed")) == norms(qwen)
+    assert norms(qwen.replace(qk_norm=False)) == []
+    dense = get_config(ARCH, smoke=True)
+    assert norms(dense.replace(name="qwen3-dense")) == []
+    assert norms(dense.replace(qk_norm=True)) == [
+        "blocks_knorm", "blocks_qnorm"]
+
+
+def test_unported_families_raise():
+    """rwkv, the zamba2 hybrid and whisper's encoder-decoder still raise,
+    naming ROADMAP."""
+    for arch in ("rwkv6-7b", "zamba2-2.7b", "whisper-small"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_config(arch)
+    assert sorted(ARCH_IDS) == sorted(PORTED)
 
 
 def test_no_hidden_device(monkeypatch):
