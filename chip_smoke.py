@@ -196,6 +196,26 @@ is non-zero:
    flip's margin and input difference), and on every step with the same
    weights drawn in float32 on their own routing; the phase launches
    none of the kernels;
+3j. the recurrent-state families on the serving path, after 3i, each at
+   full width with bf16 weights drawn on the card: rwkv6-7b (32 RWKV6
+   layers, d_model 4096, 64 heads of 64, d_ff 14336) and zamba2-2.7b (54
+   Mamba2 blocks, 80 SSD heads of 64, state 64, a shared attention + MLP
+   block of 32 heads of 80 after every 6).  Each serves 4 requests
+   through ``serve`` with 16 greedy steps -- dense prompts of 4,096 and
+   1,024 tokens and keep-lists of 1,024 of 2,048 and 768 of 1,536, every
+   length, kept count and teacher sequence with a power-of-two factor of
+   at least 16, so no scan runs one token a chunk -- with each prefill's
+   and decode step's host-clock ms and the peak memory, and holds three
+   identities within 0.05 of the largest |logit|: (a) each dense row's
+   16 decode steps against one teacher prefill of its prompt and the 16
+   tokens fed back, read at each step's row; (b) each keep-list's packed
+   logits at n_kept - 1 against a dense prefill of the kept tokens alone;
+   (c) each group step's row 0 against request 0 served alone -- in bf16
+   printed beside a rounding floor (the teacher's rows from a prefill 16
+   tokens longer), and with the weights drawn in float32 from the same
+   seed held within the bar; ``drive_serve`` (the deadline former, 6
+   Poisson requests of 32 tokens); the phase launches none of the
+   kernels;
 4. a ``kernels`` JSON line with each kernel's launches on its path (B1-B5
    on the fleet path of phases 3 and 3b, B10 and B11 on the rate-control
    loop, B6-B9 on phase 3d's paths, B12 on the engine's tensors in 3f),
@@ -3281,6 +3301,267 @@ def decoder_phase(torch, dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 3j: the recurrent-state families on the serving path
+# ---------------------------------------------------------------------------
+
+RECURRENT = ("rwkv6-7b", "zamba2-2.7b")
+# requests 0 and 2 dense, 1 and 3 keep-lists of (length, kept): every
+# length, kept count and teacher sequence (a dense prompt and the
+# DECODER_STEPS tokens fed back) has a power-of-two factor of at least
+# 16 (an odd length would run each scan one token a chunk), and the dense
+# prompts are multiples of zamba2's chunk, 256
+RECURRENT_DENSE = (4096, 1024)
+RECURRENT_KEEP = ((2048, 1024), (1536, 768))
+
+
+def recurrent_prompts(cfg):
+    """The four requests' (token ids, keep-list or None), from the seed:
+    the kept positions of a keep-list drawn without replacement."""
+    rng = np.random.default_rng((SEED, 310))
+    out = []
+    for i in range(4):
+        keep = None
+        if i % 2:
+            n, kept = RECURRENT_KEEP[i // 2]
+            keep = np.zeros(n, bool)
+            keep[rng.choice(n, kept, replace=False)] = True
+        else:
+            n = RECURRENT_DENSE[i // 2]
+        out.append((rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    keep))
+    return out
+
+
+def pow2_factor(n: int) -> int:
+    return n & -n
+
+
+def teacher_rows(torch, F, L, params, cfg, toks, rows):
+    """The logits of a fresh prefill of ``toks`` (one sequence, no caches)
+    at ``rows``: the trunk's rows, the final norm, the unembedding."""
+    x = F._embed(params, cfg, toks[None])
+    if cfg.family == "ssm":
+        x, _ = F.rwkv_trunk(params, cfg, x)
+    else:
+        x, _, _ = F.hybrid_trunk(params, cfg, x)
+    x = L.rmsnorm(x[:, rows], params["final_norm"], cfg.norm_eps)
+    return F._unembed(params, cfg, x)[0].float()
+
+
+def share(got, want):
+    """The largest |got - want| as a share of the largest |want|."""
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def recurrent_serve(torch, dev, cfg, params, tag):
+    """``serve`` of the four RECURRENT requests on ``params``, timed, then
+    the identities (a), (b) and (c), each printed, and the rounding floor
+    (``floor``: request 2's teacher rows from a prefill 16 tokens longer).
+    Returns {"a", "b", "c", "floor": the shares of the largest |logit|,
+    every step, row or request}.  The
+    engine rounds zamba2's conv tail into its bfloat16 ring whatever the
+    model's dtype (the JAX engine's ``_ring_write``), so (c), the one
+    identity through the ring, carries that rounding in a float32 model
+    too."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.models import forward as F, layers as L, model as M
+    from repro_torch.serving.engine import Request, ServingEngine, _tree_map
+
+    arch = f"{cfg.name} ({tag})"
+    engine = ServingEngine(cfg, ServeConfig(max_batch=4, roi_sparsity=True),
+                           params)
+    prefill_ms, decode_ms, packed = [], [], []
+
+    def timed(fn, into, keep=None):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            into.append(round((time.perf_counter() - t) * 1e3, 3))
+            if keep is not None:
+                keep.append(out.logits[0, -1].float().clone())
+            return out
+        return run
+
+    engine.prefill = timed(engine.prefill, prefill_ms)
+    engine.roi_prefill = timed(engine.roi_prefill, prefill_ms, packed)
+    group_decode = timed(engine._decode_group, decode_ms)
+    steps = []          # per group step: fed tokens, positions, logits
+
+    def decode_group(tokens, caches, pos):
+        logits, caches = group_decode(tokens, caches, pos)
+        steps.append((tokens[:, 0].clone(), pos.clone(),
+                      logits[:, -1].float().clone()))
+        return logits, caches
+
+    engine._decode_group = decode_group
+    prompts = recurrent_prompts(cfg)
+    reqs = [Request(i, tokens=t, keep=k, max_new_tokens=DECODER_STEPS)
+            for i, (t, k) in enumerate(prompts)]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.serve(reqs, greedy_steps=DECODER_STEPS)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ring = _tree_map(lambda t: (tuple(t.shape), str(t.dtype)[6:]),
+                     engine._ring)
+    kept = [None if k is None else int(k.sum()) for _, k in prompts]
+    say(f"[3j] {arch} serve: requests of {[len(t) for t, _ in prompts]}"
+        f" tokens ({kept} kept), {DECODER_STEPS} greedy steps: wall "
+        f"{wall * 1e3:.1f} ms; prefill ms {prefill_ms}; decode ms per "
+        f"step {decode_ms}; peak memory {peak:.2f} GiB; group caches "
+        f"{ring}; tokens { {k: v.tolist() for k, v in out.items()} }")
+    assert sorted(out) == [0, 1, 2, 3] and len(prefill_ms) == 4
+    assert len(decode_ms) == len(steps) == DECODER_STEPS
+    assert all(t.shape == (DECODER_STEPS,) and (t >= 0).all()
+               and (t < cfg.vocab_size).all() for t in out.values())
+    del engine, group_decode, decode_group
+    gc.collect()
+    res = {"a": [], "c": []}
+
+    # each dense request served alone: a B = 1 prefill and decode fed the
+    # group's tokens of its row.  (a) its steps against one teacher
+    # prefill of the prompt and those tokens; (c) request 0's steps
+    # against the group's row 0
+    for r in (0, 2):
+        t0 = time.perf_counter()
+        prompt = torch.as_tensor(prompts[r][0], dtype=torch.long,
+                                 device=dev)
+        S = prompt.shape[0]
+        logits, caches = M.prefill(params, cfg, {"tokens": prompt[None]},
+                                   M.init_cache(cfg, 1, S + DECODER_STEPS,
+                                                dev))
+        first_same = int(logits[0, -1].argmax()) == int(steps[0][0][r])
+        solo = []
+        for i, (tok, pos, _) in enumerate(steps):
+            assert int(pos[r]) == S + i
+            logits, caches = M.decode_step(params, cfg, tok[r:r + 1, None],
+                                           caches, pos[r:r + 1])
+            solo.append(logits[0, -1].float())
+        del caches
+        solo = torch.stack(solo)
+        fed = torch.stack([s[0][r] for s in steps]).long()
+        want = teacher_rows(torch, F, L, params, cfg, torch.cat([prompt, fed]),
+                            torch.arange(S, S + DECODER_STEPS, device=dev))
+        assert torch.isfinite(solo).all() and torch.isfinite(want).all()
+        shares = [share(g, w) for g, w in zip(solo, want)]
+        res["a"] += shares
+        say(f"[3j] {arch} (a) decode == teacher prefill, request {r} ({S} "
+            f"tokens, decoded alone; teacher of {S + DECODER_STEPS}): max "
+            f"|logit| {float(want.abs().max()):.4f}; error per step as a "
+            f"share of it {fmt(shares)} (bar {IDENTITY_REL_TOL}); "
+            f"{time.perf_counter() - t0:.1f} s")
+        if r == 2:
+            # the rounding floor: the same rows from a prefill 16 tokens
+            # longer -- the same function, other chunks and GEMM shapes
+            longer = teacher_rows(
+                torch, F, L, params, cfg, torch.cat([prompt, fed, fed]),
+                torch.arange(S, S + DECODER_STEPS, device=dev))
+            res["floor"] = [share(g, w) for g, w in zip(longer, want)]
+            say(f"[3j] {arch} rounding floor: the teacher's rows from a "
+                f"prefill of {S + 2 * DECODER_STEPS} tokens, error per row "
+                f"as a share of the max |logit| {fmt(res['floor'])}")
+        if r == 0:
+            group = torch.stack([s[2][0] for s in steps])
+            res["c"] = [share(g, w) for g, w in zip(solo, group)]
+            say(f"[3j] {arch} (c) the group's row 0 against request 0 "
+                f"served alone: max |logit| {float(group.abs().max()):.4f};"
+                f" error per step as a share of the group row's max |logit|"
+                f" {fmt(res['c'])} (bar {IDENTITY_REL_TOL}); the solo "
+                f"prefill's greedy token {'is' if first_same else 'is not'}"
+                f" the group's first")
+
+    # (b) each keep-list's packed logits against the kept tokens alone
+    res["b"] = []
+    for j, r in enumerate((1, 3)):
+        toks, keep = prompts[r]
+        kept_toks = torch.as_tensor(toks[keep], dtype=torch.long, device=dev)
+        want, _ = M.prefill(params, cfg, {"tokens": kept_toks[None]}, None)
+        want = want[0, -1].float()
+        res["b"].append(share(packed[j], want))
+        say(f"[3j] {arch} (b) packed == kept-only, request {r} ({len(toks)} "
+            f"tokens, {len(kept_toks)} kept): max |logit| "
+            f"{float(want.abs().max()):.4f}; error as a share of it "
+            f"{res['b'][-1]:.3g} (bar {IDENTITY_REL_TOL})")
+
+    # the deadline former on a fresh engine: Poisson arrivals, as 3g's
+    from repro_torch.obs.loadgen import drive_serve
+    panel = drive_serve(ServingEngine(cfg, ServeConfig(max_batch=4), params),
+                        SERVE_RATE_HZ, n_requests=SERVE_REQUESTS,
+                        prompt_len=SERVE_PROMPT, deadline_s=SERVE_DEADLINE)
+    say(f"[3j] {arch} drive_serve at {SERVE_RATE_HZ} Hz, {SERVE_REQUESTS} "
+        f"requests of {SERVE_PROMPT} tokens: {panel}")
+    assert panel["served"] == SERVE_REQUESTS
+    return res
+
+
+def recurrent_phase(torch, dev):
+    """Phase 3j: each of RECURRENT at full width with bf16 weights drawn on
+    the card -- ``serve`` of 2 dense prompts and 2 keep-lists with
+    DECODER_STEPS greedy steps, timed per prefill and decode step, and
+    the identities (a) decode == a teacher prefill's rows on the dense
+    requests, (b) packed == a prefill of the kept tokens alone on the
+    keep-lists, (c) the group's row 0 == request 0 served alone, every
+    step (``recurrent_serve``); then the same with the weights drawn in
+    float32 from the same seed (the bf16 weights are their rounding).
+    The float32 identities are held within IDENTITY_REL_TOL; the bf16
+    ones are printed: on these random-weight recurrent models bf16
+    rounding alone moves the logits by more than the bar (one rounding
+    of zamba2's conv tail moves its float32 logits by 0.009-0.029 of
+    their scale, PERF.md).  Peak memory per model."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import count_params, init_params
+
+    failed = []
+    for arch in RECURRENT:
+        base = get_config(arch)
+        for n in RECURRENT_DENSE:
+            assert min(pow2_factor(n), pow2_factor(n + DECODER_STEPS)) >= 16
+            assert base.family != "hybrid" or n % base.ssm_chunk == 0
+        for n, kept in RECURRENT_KEEP:
+            assert min(pow2_factor(n), pow2_factor(kept)) >= 16
+        for tag, cfg in (("bf16", base),
+                         ("float32", base.replace(
+                             dtype="float32", kv_cache_dtype="float32"))):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params = init_params(
+                cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+            torch.cuda.synchronize()
+            if cfg.family == "ssm":
+                shape = (f"{cfg.num_layers} RWKV6 layers, d_model "
+                         f"{cfg.d_model}, {cfg.ssm_num_heads} heads of "
+                         f"{cfg.ssm_head_dim}, d_ff {cfg.d_ff}")
+            else:
+                shape = (f"{cfg.num_layers} Mamba2 blocks, d_model "
+                         f"{cfg.d_model}, {cfg.ssm_num_heads} SSD heads of "
+                         f"{cfg.ssm_head_dim}, state {cfg.ssm_state_dim}, "
+                         f"{cfg.num_layers // cfg.attn_every} applications "
+                         f"of {cfg.num_shared_attn_blocks} shared attention "
+                         f"blocks ({cfg.num_heads} heads of {cfg.head_dim})")
+            say(f"[3j] {arch}: {shape} (full depth); "
+                f"{count_params(params) / 1e9:.3f} B parameters "
+                f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB, "
+                f"{cfg.dtype}) drawn in {time.perf_counter() - t0:.1f} s")
+            res = recurrent_serve(torch, dev, cfg, params, tag)
+            if cfg.dtype == "float32":
+                failed += [(arch, k, max(res[k])) for k in "abc"
+                           if max(res[k]) > IDENTITY_REL_TOL]
+            del params
+            torch.cuda.synchronize()
+            say(f"[3j] {arch} ({tag}): peak memory over the model's serve "
+                f"and identities "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert not failed, failed
+
+
 def run_path(torch, fn, *args):
     """Drive one path with every count set to 0 just before it; returns
     (its result, kernel launches, dispatches, peak GiB)."""
@@ -3413,6 +3694,14 @@ def main() -> int:
         f"kernel launches {launches['decoders']}, dispatches {disp} (none of "
         f"the twelve kernels lies on this path)")
     assert launches["decoders"] == {} and disp == {}
+    t0 = time.perf_counter()
+    _, launches["recurrent"], disp, _ = run_path(torch, recurrent_phase,
+                                                 torch, dev)
+    say(f"[main] phase 3j, the recurrent-state families (rwkv6, the "
+        f"Mamba2 hybrid): kernel launches {launches['recurrent']}, "
+        f"dispatches {disp} (none of the twelve kernels lies on this path); "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert launches["recurrent"] == {} and disp == {}
 
     rows = []
     for kname, (source, replaces) in KERNELS.items():

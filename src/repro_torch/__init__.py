@@ -21,11 +21,12 @@ per-layer chains
 (``roi_forward_layers``, ``fleet_forward_layers``); and the RoI-packed
 serving engine (``serving.engine.ServingEngine``: packed prefill of the
 kept patch tokens, batched greedy decode over a persistent cache ring;
-``launch.serve``) for the attention decoder families (``configs``,
-``models``: dense and vlm, with sliding-window rings and gemma3's
-local/global pattern, and moe; internvl2-26b, h2o-danube3-4b,
+``launch.serve``) for the decoder families (``configs``, ``models``:
+dense and vlm, with sliding-window rings and gemma3's local/global
+pattern, moe, rwkv6's recurrent ``ssm`` and zamba2's Mamba2 ``hybrid``
+with its shared attention blocks; internvl2-26b, h2o-danube3-4b,
 gemma3-27b, mistral-nemo-12b, deepseek-67b, deepseek-moe-16b,
-qwen3-moe-235b-a22b).
+qwen3-moe-235b-a22b, rwkv6-7b, zamba2-2.7b).
 Thirteen CUDA kernels carry them, built from ``kernels/csrc`` with
 ``nvcc`` at first use:
 

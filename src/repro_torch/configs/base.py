@@ -2,7 +2,7 @@
 the JAX package's, so that configurations read the same, and ``qk_norm``,
 which the JAX package infers from the config's name) and
 ``ServeConfig``.  Parameter counts cover the families the port runs:
-dense, vlm and moe.
+dense, vlm, moe, ssm (rwkv6) and hybrid (zamba2).
 """
 from __future__ import annotations
 
@@ -104,8 +104,11 @@ class ModelConfig:
 
 
 def _param_counts(cfg: ModelConfig) -> dict:
-    """Analytic per-component parameter counts (``models/params.py``)."""
-    if cfg.family not in ("dense", "vlm", "moe"):
+    """Analytic per-component parameter counts (``models/params.py``), the
+    JAX package's formulas: its ssm count folds some small terms, and its
+    hybrid count leaves out the conv and a few per-head vectors, so those
+    two differ slightly from the parameter tree, as the JAX package's do."""
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"parameter counts of the {cfg.family!r} family are not ported "
             f"yet (ROADMAP.md)")
@@ -119,8 +122,25 @@ def _param_counts(cfg: ModelConfig) -> dict:
             return 3 * d * ff
         return 2 * d * ff + ff + d            # plain gelu mlp with biases
 
-    counts["attn"] = cfg.num_layers * (d * cfg.q_dim + 2 * d * cfg.kv_dim
-                                       + cfg.q_dim * d)
+    attn = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
+    if cfg.family == "ssm":                   # rwkv6
+        lora_mix, lora_decay = 32, 64         # models/rwkv.py
+        tmix = (5 * d * d + 2 * 5 * lora_mix * d + 2 * lora_decay * d
+                + 11 * d)
+        counts["tmix"] = cfg.num_layers * tmix
+        counts["cmix"] = cfg.num_layers * (2 * d * cfg.d_ff + d * d + 2 * d)
+        counts["norms"] = 2 * d               # ln_in + final_norm
+        return counts
+    if cfg.family == "hybrid":                # zamba2
+        inner = cfg.ssm_inner
+        per_mamba = (d * (2 * inner + 2 * cfg.ssm_state_dim
+                          + cfg.ssm_num_heads) + inner * d + inner)
+        counts["mamba"] = cfg.num_layers * per_mamba
+        n_attn = cfg.num_shared_attn_blocks
+        counts["shared_attn"] = n_attn * (attn + mlp_params(cfg.d_ff))
+        counts["norms"] = cfg.num_layers * 2 * d + d + n_attn * 2 * d
+        return counts
+    counts["attn"] = cfg.num_layers * attn
     if cfg.family == "moe":
         n_moe = cfg.num_layers - cfg.first_dense_layers
         counts["dense_mlp"] = cfg.first_dense_layers * mlp_params(cfg.d_ff)

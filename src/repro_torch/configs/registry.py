@@ -1,7 +1,8 @@
 """Architecture registry: ``get_config(arch)`` for the configurations the
-port runs.  The ids are the JAX package's; an architecture whose family
-the port does not run yet raises ``NotImplementedError`` (``ROADMAP.md``
-queues it)."""
+port runs -- the dense, vlm and moe decoders, rwkv6 (``ssm``) and the
+zamba2 Mamba2 hybrid (``hybrid``).  The ids are the JAX package's; an
+architecture whose family the port does not run yet raises
+``NotImplementedError`` (``ROADMAP.md`` queues it)."""
 from __future__ import annotations
 
 import importlib
@@ -17,10 +18,12 @@ _ARCH_MODULES = {
     "internvl2-26b": "repro_torch.configs.internvl2_26b",
     "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b",
     "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
 }
-# the JAX package's other architectures: rwkv (ssm), the zamba2 hybrid
-# and whisper's encoder-decoder come with later slices
-_NOT_PORTED = ("rwkv6-7b", "zamba2-2.7b", "whisper-small")
+# the JAX package's other architecture: whisper's encoder-decoder comes
+# with a later slice
+_NOT_PORTED = ("whisper-small",)
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)
 

@@ -4,6 +4,10 @@ CrossRoI RoI-packed prefill on keep-lists, on the CUDA card.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube3-4b \
       --requests 4 --roi [--device cpu]
 
+``--arch`` takes every arch the port runs (``configs.ARCH_IDS``): the
+dense, moe, rwkv6 (``rwkv6-7b``) and Mamba2-hybrid (``zamba2-2.7b``)
+decoders serve token prompts.
+
 The flags are the JAX launcher's (``repro.launch.serve``), plus
 ``--device``: the card unless it names another device.  Weights are drawn
 from a seeded ``torch.Generator`` at the arch's SMOKE size; the prompts are

@@ -1,13 +1,16 @@
-"""Forward passes of the attention decoder families, the port's copy of
-the parts of ``repro.models.forward`` the serving engine runs: the dense
-and vlm trunk (a uniform stack, full or sliding-window, or gemma3's
-local/global pattern) and the moe trunk.
+"""Forward passes of the decoder families, the port's copy of the parts of
+``repro.models.forward`` the serving engine runs: the dense and vlm trunk
+(a uniform stack, full or sliding-window, or gemma3's local/global
+pattern), the moe trunk, the rwkv6 trunk (``ssm``) and zamba2's Mamba2
+hybrid trunk.
 
 Modes: ``prefill`` (the whole prompt; fills the KV caches when given
 them) and ``decode`` (one token per sequence against the caches).  Each
 layer stack is a Python loop over the stacked ``(L, ...)`` parameters, in
-place of ``lax.scan``.  Caches are written in place: the KV tensors the
-caller passes come back updated, not copied.
+place of ``lax.scan``.  KV caches are written in place: the KV tensors
+the caller passes come back updated, not copied.  Recurrent states are
+returned as new tensors, stacked over the layers: a state the caller
+passes seeds the recurrence and is not written.
 
 A sliding-window layer whose cache holds exactly ``window`` slots keeps a
 ring: position p lives in slot p mod window.  Decode writes in position
@@ -24,6 +27,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.moe import moe_layer
+from repro_torch.models.rwkv import RWKVState, rwkv6_block
+from repro_torch.models.ssm import MambaState, mamba2_block
 
 
 def _sub(params: Dict, prefix: str) -> Dict:
@@ -272,3 +277,70 @@ def moe_trunk(params, cfg: ModelConfig, x, *, mode="prefill", caches=None,
         aux_tot = aux_tot + aux
         drop_tot = drop_tot + dropped
     return x, caches, aux_tot, drop_tot
+
+
+def rwkv_trunk(params, cfg: ModelConfig, x, *, mode="prefill", states=None):
+    """``ln_in``, then the RWKV6 layers over (B, S, D) ``x``.  ``states``:
+    (wkv (L, B, H, P, P), shift_t (L, B, D), shift_c (L, B, D)) float32,
+    each layer's seed, or None for zeros.  Returns (x, the new states as
+    the same tuple, or None without ``states``).  No positions: a packed
+    prompt's padding rows run through the recurrence (ROADMAP C-R5)."""
+    stack = _sub(params, "blocks_")
+    x = L.rmsnorm(x, params["ln_in"], cfg.norm_eps)
+    new = []
+    for i in range(cfg.num_layers):
+        st = None if states is None else RWKVState(*(s[i] for s in states))
+        x, ns = rwkv6_block(x, layer_params(stack, i), cfg, state=st,
+                            single_step=mode == "decode")
+        new.append(ns)
+    if states is None:
+        return x, None
+    return x, tuple(torch.stack(parts) for parts in zip(*new))
+
+
+def _mamba_pdict(lp: Dict) -> Dict:
+    """Map a stacked layer's ``m_*`` keys to ``mamba2_block``'s names."""
+    return {"in_proj": lp["m_in"], "conv_w": lp["m_conv_w"],
+            "conv_b": lp["m_conv_b"], "A_log": lp["m_A_log"],
+            "D_skip": lp["m_D"], "dt_bias": lp["m_dt_bias"],
+            "norm_w": lp["m_norm"], "out_proj": lp["m_out"]}
+
+
+def hybrid_trunk(params, cfg: ModelConfig, x, *, mode="prefill",
+                 states=None, caches=None, pos=0):
+    """zamba2: the Mamba2 stack, with shared attention + MLP block ``i %
+    num_shared_attn_blocks`` after the i-th run of ``attn_every`` Mamba2
+    blocks.  ``states``: (ssm (L, B, H, N, P) f32, conv (L, B, cw - 1,
+    cd)), each layer's seed, or None for zeros; ``caches``: the (n_apps,
+    B, Smax, KH, Dh) KV pair, one cache per application of a shared
+    block, written in place.  The attention takes no positions -- RoPE at
+    ``pos`` + the row index, as the JAX package's, so a packed prompt's
+    rows sit at their packed index (ROADMAP C-R5).  Returns (x, the new
+    states or None, caches)."""
+    S = x.shape[1]
+    per = cfg.attn_every
+    stack, shared = _sub(params, "blocks_"), _sub(params, "sa_")
+    rope = _rope(cfg, S, pos0=pos, device=x.device)
+    new_ssm, new_conv = [], []
+    for app in range(cfg.num_layers // per):
+        for i in range(app * per, (app + 1) * per):
+            lp = layer_params(stack, i)
+            st = None if states is None else MambaState(states[0][i],
+                                                        states[1][i])
+            h = L.rmsnorm(x, lp["m_ln"], cfg.norm_eps)
+            y, ns = mamba2_block(h, _mamba_pdict(lp), cfg, state=st,
+                                 single_step=mode == "decode")
+            x = x + y
+            new_ssm.append(ns.ssm)
+            new_conv.append(ns.conv)
+        sp = layer_params(shared, app % cfg.num_shared_attn_blocks)
+        cache = None if caches is None else (caches[0][app], caches[1][app])
+        h = L.rmsnorm(x, sp["ln1"], cfg.norm_eps)
+        a, _ = attn_sublayer(h, sp, cfg, rope_sincos=rope, mode=mode,
+                             cache=cache, pos=pos)
+        x = x + a
+        h = L.rmsnorm(x, sp["ln2"], cfg.norm_eps)
+        x = x + L.glu_mlp(h, sp["w1"], sp["w3"], sp["w2"], act=cfg.act)
+    if states is None:
+        return x, None, caches
+    return x, (torch.stack(new_ssm), torch.stack(new_conv)), caches

@@ -1,14 +1,18 @@
-"""Model API of the families the port runs (dense, vlm and moe):
+"""Model API of the families the port runs (dense, vlm, moe, ssm and
+hybrid):
 
-  init_cache(cfg, batch, max_seq, device)         -> {name: (k, v)}
+  init_cache(cfg, batch, max_seq, device)         -> the cache tree
   prefill(params, cfg, batch, caches, ...)        -> (last_logits, caches)
   decode_step(params, cfg, tokens, caches, pos)   -> (logits, caches)
 
-Batch schemas: dense and moe ``{tokens (B, S)}``; vlm ``{tokens (B, S_txt),
-patches (B, S_img, frontend_dim)}``, the projected patches ahead of the
-text tokens.  ``decode_step`` takes ``pos`` as a scalar or a (B,) vector
-of per-sequence positions: the batch dimension written out where the JAX
-engine vmaps per-request scalars.  Caches are written in place.
+Batch schemas: dense, moe, ssm and hybrid ``{tokens (B, S)}``; vlm
+``{tokens (B, S_txt), patches (B, S_img, frontend_dim)}``, the projected
+patches ahead of the text tokens.  ``decode_step`` takes ``pos`` as a
+scalar or a (B,) vector of per-sequence positions: the batch dimension
+written out where the JAX engine vmaps per-request scalars.  Every cache
+tensor has its batch on axis 1.  KV caches are written in place; the
+recurrent states (ssm, hybrid) come back as new tensors, which the caller
+carries to the next call (the caches passed seed the recurrence).
 """
 from __future__ import annotations
 
@@ -18,19 +22,35 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import forward as F
 from repro_torch.models import layers as L
+from repro_torch.models.ssm import conv_dim
 
 
 def _families(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm", "moe"):
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"the {cfg.family!r} family is not ported yet (ROADMAP.md)")
 
 
-def _trunk(params, cfg: ModelConfig, x, **kw):
+def _trunk(params, cfg: ModelConfig, x, *, mode, caches, pos=0,
+           positions=None):
     if cfg.family == "moe":
-        x, caches, _, _ = F.moe_trunk(params, cfg, x, **kw)
+        x, caches, _, _ = F.moe_trunk(params, cfg, x, mode=mode,
+                                      caches=caches, pos=pos,
+                                      positions=positions)
         return x, caches
-    return F.dense_trunk(params, cfg, x, **kw)
+    # the recurrent families take no positions, as the JAX package's
+    # (ROADMAP C-R5); the hybrid's prefill starts at position 0
+    if cfg.family == "ssm":
+        return F.rwkv_trunk(params, cfg, x, mode=mode, states=caches)
+    if cfg.family == "hybrid":
+        if caches is None:
+            return F.hybrid_trunk(params, cfg, x, mode=mode, pos=pos)[0], None
+        x, states, attn = F.hybrid_trunk(
+            params, cfg, x, mode=mode, states=caches["states"],
+            caches=caches["attn"], pos=pos)
+        return x, {"states": states, "attn": attn}
+    return F.dense_trunk(params, cfg, x, mode=mode, caches=caches, pos=pos,
+                         positions=positions)
 
 
 def _front(params, cfg: ModelConfig, batch) -> torch.Tensor:
@@ -45,16 +65,22 @@ def _front(params, cfg: ModelConfig, batch) -> torch.Tensor:
 
 
 def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None):
-    """Zeroed KV caches for a serving session, each a (k, v) pair of (L, B,
-    Smax, KH, Dh) in ``cfg.kv_cache_dtype`` on ``device`` -- the CUDA card
-    unless the caller passes one (``resolve_device``):
+    """Zeroed caches for a serving session on ``device`` -- the CUDA card
+    unless the caller passes one (``resolve_device``).  KV caches are (k,
+    v) pairs of (L, B, Smax, KH, Dh) in ``cfg.kv_cache_dtype``:
 
     * a uniform stack: {"blocks"}, Smax = max_seq, or min(window,
       max_seq) with a window -- a ring once it holds ``window`` slots;
     * gemma3's pattern: {"local", "global"[, "trail"]}, the local and
       trailing layers' rings of min(window, max_seq), the global layers'
       caches of max_seq;
-    * moe: {"blocks"[, "dense"]} of max_seq."""
+    * moe: {"blocks"[, "dense"]} of max_seq;
+    * ssm (rwkv6): the states (wkv (L, B, H, P, P), shift_t (L, B, D),
+      shift_c (L, B, D)), float32;
+    * hybrid (zamba2): {"states": (ssm (L, B, H, N, P) float32, conv
+      (L, B, cw - 1, conv_dim) bfloat16 whatever ``cfg.dtype``, as the
+      JAX package's), "attn": a KV pair of one cache per application of
+      a shared block, max_seq}."""
     _families(cfg)
     dt = getattr(torch, cfg.kv_cache_dtype)
     device = resolve_device(device)
@@ -63,6 +89,22 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None):
         shape = (n, B, Smax, cfg.num_kv_heads, cfg.head_dim)
         return (torch.zeros(shape, dtype=dt, device=device),
                 torch.zeros(shape, dtype=dt, device=device))
+
+    def zeros(dtype, *shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    Lc, f32 = cfg.num_layers, torch.float32
+    if cfg.family == "ssm":
+        H, P, D = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.d_model
+        return (zeros(f32, Lc, B, H, P, P), zeros(f32, Lc, B, D),
+                zeros(f32, Lc, B, D))
+    if cfg.family == "hybrid":
+        H, N, P = cfg.ssm_num_heads, cfg.ssm_state_dim, cfg.ssm_head_dim
+        states = (zeros(f32, Lc, B, H, N, P),
+                  zeros(torch.bfloat16, Lc, B, cfg.ssm_conv_width - 1,
+                        conv_dim(cfg)))
+        return {"states": states,
+                "attn": kv(Lc // cfg.attn_every, max_seq)}
 
     if cfg.family == "moe":
         nd = cfg.first_dense_layers
@@ -87,7 +129,9 @@ def prefill(params, cfg: ModelConfig, batch, caches, *, positions=None,
             last_index=None):
     """Process the whole prompt, fill the caches, return the logits of the
     last row -- or of row ``last_index``: an RoI-packed prompt ends at its
-    last KEPT row, not its last padded one."""
+    last KEPT row, not its last padded one.  ``positions`` reach the
+    attention families only; the recurrent ones run over every row in
+    order, padding rows included (ROADMAP C-R5)."""
     _families(cfg)
     x = _front(params, cfg, batch)
     x, caches = _trunk(params, cfg, x, mode="prefill", caches=caches,

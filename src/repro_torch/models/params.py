@@ -1,14 +1,19 @@
-"""Parameter trees of the attention decoder families, under the JAX
-package's names: stacked ``(L, ...)`` tensors under ``blocks_`` (a
-uniform stack), ``local_``/``global_``/``trail_`` (gemma3's pattern) or
-``dense_`` and ``blocks_`` (moe: the first dense layers, then the MoE
-blocks with ``router``, ``moe_w{g,u,d}`` and ``shared_w{g,u,d}``), and
+"""Parameter trees of the decoder families, under the JAX package's names:
+stacked ``(L, ...)`` tensors under ``blocks_`` (a uniform stack),
+``local_``/``global_``/``trail_`` (gemma3's pattern) or ``dense_`` and
+``blocks_`` (moe: the first dense layers, then the MoE blocks with
+``router``, ``moe_w{g,u,d}`` and ``shared_w{g,u,d}``), and
 ``frontend_w``, ``frontend_b`` (vlm); each attention layer has
-``qnorm``/``knorm`` when ``cfg.qk_norm`` is set.
+``qnorm``/``knorm`` when ``cfg.qk_norm`` is set.  rwkv6 (ssm) has its
+RWKV6 layers under ``blocks_`` and ``ln_in``; the zamba2 hybrid its
+Mamba2 layers (``blocks_m_*``) and ``num_shared_attn_blocks`` shared
+attention + MLP blocks under ``sa_``.
 
 ``init_params`` draws random weights on a device from a
 ``torch.Generator`` (truncated-normal fan-in, ones for norms, zeros for
-biases, as ``repro.models.params.init_params``; the bits differ from
+biases and mix offsets, A in [1, 16] for Mamba2's ``m_A_log`` and
+RWKV6's decay ramp for ``decay_base``, as
+``repro.models.params.init_params``; the bits differ from
 ``jax.random``'s).  ``params_from_numpy`` carries the JAX package's own
 parameters across, for tests that hold the port against it.
 """
@@ -22,6 +27,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.rwkv import LORA_DECAY, LORA_MIX
+from repro_torch.models.ssm import conv_dim
 
 Creator = Callable[[str, tuple, torch.dtype, float], object]
 _CHUNK = 1 << 28          # float32 elements drawn at a time (1 GiB)
@@ -75,10 +82,56 @@ def _moe_stack(cfg: ModelConfig, mk: Creator, L: int) -> Dict:
     return p
 
 
+def _mamba_stack(cfg: ModelConfig, mk: Creator, L: int) -> Dict:
+    d, dt = cfg.d_model, _dt(cfg)
+    inner, N, H = cfg.ssm_inner, cfg.ssm_state_dim, cfg.ssm_num_heads
+    cd, cw, f32 = conv_dim(cfg), cfg.ssm_conv_width, torch.float32
+    return {
+        "m_in": mk("m_in", (L, d, 2 * inner + 2 * N + H), dt, d),
+        "m_conv_w": mk("m_conv_w", (L, cw, cd), f32, cw),
+        "m_conv_b": mk("m_conv_b", (L, cd), f32, 0),
+        "m_A_log": mk("m_A_log", (L, H), f32, -2),
+        "m_D": mk("m_D", (L, H), f32, -1),
+        "m_dt_bias": mk("m_dt_bias", (L, H), f32, 0),
+        "m_norm": mk("m_norm", (L, inner), f32, -1),
+        "m_out": mk("m_out", (L, inner, d), dt, inner),
+        "m_ln": mk("m_ln", (L, d), f32, -1),
+    }
+
+
+def _rwkv_stack(cfg: ModelConfig, mk: Creator, L: int) -> Dict:
+    d, dt, F = cfg.d_model, _dt(cfg), cfg.d_ff
+    H, P, f32 = cfg.ssm_num_heads, cfg.ssm_head_dim, torch.float32
+    return {
+        "ln1_w": mk("ln1_w", (L, d), f32, -1),
+        "ln2_w": mk("ln2_w", (L, d), f32, -1),
+        "maa_x": mk("maa_x", (L, d), f32, 0),
+        "maa_w1": mk("maa_w1", (L, d, 5 * LORA_MIX), dt, d),
+        "maa_w2": mk("maa_w2", (L, 5, LORA_MIX, d), dt, LORA_MIX),
+        "maa_wkvrg": mk("maa_wkvrg", (L, 5, d), f32, 0),
+        "decay_base": mk("decay_base", (L, d), f32, -2),
+        "decay_w1": mk("decay_w1", (L, d, LORA_DECAY), dt, d),
+        "decay_w2": mk("decay_w2", (L, LORA_DECAY, d), dt, LORA_DECAY),
+        "u": mk("u", (L, H, P), f32, 0),
+        "wr": mk("wr", (L, d, d), dt, d),
+        "wk": mk("wk", (L, d, d), dt, d),
+        "wv": mk("wv", (L, d, d), dt, d),
+        "wg": mk("wg", (L, d, d), dt, d),
+        "wo": mk("wo", (L, d, d), dt, d),
+        "gn_w": mk("gn_w", (L, d), f32, -1),
+        "cmix_mu_k": mk("cmix_mu_k", (L, d), f32, 0),
+        "cmix_mu_r": mk("cmix_mu_r", (L, d), f32, 0),
+        "cmix_k": mk("cmix_k", (L, d, F), dt, d),
+        "cmix_v": mk("cmix_v", (L, F, d), dt, F),
+        "cmix_r": mk("cmix_r", (L, d, d), dt, d),
+    }
+
+
 def param_tree(cfg: ModelConfig, mk: Creator) -> Dict:
     """``mk(name, shape, dtype, scale)`` per leaf, in the JAX package's
-    order; scale -1 for ones, 0 for zeros, n > 0 for the fan-in n."""
-    if cfg.family not in ("dense", "vlm", "moe"):
+    order; scale -1 for ones, 0 for zeros, -2 for the family's special
+    init (``m_A_log``, ``decay_base``), n > 0 for the fan-in n."""
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"parameters of {cfg.name!r} ({cfg.family}) are not ported yet "
             f"(ROADMAP.md)")
@@ -96,6 +149,13 @@ def param_tree(cfg: ModelConfig, mk: Creator) -> Dict:
         if nd:
             stack("dense_", _dense_stack(cfg, mk, nd))
         stack("blocks_", _moe_stack(cfg, mk, cfg.num_layers - nd))
+    elif cfg.family == "ssm":
+        stack("blocks_", _rwkv_stack(cfg, mk, cfg.num_layers))
+        p["ln_in"] = mk("ln_in", (d,), torch.float32, -1)
+    elif cfg.family == "hybrid":
+        stack("blocks_", _mamba_stack(cfg, mk, cfg.num_layers))
+        # the shared attention + MLP blocks, alternated over the stack
+        stack("sa_", _dense_stack(cfg, mk, cfg.num_shared_attn_blocks))
     elif cfg.global_every > 1:            # gemma3's local/global pattern
         n_super = cfg.num_layers // cfg.global_every
         n_trail = cfg.num_layers - n_super * cfg.global_every
@@ -119,7 +179,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     one), drawn from ``generator`` (on the same device): truncated normal
     in [-2 std, 2 std] with std 1/sqrt(fan-in) (0.02 for fan-in <= 1),
     cast to the leaf's dtype, in float32 chunks of at most 1 GiB (whole
-    rows over the leaf's leading dims)."""
+    rows over the leaf's leading dims).  The -2 leaves: ``m_A_log`` is
+    log(U[1, 16]) (Mamba2's default A), ``decay_base`` the ramp -6 + 5 i /
+    (n - 1) over its channels."""
     device = resolve_device(device)
 
     def mk(name, shape, dtype, scale):
@@ -127,6 +189,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             return torch.ones(shape, dtype=dtype, device=device)
         if scale == 0:
             return torch.zeros(shape, dtype=dtype, device=device)
+        if scale == -2:
+            if name == "m_A_log":
+                u = torch.empty(shape, dtype=torch.float32, device=device)
+                return torch.log(u.uniform_(1.0, 16.0, generator=generator))
+            if name == "decay_base":
+                n = shape[-1]
+                ramp = torch.arange(n, dtype=torch.float32,
+                                    device=device) / max(n - 1, 1)
+                return (-6.0 + 5.0 * ramp).expand(shape).contiguous()
+            return torch.zeros(shape, dtype=torch.float32, device=device)
         std = 1.0 / math.sqrt(max(scale, 1.0)) if scale > 1 else 0.02
         out = torch.empty(shape, dtype=dtype, device=device)
         # rows over the fewest leading dims whose row fits in a chunk

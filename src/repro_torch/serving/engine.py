@@ -17,10 +17,15 @@ n_kept) and dense (start = S) requests share a batch.
 The spans (``serve``, ``serve_flush``, ``serve_deadline``) and the
 ``SERVE_EVENTS`` and ``BACKLOG_DEPTH`` metrics are recorded in ``obs`` at
 the JAX engine's points.  Differences from the JAX engine: ring slots are
-views of the ring that prefill writes in place (the JAX engine donates the
-ring to a jitted update).  The prefill
-runs the layers' ``blockwise_attention``, as the JAX engine does, not
-the B12 kernel (``kernels.ops.roi_attention``).
+views of the ring (batch axis 1 of every cache tensor); prefill writes KV
+caches into them in place, and the recurrent states it returns (rwkv6,
+zamba2) are copied in, cast to the ring's dtype as the JAX engine's
+``_ring_write`` casts (the JAX engine donates the ring to a jitted
+update).  As there, prefill starts from the slot's contents and the ring
+keeps the decoded caches, so a recurrent slot seeds its next request's
+prefill with the last request's state (ROADMAP C-R6).  The prefill runs
+the layers' ``blockwise_attention``, as the JAX engine does, not the B12
+kernel (``kernels.ops.roi_attention``).
 """
 from __future__ import annotations
 
@@ -79,6 +84,27 @@ def _round_up(x: int, block: int) -> int:
     return -(-x // block) * block
 
 
+def _tree_map(fn, *trees):
+    """``fn`` over the tensors of cache trees of one structure (dicts,
+    tuples and tensors)."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, (tuple, list)):
+        return tuple(_tree_map(fn, *parts) for parts in zip(*trees))
+    return fn(*trees)
+
+
+def _write_slot(slot, new) -> None:
+    """Copy what prefill returned into the ring's slot, cast to the ring's
+    dtype (the JAX engine's ``_ring_write``).  KV caches written in place
+    come back as the slot's own tensors and are left alone."""
+    def put(s, n):
+        if n is not s:
+            s.copy_(n)
+    _tree_map(put, slot, new)
+
+
 class ServingEngine:
     """``params`` live on the device the engine serves from (the card in
     production; tests pass CPU parameters)."""
@@ -88,11 +114,11 @@ class ServingEngine:
         self.scfg = scfg
         self.params = params
         self.device = params["embed"].device
-        # the persistent group cache ring: ``init_cache``'s dict of (k, v)
-        # pairs of (L, G, Smax, KH, Dh), one batch row a request, reused
-        # across flushes.  Stale slot contents are harmless: decode attends
-        # only rows this request's prefill and decode wrote (rows past the
-        # current position are masked).
+        # the persistent group cache ring: ``init_cache``'s tree at batch
+        # G, one batch row a request, reused across flushes.  Stale KV rows
+        # are harmless: decode attends only rows this request's prefill and
+        # decode wrote (rows past the current position are masked).  Stale
+        # recurrent states are not: they seed the next prefill (C-R6).
         self._ring = None
         self._ring_sig: Optional[Tuple[int, int]] = None
         self.ring_rebuilds = 0          # ring (re)allocations
@@ -169,9 +195,7 @@ class ServingEngine:
         every call (counted in ``cache_stack_count``); ``serve`` prefills
         straight into the persistent ring instead."""
         self.cache_stack_count += 1
-        caches = {key: tuple(torch.cat([c[key][j] for c in caches_list],
-                                       dim=1) for j in range(2))
-                  for key in caches_list[0]}
+        caches = _tree_map(lambda *xs: torch.cat(xs, dim=1), *caches_list)
         return self._decode_stacked(caches, first_tokens, start_pos, n_steps)
 
     def _decode_stacked(self, caches, first_tokens, start_pos,
@@ -241,19 +265,21 @@ class ServingEngine:
             ring = self._ensure_ring(len(group), max(need))
             firsts, starts = [], []
             for gi, r in enumerate(group):   # ragged per-request packing
-                slot = {key: (k[:, gi:gi + 1], v[:, gi:gi + 1])
-                        for key, (k, v) in ring.items()}
+                slot = _tree_map(lambda t: t[:, gi:gi + 1], ring)
                 if r.keep is not None and self.scfg.roi_sparsity:
                     res = self.roi_prefill(r.tokens, r.keep,
                                            block=pack_block, caches=slot)
-                    firsts.append(torch.argmax(res.logits[:, -1], dim=-1))
+                    logits, new_slot = res.logits, res.caches
                     starts.append(res.n_kept)
                 else:
                     batch = {"tokens": np.asarray(r.tokens)[None]}
-                    logits, _ = self.prefill(batch, caches=slot)
-                    firsts.append(torch.argmax(logits[:, -1], dim=-1))
+                    logits, new_slot = self.prefill(batch, caches=slot)
                     starts.append(len(r.tokens))
-            toks, _ = self._decode_stacked(ring, firsts, starts, gsteps)
+                firsts.append(torch.argmax(logits[:, -1], dim=-1))
+                _write_slot(slot, new_slot)
+            # the ring keeps the decoded caches for the next flush
+            toks, self._ring = self._decode_stacked(ring, firsts, starts,
+                                                    gsteps)
         for gi, (r, ns) in enumerate(zip(group, steps)):
             results[r.rid] = toks[gi, :ns]
 

@@ -1020,3 +1020,90 @@ def test_cuda_decoders_match_cpu(cuda, arch):
         logits.append([o.cpu() for o in out])
     for want, got in zip(*logits):
         assert (got - want).abs().max().item() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families' plain PyTorch on the card (rwkv6, zamba2's Mamba2
+# hybrid; no kernel of their own), against the CPU at SMOKE widths
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-2.7b"])
+def test_cuda_recurrent_blocks_match_cpu(cuda, arch):
+    """Layer 0's ``rwkv6_block`` / ``mamba2_block`` over 48 tokens from a
+    random state, then one step from the state it returns: the outputs
+    and every state within 1e-4 of the CPU's, float32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward as TF, rwkv as TR, ssm as TS
+    from repro_torch.models.params import init_params
+    cfg = get_config(arch, smoke=True).replace(dtype="float32",
+                                               kv_cache_dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    lp = TF.layer_params(TF._sub(params, "blocks_"), 0)
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(2, 49, cfg.d_model)).astype(np.float32)
+    if arch == "rwkv6-7b":
+        H, P, D = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.d_model
+        st = [rng.normal(size=s).astype(np.float32)
+              for s in ((2, H, P, P), (2, D), (2, D))]
+
+        def block(a, p, s, one):
+            return TR.rwkv6_block(a, p, cfg, TR.RWKVState(*s),
+                                  single_step=one)
+    else:
+        H, N, P = cfg.ssm_num_heads, cfg.ssm_state_dim, cfg.ssm_head_dim
+        st = [rng.normal(size=s).astype(np.float32)
+              for s in ((2, H, N, P),
+                        (2, cfg.ssm_conv_width - 1, TS.conv_dim(cfg)))]
+        lp = TF._mamba_pdict(lp)
+
+        def block(a, p, s, one):
+            return TS.mamba2_block(a, p, cfg, TS.MambaState(*s),
+                                   single_step=one)
+    outs = []
+    for dev in ("cpu", cuda):
+        p = {k: v.to(dev) for k, v in lp.items()}
+        xs = torch.as_tensor(x, device=dev)
+        y, s = block(xs[:, :48], p, [torch.as_tensor(a, device=dev)
+                                     for a in st], False)
+        y1, s1 = block(xs[:, 48:], p, s, True)
+        outs.append([t.cpu() for t in (y, *s, y1, *s1)])
+    for want, got in zip(*outs):
+        assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-2.7b"])
+def test_cuda_recurrent_models_match_cpu(cuda, arch):
+    """A 64-token prefill of a (2,) batch into the states (and zamba2's KV
+    caches), then three decode steps at different positions: the logits
+    and every cache within 1e-4 of the CPU's, float32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import _tree_map
+    cfg = get_config(arch, smoke=True).replace(dtype="float32",
+                                               kv_cache_dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 67))
+    results, trees = [], []
+    for dev in ("cpu", cuda):
+        p = {k: v.to(dev) for k, v in params.items()}
+        t = torch.as_tensor(toks, device=dev)
+        logits, caches = TM.prefill(p, cfg, {"tokens": t[:, :64]},
+                                    TM.init_cache(cfg, 2, 70, dev))
+        out = [logits]
+        pos = torch.tensor([64, 60], device=dev)
+        for i in range(3):
+            logits, caches = TM.decode_step(p, cfg, t[:, 64 + i:65 + i],
+                                            caches, pos + i)
+            out.append(logits)
+        results.append([o.cpu() for o in out])
+        trees.append(caches)
+
+    def close(want, got):
+        assert (got.float().cpu() - want.float()).abs().max().item() <= 1e-4
+
+    for want, got in zip(*results):
+        close(want, got)
+    _tree_map(close, *trees)

@@ -137,7 +137,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.data.streams", "repro_torch.fleet.sharded",
             "repro_torch.launch.mesh",
             "repro_torch.distributed.shardings",
-            "repro_torch.models.moe", "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.models.moe", "repro_torch.launch.serve",
+            "repro_torch.models.rwkv", "repro_torch.models.ssm"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'"
@@ -173,7 +174,8 @@ def test_port_sources_import_no_jax_or_reference():
     port = ROOT / "src" / "repro_torch"
     assert {port / "fleet" / "sharded.py", port / "launch" / "mesh.py",
             port / "distributed" / "shardings.py", port / "models" / "moe.py",
-            port / "launch" / "serve.py"} <= set(files)
+            port / "launch" / "serve.py", port / "models" / "rwkv.py",
+            port / "models" / "ssm.py"} <= set(files)
     files.append(ROOT / "chip_smoke.py")
     examples = sorted((ROOT / "examples").glob("torch_*.py"))
     assert len(examples) == 3
