@@ -216,6 +216,21 @@ is non-zero:
    seed held within the bar; ``drive_serve`` (the deadline former, 6
    Poisson requests of 32 tokens); the phase launches none of the
    kernels;
+3k. whisper-small's encoder-decoder, after 3j, at full size (12 + 12
+   layers, d_model 768, 12 heads of 64, d_ff 3072, vocab 51,865) with
+   bf16 weights drawn on the card, then float32 from the same seed: 4
+   requests of 1,500 seeded frames through ``prefill`` (the encoder,
+   ``cross_kv`` and the decoder timed apart; the online-softmax chunk
+   steps counted) and greedy ``decode_step`` on a 4-token prompt with 60
+   steps and a 384-token one with 64 (to position 447, the last row of
+   ``dec_pos``), each step timed, peak memory; the identities (a) each
+   step's logits == one cached-path decoder pass over the prompt and the
+   greedy tokens, (b) that pass == the no-cache branch projecting the
+   encoder's memory, (c) the batch's row 0 == request 0 served alone,
+   held within 1e-3 of the largest |logit| on the float32 pass and
+   printed in bf16 beside a rounding floor; in bf16 also a prefill of
+   float32 frames (jnp's promotion: float32 encoder and cross K/V); the
+   phase launches none of the kernels;
 4. a ``kernels`` JSON line with each kernel's launches on its path (B1-B5
    on the fleet path of phases 3 and 3b, B10 and B11 on the rate-control
    loop, B6-B9 on phase 3d's paths, B12 on the engine's tensors in 3f),
@@ -3562,6 +3577,279 @@ def recurrent_phase(torch, dev):
     assert not failed, failed
 
 
+# ---------------------------------------------------------------------------
+# phase 3k: whisper-small's encoder-decoder
+# ---------------------------------------------------------------------------
+
+ENCDEC = "whisper-small"
+# one 30 s window after whisper's conv frontend: 1,500 frames of d_model
+ENCDEC_FRAMES = 1500
+# (prompt tokens, greedy decode steps) of the two prompts, each fed to
+# all four requests: the second's last step sits at position 447, the
+# last row of ``dec_pos`` (384 + 64 - 1)
+ENCDEC_PROMPTS = ((4, 60), (384, 64))
+# the float32 identities, as a share of the largest |logit|
+ENCDEC_TOL = 1e-3
+
+
+def softmax_steps(s_kv: int) -> int:
+    """``blockwise_attention``'s online-softmax steps over ``s_kv`` keys:
+    its kv_chunk of 1024 halved until it divides s_kv (1,500 -> 4, so 375
+    steps)."""
+    chunk = max(min(1024, s_kv), 1)
+    while s_kv % chunk:
+        chunk //= 2
+    return s_kv // chunk
+
+
+@contextlib.contextmanager
+def instrumented(torch, F, L, times, outs, steps):
+    """While open: every call of ``F.encoder_trunk``, ``F.cross_kv`` and
+    ``F.decoder_trunk`` timed into ``times[name]`` (host clock,
+    synchronized at both ends) with its last result in ``outs[name]``, and
+    each ``L.blockwise_attention`` call's online-softmax steps added to
+    ``steps[0]`` (whisper has no window)."""
+    saved = {n: getattr(F, n) for n in ("encoder_trunk", "cross_kv",
+                                        "decoder_trunk")}
+    attention = L.blockwise_attention
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times.setdefault(name, []).append(
+                (time.perf_counter() - t) * 1e3)
+            outs[name] = out
+            return out
+        return run
+
+    def counted(q, k, v, **kw):
+        steps[0] += softmax_steps(k.shape[1])
+        return attention(q, k, v, **kw)
+
+    for name, fn in saved.items():
+        setattr(F, name, timed(name, fn))
+    L.blockwise_attention = counted
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(F, name, fn)
+        L.blockwise_attention = attention
+
+
+def encdec_rows(torch, F, M, params, cfg, toks, rows, memory=None,
+                cross=None):
+    """The logits at ``rows`` of one decoder pass over ``toks`` (B, n) from
+    position 0, through the cached branch (fresh self caches, the cross
+    K/V ``cross``) or, given ``memory``, the no-cache branch projecting
+    the memory in every layer."""
+    if memory is None:
+        caches = M.init_cache(cfg, toks.shape[0], cross[0].shape[2],
+                              toks.device)
+        caches["cross"] = cross
+        x, _ = F.decoder_trunk(params, cfg, toks, None, mode="prefill",
+                               caches=caches)
+    else:
+        x, _ = F.decoder_trunk(params, cfg, toks, memory)
+    return M._encdec_logits(params, cfg, x[:, rows]).float()
+
+
+def encdec_greedy(torch, M, params, cfg, caches, logits, T, n_steps,
+                  fed=None):
+    """``n_steps`` decode steps from position T after a prefill's
+    ``logits``: greedy, or fed ``fed`` (B, n_steps).  Returns (the logits
+    of the prefill row and of every step (B, n_steps + 1, V) float32, the
+    tokens fed (B, n_steps), each step's ms: host clock ending in a
+    synchronize)."""
+    rows, toks, ms = [logits[:, -1].float()], [], []
+    for i in range(n_steps):
+        tok = rows[-1].argmax(-1) if fed is None else fed[:, i]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, caches = M.decode_step(params, cfg, tok[:, None], caches,
+                                       T + i)
+        torch.cuda.synchronize()
+        ms.append(round((time.perf_counter() - t) * 1e3, 3))
+        rows.append(logits[:, -1].float())
+        toks.append(tok)
+    return torch.stack(rows, 1), torch.stack(toks, 1), ms
+
+
+def step_shares(got, want):
+    """Per step (axis 1): the largest |got - want| over the batch as a
+    share of the largest |want|."""
+    scale = float(want.abs().max())
+    return [float((got[:, i] - want[:, i]).abs().max()) / scale
+            for i in range(got.shape[1])]
+
+
+def encdec_serve(torch, dev, cfg, params, tag, smi):
+    """The four requests through ``prefill`` and greedy ``decode_step`` on
+    each of ENCDEC_PROMPTS, timed, then the identities; returns {"a", "b",
+    "c": the shares of the largest |logit|, every step, row and prompt}.
+    (a) each step's logits against one cached-path decoder pass over the
+    prompt and the greedy tokens; (b) that pass against the no-cache
+    branch over the memory; (c) the batch's row 0 against request 0
+    served alone, fed the batch's tokens."""
+    from repro_torch.models import forward as F, layers as L, model as M
+
+    arch = f"{cfg.name} ({tag})"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    f32_frames = torch.randn((N_REQUESTS, ENCDEC_FRAMES, cfg.frontend_dim),
+                             generator=gen, device=dev)
+    frames = f32_frames.to(getattr(torch, cfg.dtype))
+    res = {"a": [], "b": [], "c": []}
+    for T, n_steps in ENCDEC_PROMPTS:
+        toks = torch.randint(0, cfg.vocab_size, (N_REQUESTS, T),
+                             generator=gen, device=dev)
+        times, outs, steps = {}, {}, [0]
+        torch.cuda.reset_peak_memory_stats()
+        with instrumented(torch, F, L, times, outs, steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = M.prefill(
+                params, cfg, {"frames": frames, "tokens": toks},
+                M.init_cache(cfg, N_REQUESTS, ENCDEC_FRAMES, dev))
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+        memory, cross = outs["encoder_trunk"], caches["cross"]
+        got, fed, decode_ms = encdec_greedy(torch, M, params, cfg, caches,
+                                            logits, T, n_steps)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        assert torch.isfinite(got).all() and got.shape == (
+            N_REQUESTS, n_steps + 1, cfg.vocab_size)
+        last = T + n_steps - 1
+        assert last < cfg.max_target_len
+        split = {k: round(v[0], 3) for k, v in times.items()}
+        say(f"[3k] {arch}, {N_REQUESTS} requests of {ENCDEC_FRAMES} frames "
+            f"({frames.dtype}) and a {T}-token prompt, {n_steps} greedy "
+            f"steps to position {last}: prefill {prefill_ms:.1f} ms "
+            f"({prefill_ms / N_REQUESTS:.1f} a request), of which {split} "
+            f"ms; {steps[0]} online-softmax chunk steps; decode ms per "
+            f"step median {statistics.median(decode_ms):.3f}, all "
+            f"{decode_ms}; peak {peak:.2f} GiB; tokens of request 0 "
+            f"{fed[0].tolist()}; {smi}")
+        del caches, logits
+
+        # (a) decode == teacher-forced: one cached-path pass over the
+        # prompt and the greedy tokens, read at the prefill's and each
+        # step's row; (b) that pass == the no-cache branch over the memory
+        seq = torch.cat([toks, fed], 1)
+        rows = torch.arange(T - 1, T + n_steps, device=dev)
+        want = encdec_rows(torch, F, M, params, cfg, seq, rows, cross=cross)
+        res["a"] += step_shares(got, want)
+        plain = encdec_rows(torch, F, M, params, cfg, seq, rows,
+                            memory=memory)
+        res["b"] += step_shares(want, plain)
+        say(f"[3k] {arch} T={T}: max |logit| {float(want.abs().max()):.4f};"
+            f" (a) decode == teacher-forced, per step as a share of it "
+            f"{fmt(step_shares(got, want))}; (b) cached cross K/V == the "
+            f"memory, per row {fmt(step_shares(want, plain))}")
+        if T == ENCDEC_PROMPTS[0][0]:
+            # the rounding floor: the same rows from a pass 16 tokens
+            # longer -- the same function on other GEMM shapes
+            longer = encdec_rows(torch, F, M, params, cfg,
+                                 torch.cat([seq, fed[:, :16]], 1), rows,
+                                 cross=cross)
+            res["floor"] = step_shares(longer, want)
+            scale = float(want.abs().max())
+            step = torch.finfo(getattr(torch, cfg.dtype)).eps * 2.0 ** int(
+                np.floor(np.log2(scale)))
+            say(f"[3k] {arch} rounding floor: the teacher's rows from a "
+                f"pass of {seq.shape[1] + 16} tokens, per row "
+                f"{fmt(res['floor'])}; one {cfg.dtype} step at the largest "
+                f"|logit| (the logits' own rounding) is {step / scale:.3g} "
+                f"of it")
+        del want, plain, memory, cross
+
+        # (c) request 0 served alone, fed the batch's tokens
+        logits, caches = M.prefill(
+            params, cfg, {"frames": frames[:1], "tokens": toks[:1]},
+            M.init_cache(cfg, 1, ENCDEC_FRAMES, dev))
+        solo, _, _ = encdec_greedy(torch, M, params, cfg, caches, logits, T,
+                                   n_steps, fed=fed[:1])
+        res["c"] += step_shares(solo, got[:1])
+        say(f"[3k] {arch} T={T}: (c) the batch's row 0 == request 0 served "
+            f"alone, per step {fmt(step_shares(solo, got[:1]))}")
+        del caches, logits, solo, got
+
+    if cfg.dtype == "bfloat16":
+        # jnp's promotion on the card: a float32 frame stream keeps the
+        # encoder, the memory and the cross K/V in float32
+        toks = torch.randint(0, cfg.vocab_size, (N_REQUESTS, 4),
+                             generator=gen, device=dev)
+        out = {}
+        for fr in (frames, f32_frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = M.prefill(
+                params, cfg, {"frames": fr, "tokens": toks},
+                M.init_cache(cfg, N_REQUESTS, ENCDEC_FRAMES, dev))
+            torch.cuda.synchronize()
+            out[str(fr.dtype)] = ((time.perf_counter() - t0) * 1e3,
+                                  caches["cross"][0].dtype,
+                                  logits[:, -1].float())
+        (ms_b, dt_b, lb), (ms_f, dt_f, lf) = out.values()
+        assert dt_b == torch.bfloat16 and dt_f == torch.float32
+        assert torch.isfinite(lf).all()
+        say(f"[3k] {arch} float32 frames: prefill {ms_f:.1f} ms against "
+            f"{ms_b:.1f} for bf16 frames; cross K/V {dt_f}; logits off the "
+            f"bf16 frames' by {share(lf, lb):.3g} of their scale")
+    return res
+
+
+def encdec_phase(torch, dev):
+    """Phase 3k: whisper-small FULL (12 + 12 layers, d_model 768, 12
+    heads of 64, d_ff 3072, vocab 51,865; nothing cut) with bf16 weights
+    drawn on the card, then float32 from the same seed: 4 requests of
+    1,500 frames through ``prefill`` (encoder, ``cross_kv``, decoder,
+    timed apart) and greedy ``decode_step`` on a 4-token prompt with 60
+    steps and a 384-token one with 64 (position 447, the last), with the
+    identities (a) decode == teacher-forced, (b) cached cross K/V == the
+    memory, (c) batch == solo (``encdec_serve``).  The float32 ones are
+    held within ENCDEC_TOL of the logit scale; the bf16 ones are printed
+    beside a rounding floor, as phase 3j's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import count_params, init_params
+
+    smi = " | ".join(nvidia_smi())
+    base = get_config(ENCDEC)
+    failed = []
+    for tag, cfg in (("bf16", base),
+                     ("float32", base.replace(dtype="float32",
+                                              kv_cache_dtype="float32"))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        torch.cuda.synchronize()
+        n = count_params(params)
+        assert n == cfg.param_count(), n
+        say(f"[3k] {cfg.name}: {cfg.encoder_layers} + {cfg.decoder_layers} "
+            f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads of "
+            f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (full "
+            f"size); {n / 1e6:.3f} M parameters "
+            f"({torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB, "
+            f"{cfg.dtype}) drawn in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        res = encdec_serve(torch, dev, cfg, params, tag, smi)
+        worst = {k: max(v) for k, v in res.items()}
+        say(f"[3k] {cfg.name} ({tag}): largest shares {worst} (float32 bar "
+            f"{ENCDEC_TOL}); {time.perf_counter() - t0:.1f} s")
+        if cfg.dtype == "float32":
+            failed += [(k, worst[k]) for k in "abc"
+                       if worst[k] > ENCDEC_TOL]
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert not failed, failed
+
+
 def run_path(torch, fn, *args):
     """Drive one path with every count set to 0 just before it; returns
     (its result, kernel launches, dispatches, peak GiB)."""
@@ -3702,6 +3990,14 @@ def main() -> int:
         f"dispatches {disp} (none of the twelve kernels lies on this path); "
         f"{time.perf_counter() - t0:.1f} s")
     assert launches["recurrent"] == {} and disp == {}
+    t0 = time.perf_counter()
+    _, launches["encdec"], disp, peak = run_path(torch, encdec_phase, torch,
+                                                 dev)
+    say(f"[main] phase 3k, whisper-small's encoder-decoder: kernel launches "
+        f"{launches['encdec']}, dispatches {disp} (none of the twelve "
+        f"kernels lies on this path); peak memory {peak:.2f} GiB; "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert launches["encdec"] == {} and disp == {}
 
     rows = []
     for kname, (source, replaces) in KERNELS.items():

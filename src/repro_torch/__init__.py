@@ -26,7 +26,9 @@ dense and vlm, with sliding-window rings and gemma3's local/global
 pattern, moe, rwkv6's recurrent ``ssm`` and zamba2's Mamba2 ``hybrid``
 with its shared attention blocks; internvl2-26b, h2o-danube3-4b,
 gemma3-27b, mistral-nemo-12b, deepseek-67b, deepseek-moe-16b,
-qwen3-moe-235b-a22b, rwkv6-7b, zamba2-2.7b).
+qwen3-moe-235b-a22b, rwkv6-7b, zamba2-2.7b), and whisper-small's
+encoder-decoder (``encdec``), served through ``models.model.prefill``
+over audio frames and ``decode_step``.
 Thirteen CUDA kernels carry them, built from ``kernels/csrc`` with
 ``nvcc`` at first use:
 

@@ -1,8 +1,8 @@
 """Config dataclasses: the port's copy of ``ModelConfig`` (every field of
 the JAX package's, so that configurations read the same, and ``qk_norm``,
 which the JAX package infers from the config's name) and
-``ServeConfig``.  Parameter counts cover the families the port runs:
-dense, vlm, moe, ssm (rwkv6) and hybrid (zamba2).
+``ServeConfig``.  Parameter counts cover every family: dense, vlm, moe,
+ssm (rwkv6), hybrid (zamba2) and encdec (whisper).
 """
 from __future__ import annotations
 
@@ -108,10 +108,8 @@ def _param_counts(cfg: ModelConfig) -> dict:
     JAX package's formulas: its ssm count folds some small terms, and its
     hybrid count leaves out the conv and a few per-head vectors, so those
     two differ slightly from the parameter tree, as the JAX package's do."""
-    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"parameter counts of the {cfg.family!r} family are not ported "
-            f"yet (ROADMAP.md)")
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "encdec"):
+        raise ValueError(f"unknown family {cfg.family}")
     d = cfg.d_model
     counts: dict = {"embed": cfg.vocab_size * d}
     if not cfg.tie_embeddings:
@@ -139,6 +137,20 @@ def _param_counts(cfg: ModelConfig) -> dict:
         n_attn = cfg.num_shared_attn_blocks
         counts["shared_attn"] = n_attn * (attn + mlp_params(cfg.d_ff))
         counts["norms"] = cfg.num_layers * 2 * d + d + n_attn * 2 * d
+        return counts
+    if cfg.family == "encdec":                # whisper
+        enc_l, dec_l = cfg.encoder_layers, cfg.decoder_layers
+        counts["enc_attn"] = enc_l * attn
+        counts["enc_mlp"] = enc_l * mlp_params(cfg.d_ff)
+        counts["dec_self_attn"] = dec_l * attn
+        counts["dec_cross_attn"] = dec_l * attn
+        counts["dec_mlp"] = dec_l * mlp_params(cfg.d_ff)
+        counts["attn_biases"] = (enc_l + 2 * dec_l) * (cfg.q_dim
+                                                       + cfg.kv_dim + d)
+        counts["norms"] = 2 * ((enc_l * 2 + dec_l * 3) * d + 2 * d)  # w, b
+        counts["dec_pos"] = cfg.max_target_len * d
+        if cfg.frontend == "conv_audio":
+            counts["frontend_proj"] = cfg.frontend_dim * d + d
         return counts
     counts["attn"] = cfg.num_layers * attn
     if cfg.family == "moe":

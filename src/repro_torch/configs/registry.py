@@ -1,8 +1,7 @@
-"""Architecture registry: ``get_config(arch)`` for the configurations the
-port runs -- the dense, vlm and moe decoders, rwkv6 (``ssm``) and the
-zamba2 Mamba2 hybrid (``hybrid``).  The ids are the JAX package's; an
-architecture whose family the port does not run yet raises
-``NotImplementedError`` (``ROADMAP.md`` queues it)."""
+"""Architecture registry: ``get_config(arch)`` for every configuration of
+the JAX package, under its ids -- the dense, vlm and moe decoders, rwkv6
+(``ssm``), the zamba2 Mamba2 hybrid (``hybrid``) and whisper's
+encoder-decoder (``encdec``)."""
 from __future__ import annotations
 
 import importlib
@@ -16,23 +15,17 @@ _ARCH_MODULES = {
     "h2o-danube3-4b": "repro_torch.configs.h2o_danube3_4b",
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
     "internvl2-26b": "repro_torch.configs.internvl2_26b",
+    "whisper-small": "repro_torch.configs.whisper_small",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
+    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
     "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b",
     "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
-    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
-    "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
 }
-# the JAX package's other architecture: whisper's encoder-decoder comes
-# with a later slice
-_NOT_PORTED = ("whisper-small",)
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch!r} is not ported to repro_torch yet; ROADMAP.md queues "
-            f"its family; available: {ARCH_IDS}")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; available: {ARCH_IDS}")
     mod = importlib.import_module(_ARCH_MODULES[arch])

@@ -11,8 +11,9 @@ decoders serve token prompts.
 The flags are the JAX launcher's (``repro.launch.serve``), plus
 ``--device``: the card unless it names another device.  Weights are drawn
 from a seeded ``torch.Generator`` at the arch's SMOKE size; the prompts are
-random token ids, so a vlm arch (which takes patch streams) raises there,
-as in the JAX launcher.
+random token ids, so a vlm arch (which takes patch streams) and
+whisper-small (which takes frames, ``KeyError: 'frames'``) raise there, as
+in the JAX launcher.
 """
 from __future__ import annotations
 

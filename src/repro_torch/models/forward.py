@@ -1,8 +1,9 @@
-"""Forward passes of the decoder families, the port's copy of the parts of
-``repro.models.forward`` the serving engine runs: the dense and vlm trunk
-(a uniform stack, full or sliding-window, or gemma3's local/global
-pattern), the moe trunk, the rwkv6 trunk (``ssm``) and zamba2's Mamba2
-hybrid trunk.
+"""Forward passes, the port's copy of the parts of ``repro.models.forward``
+the serving path runs: the dense and vlm trunk (a uniform stack, full or
+sliding-window, or gemma3's local/global pattern), the moe trunk, the
+rwkv6 trunk (``ssm``), zamba2's Mamba2 hybrid trunk, and whisper's
+encoder and decoder trunks with the decoder's cross-attention K/V
+(``encdec``).
 
 Modes: ``prefill`` (the whole prompt; fills the KV caches when given
 them) and ``decode`` (one token per sequence against the caches).  Each
@@ -68,23 +69,25 @@ def _rope(cfg: ModelConfig, S: int, pos0=0, positions=None, theta=None,
 
 
 def project_qkv(x: torch.Tensor, lp: Dict, cfg: ModelConfig, rope_sincos,
-                prefix: str = ""):
-    """The attention's q/k/v projections of (B, S, D) ``x``, with the qk
+                prefix: str = "", kv_src: Optional[torch.Tensor] = None):
+    """The attention's q/k/v projections of (B, S, D) ``x`` -- k and v of
+    ``kv_src`` (B, S_kv, D) when given (cross-attention) --, with the qk
     norms when the layer has them and RoPE at the given tables: q (B, S,
-    H, Dh), k and v (B, S, KH, Dh)."""
-    B, S, _ = x.shape
+    H, Dh), k and v (B, S_kv, KH, Dh).  Products in jnp's promoted
+    dtype."""
     Dh = cfg.head_dim
 
-    def proj(name, heads):
-        y = x @ lp[prefix + "w" + name]
+    def proj(name, src, heads):
+        y = L.mm(src, lp[prefix + "w" + name])
         b = lp.get(prefix + "b" + name)
         if b is not None:
             y = y + b
-        return y.reshape(B, S, heads, Dh)
+        return y.reshape(src.shape[0], src.shape[1], heads, Dh)
 
-    q = proj("q", cfg.num_heads)
-    k = proj("k", cfg.num_kv_heads)
-    v = proj("v", cfg.num_kv_heads)
+    src = x if kv_src is None else kv_src
+    q = proj("q", x, cfg.num_heads)
+    k = proj("k", src, cfg.num_kv_heads)
+    v = proj("v", src, cfg.num_kv_heads)
     if prefix + "qnorm" in lp:
         q = L.rmsnorm(q, lp[prefix + "qnorm"], cfg.norm_eps)
         k = L.rmsnorm(k, lp[prefix + "knorm"], cfg.norm_eps)
@@ -97,18 +100,20 @@ def project_qkv(x: torch.Tensor, lp: Dict, cfg: ModelConfig, rope_sincos,
 
 def attn_sublayer(x, lp: Dict, cfg: ModelConfig, *, window: int = 0,
                   rope_sincos=None, mode: str = "prefill",
-                  cache: Optional[Tuple] = None, pos=0, positions=None,
-                  prefix: str = ""):
+                  cache: Optional[Tuple] = None, pos=0, causal: bool = True,
+                  kv_src=None, positions=None, prefix: str = ""):
     """Returns (attn_out (B, S, D), cache or None).  ``cache`` is (k_cache,
     v_cache) (B, Smax, KH, Dh), written in place: rows [0, S) in prefill,
     each sequence's row ``pos`` (a scalar or (B,) tensor) in decode -- or,
     with ``window > 0`` and Smax == window, the ring's slots: prefill
     writes the last min(window, S) rows at their row index mod window,
-    decode slot pos mod window."""
+    decode slot pos mod window.  Prefill attention is causal unless
+    ``causal`` is False; with ``kv_src`` (B, S_kv, D) k and v are its
+    projections (cross-attention)."""
     B, S, _ = x.shape
     H, Dh = cfg.num_heads, cfg.head_dim
     G = H // cfg.num_kv_heads
-    q, k, v = project_qkv(x, lp, cfg, rope_sincos, prefix)
+    q, k, v = project_qkv(x, lp, cfg, rope_sincos, prefix, kv_src)
     ring = cache is not None and window > 0 and cache[0].shape[1] == window
 
     if mode == "decode":
@@ -149,14 +154,14 @@ def attn_sublayer(x, lp: Dict, cfg: ModelConfig, *, window: int = 0,
             cache[0][:, :S] = k.to(cache[0].dtype)
             cache[1][:, :S] = v.to(cache[1].dtype)
         o = L.blockwise_attention(
-            q, L.repeat_kv(k, G), L.repeat_kv(v, G), window=window,
-            softcap=cfg.logit_softcap, q_positions=positions,
+            q, L.repeat_kv(k, G), L.repeat_kv(v, G), causal=causal,
+            window=window, softcap=cfg.logit_softcap, q_positions=positions,
             kv_positions=positions)
     else:
         raise NotImplementedError(
             f"mode {mode!r}: the training path comes with the train slice "
             f"(ROADMAP.md)")
-    out = o.reshape(B, S, H * Dh) @ lp[prefix + "wo"]
+    out = L.mm(o.reshape(B, S, H * Dh), lp[prefix + "wo"])
     bo = lp.get(prefix + "bo")
     if bo is not None:
         out = out + bo
@@ -344,3 +349,104 @@ def hybrid_trunk(params, cfg: ModelConfig, x, *, mode="prefill",
     if states is None:
         return x, None, caches
     return x, (torch.stack(new_ssm), torch.stack(new_conv)), caches
+
+
+# ---------------------------------------------------------------------------
+# whisper's encoder-decoder (encdec)
+# ---------------------------------------------------------------------------
+
+def _gelu_mlp(x, lp):
+    return L.gelu_mlp(x, lp["mlp_w1"], lp["mlp_b1"], lp["mlp_w2"],
+                      lp["mlp_b2"])
+
+
+def _ln(x, lp, name, cfg: ModelConfig):
+    return L.layernorm(x, lp[name], lp[name + "_b"], cfg.norm_eps)
+
+
+def encoder_trunk(params, cfg: ModelConfig, frames):
+    """frames: (B, S, frontend_dim) precomputed conv-frontend embeddings ->
+    the memory (B, S, D): the linear adapter, sinusoid positions, pre-LN
+    blocks of non-causal attention and a GELU MLP, the final LayerNorm.
+    Float32 frames keep the encoder in float32 against bfloat16 weights,
+    as jnp promotes them."""
+    x = L.mm(frames, params["frontend_w"]) + params["frontend_b"]
+    _, S, D = x.shape
+    x = x + L.sinusoid_positions(S, D, device=x.device).to(x.dtype)
+    stack = _sub(params, "e_")
+    for i in range(cfg.encoder_layers):
+        lp = layer_params(stack, i)
+        o, _ = attn_sublayer(_ln(x, lp, "ln1", cfg), lp, cfg, causal=False)
+        x = x + o
+        x = x + _gelu_mlp(_ln(x, lp, "ln2", cfg), lp)
+    return L.layernorm(x, params["enc_final_norm"],
+                       params["enc_final_norm_b"], cfg.norm_eps)
+
+
+def cross_kv(params, cfg: ModelConfig, memory):
+    """Every decoder layer's cross-attention K and V of ``memory``: (L, B,
+    S_enc, KH, Dh) each, in the memory's promoted dtype (no k bias)."""
+    xs = _sub(params, "x_")
+    B, S, _ = memory.shape
+    shape = (B, S, cfg.num_kv_heads, cfg.head_dim)
+    ks = [L.mm(memory, xs["wk"][i]).reshape(shape)
+          for i in range(cfg.decoder_layers)]
+    vs = [(L.mm(memory, xs["wv"][i]) + xs["bv"][i]).reshape(shape)
+          for i in range(cfg.decoder_layers)]
+    return torch.stack(ks), torch.stack(vs)
+
+
+def _dec_positions(params, T: int, pos, device) -> torch.Tensor:
+    """``dec_pos`` rows [start, start + T) with start = ``pos`` clamped to
+    [0, max_target_len - T], as ``dynamic_slice`` clamps its start (a
+    decode past the table reads its last row); per sequence for a (B,)
+    ``pos``.  Returns (1 or B, T, D)."""
+    table = params["dec_pos"]
+    start = torch.as_tensor(pos, device=device).reshape(-1).clamp(
+        0, table.shape[0] - T)
+    return table[start[:, None] + torch.arange(T, device=device)]
+
+
+def decoder_trunk(params, cfg: ModelConfig, tokens, memory, *,
+                  mode: str = "prefill", caches=None, pos=0):
+    """tokens (B, T) -> (x (B, T, D) before the final norm, caches).
+    Learned positions from ``pos``, then pre-LN blocks of causal
+    self-attention, cross-attention and a GELU MLP.  Without ``caches``
+    the cross-attention projects k and v of ``memory`` (B, S_enc, D) in
+    every layer; with ``caches`` {"self": (k, v) (L, B, Tmax, KH, Dh),
+    written in place, "cross": (k, v) (L, B, S_enc, KH, Dh) from
+    ``cross_kv``} it reads the cross K/V (``memory`` unused) and runs
+    ``mode`` "prefill" or "decode" (one token at ``pos``, a scalar or
+    (B,))."""
+    x = _embed(params, cfg, tokens)
+    B, T, _ = x.shape
+    x = x + _dec_positions(params, T, pos, x.device)
+    dstack, xstack = _sub(params, "d_"), _sub(params, "x_")
+    H, Dh = cfg.num_heads, cfg.head_dim
+    G = H // cfg.num_kv_heads
+    for i in range(cfg.decoder_layers):
+        lp, xp = layer_params(dstack, i), layer_params(xstack, i)
+        h = _ln(x, lp, "ln1", cfg)
+        if caches is None:
+            o, _ = attn_sublayer(h, lp, cfg)
+            x = x + o
+            o, _ = attn_sublayer(_ln(x, lp, "ln2", cfg), xp, cfg,
+                                 causal=False, kv_src=memory)
+        else:
+            sk, sv = caches["self"]
+            o, _ = attn_sublayer(h, lp, cfg, mode=mode,
+                                 cache=(sk[i], sv[i]), pos=pos)
+            x = x + o
+            # cross-attention against the precomputed K/V
+            h = _ln(x, lp, "ln2", cfg)
+            q = (L.mm(h, xp["wq"]) + xp["bq"]).reshape(B, T, H, Dh)
+            xk = L.repeat_kv(caches["cross"][0][i], G)
+            xv = L.repeat_kv(caches["cross"][1][i], G)
+            if mode == "decode":
+                o = L.decode_attention(q, xk, xv, xk.shape[1])
+            else:
+                o = L.blockwise_attention(q, xk, xv, causal=False)
+            o = L.mm(o.reshape(B, T, H * Dh), xp["wo"]) + xp["bo"]
+        x = x + o
+        x = x + _gelu_mlp(_ln(x, lp, "ln3", cfg), lp)
+    return x, caches

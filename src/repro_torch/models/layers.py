@@ -1,6 +1,6 @@
 """Transformer building blocks, the port's copy of ``repro.models.layers``
-for the families it runs (dense, vlm and moe; full and sliding-window
-attention).
+for the serving path (full, sliding-window and non-causal attention, the
+norms, the MLPs, the rotary and sinusoid positions).
 
 Parameters are plain dicts of tensors; layer stacks carry a leading ``L``
 dim.  Prefill attention is blockwise online softmax with float32
@@ -29,11 +29,30 @@ NEG_INF = -1e30
 # norms, rotary embeddings, GQA
 # ---------------------------------------------------------------------------
 
+def mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` in the promoted dtype, as jnp multiplies mixed dtypes (a
+    float32 activation and bfloat16 weights give a float32 product, where
+    torch refuses)."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return a.to(dt) @ w.to(dt)
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     x32 = x.float()
     y = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
     return (y * w.float()).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in float32 (population variance), cast back to x's
+    dtype."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = torch.square(x32 - mu).mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(x.dtype)
 
 
 def rope_table(positions: torch.Tensor, head_dim: int, theta: float):
@@ -266,7 +285,7 @@ def decode_attention_grouped(q: torch.Tensor, k_cache: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def activation(h: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """SiLU (``silu``, ``swiglu``) or tanh-GELU (``gelu_glu``), written op
+    """SiLU (``silu``, ``swiglu``) or tanh-GELU (``gelu_glu``, ``gelu``), op
     by op in ``h``'s dtype as ``jax.nn.silu`` and ``jax.nn.gelu`` expand:
     in bfloat16 each op rounds, as XLA's do, where torch's fused
     ``F.silu``/``F.gelu`` round once (a bfloat16 step apart in ~40% of
@@ -284,3 +303,29 @@ def glu_mlp(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
             w2: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """SwiGLU / GeGLU: act(x@w1) * (x@w3) @ w2."""
     return (activation(x @ w1, act) * (x @ w3)) @ w2
+
+
+def gelu_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+             w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The plain tanh-GELU MLP with biases (whisper), in jnp's promoted
+    dtype: float32 activations stay float32 against bfloat16 weights."""
+    h = activation(mm(x, w1) + b1, "gelu")
+    return mm(h, w2) + b2
+
+
+# ---------------------------------------------------------------------------
+# sinusoid positions (whisper's encoder)
+# ---------------------------------------------------------------------------
+
+def sinusoid_positions(length: int, dim: int,
+                       device=None) -> torch.Tensor:
+    """(length, dim) float32: sin then cos of position x exp(-i log(1e4) /
+    (dim/2 - 1)), each step in float32 as jnp takes it (log(1e4) rounded
+    to float32 first)."""
+    log_timescale = torch.log(torch.tensor(10_000.0, device=device)) \
+        / (dim // 2 - 1)
+    inv = torch.exp(-log_timescale * torch.arange(
+        dim // 2, dtype=torch.float32, device=device))
+    scaled = torch.arange(length, dtype=torch.float32,
+                          device=device)[:, None] * inv[None, :]
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1)

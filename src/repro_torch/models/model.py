@@ -1,5 +1,4 @@
-"""Model API of the families the port runs (dense, vlm, moe, ssm and
-hybrid):
+"""Model API of every family (dense, vlm, moe, ssm, hybrid and encdec):
 
   init_cache(cfg, batch, max_seq, device)         -> the cache tree
   prefill(params, cfg, batch, caches, ...)        -> (last_logits, caches)
@@ -7,9 +6,11 @@ hybrid):
 
 Batch schemas: dense, moe, ssm and hybrid ``{tokens (B, S)}``; vlm
 ``{tokens (B, S_txt), patches (B, S_img, frontend_dim)}``, the projected
-patches ahead of the text tokens.  ``decode_step`` takes ``pos`` as a
-scalar or a (B,) vector of per-sequence positions: the batch dimension
-written out where the JAX engine vmaps per-request scalars.  Every cache
+patches ahead of the text tokens; encdec ``{frames (B, S, frontend_dim),
+tokens (B, T)}``, the frames through the encoder, the tokens through the
+decoder (prefill starts them at position 0).  ``decode_step`` takes
+``pos`` as a scalar or a (B,) vector of per-sequence positions: the batch
+dimension written out where the JAX engine vmaps per-request scalars.  Every cache
 tensor has its batch on axis 1.  KV caches are written in place; the
 recurrent states (ssm, hybrid) come back as new tensors, which the caller
 carries to the next call (the caches passed seed the recurrence).
@@ -26,9 +27,8 @@ from repro_torch.models.ssm import conv_dim
 
 
 def _families(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP.md)")
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "encdec"):
+        raise ValueError(f"unknown family {cfg.family}")
 
 
 def _trunk(params, cfg: ModelConfig, x, *, mode, caches, pos=0,
@@ -64,6 +64,12 @@ def _front(params, cfg: ModelConfig, batch) -> torch.Tensor:
     return F._embed(params, cfg, batch["tokens"])
 
 
+def _encdec_logits(params, cfg: ModelConfig, x) -> torch.Tensor:
+    x = L.layernorm(x, params["final_norm"], params["final_norm_b"],
+                    cfg.norm_eps)
+    return F._unembed(params, cfg, x)
+
+
 def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None):
     """Zeroed caches for a serving session on ``device`` -- the CUDA card
     unless the caller passes one (``resolve_device``).  KV caches are (k,
@@ -80,7 +86,11 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None):
     * hybrid (zamba2): {"states": (ssm (L, B, H, N, P) float32, conv
       (L, B, cw - 1, conv_dim) bfloat16 whatever ``cfg.dtype``, as the
       JAX package's), "attn": a KV pair of one cache per application of
-      a shared block, max_seq}."""
+      a shared block, max_seq};
+    * encdec (whisper): {"self": the decoder's KV pair of
+      ``max_target_len`` whatever max_seq, "cross": a bfloat16 pair of
+      max_seq (the encoder's length), which prefill replaces with the
+      memory's K/V, as the JAX package's}."""
     _families(cfg)
     dt = getattr(torch, cfg.kv_cache_dtype)
     device = resolve_device(device)
@@ -94,6 +104,12 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None):
         return torch.zeros(shape, dtype=dtype, device=device)
 
     Lc, f32 = cfg.num_layers, torch.float32
+    if cfg.family == "encdec":
+        shape = (cfg.decoder_layers, B, max_seq, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return {"self": kv(cfg.decoder_layers, cfg.max_target_len),
+                "cross": (zeros(torch.bfloat16, *shape),
+                          zeros(torch.bfloat16, *shape))}
     if cfg.family == "ssm":
         H, P, D = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.d_model
         return (zeros(f32, Lc, B, H, P, P), zeros(f32, Lc, B, D),
@@ -131,8 +147,18 @@ def prefill(params, cfg: ModelConfig, batch, caches, *, positions=None,
     last row -- or of row ``last_index``: an RoI-packed prompt ends at its
     last KEPT row, not its last padded one.  ``positions`` reach the
     attention families only; the recurrent ones run over every row in
-    order, padding rows included (ROADMAP C-R5)."""
+    order, padding rows included (ROADMAP C-R5).  encdec ignores both, as
+    the JAX package does: the encoder over ``batch["frames"]``, its
+    memory's cross K/V into ``caches["cross"]`` (a new pair in a new
+    dict; the self caches are written in place), then the decoder over
+    ``batch["tokens"]`` from position 0 and the last row's logits."""
     _families(cfg)
+    if cfg.family == "encdec":
+        memory = F.encoder_trunk(params, cfg, batch["frames"])
+        caches = dict(caches, cross=F.cross_kv(params, cfg, memory))
+        x, caches = F.decoder_trunk(params, cfg, batch["tokens"], memory,
+                                    mode="prefill", caches=caches)
+        return _encdec_logits(params, cfg, x[:, -1:]), caches
     x = _front(params, cfg, batch)
     x, caches = _trunk(params, cfg, x, mode="prefill", caches=caches,
                        positions=positions)
@@ -147,8 +173,13 @@ def prefill(params, cfg: ModelConfig, batch, caches, *, positions=None,
 
 def decode_step(params, cfg: ModelConfig, tokens, caches, pos):
     """tokens: (B, 1), each sequence's token at position ``pos`` (scalar
-    or (B,))."""
+    or (B,)).  encdec reads its position's ``dec_pos`` row, clamped to
+    the table's last (``F._dec_positions``)."""
     _families(cfg)
+    if cfg.family == "encdec":
+        x, caches = F.decoder_trunk(params, cfg, tokens, None, mode="decode",
+                                    caches=caches, pos=pos)
+        return _encdec_logits(params, cfg, x), caches
     x = F._embed(params, cfg, tokens)
     x, caches = _trunk(params, cfg, x, mode="decode", caches=caches, pos=pos)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)

@@ -7,7 +7,13 @@ stacked ``(L, ...)`` tensors under ``blocks_`` (a uniform stack),
 ``qnorm``/``knorm`` when ``cfg.qk_norm`` is set.  rwkv6 (ssm) has its
 RWKV6 layers under ``blocks_`` and ``ln_in``; the zamba2 hybrid its
 Mamba2 layers (``blocks_m_*``) and ``num_shared_attn_blocks`` shared
-attention + MLP blocks under ``sa_``.
+attention + MLP blocks under ``sa_``.  whisper (encdec) has its encoder
+layers under ``e_``, its decoder's self-attention, MLP and three norms
+under ``d_`` and its cross-attention under ``x_``: attention with
+``bq``/``bv``/``bo`` and no ``bk``, a biased GELU MLP (``mlp_w1``,
+``mlp_b1``, ``mlp_w2``, ``mlp_b2``), LayerNorms with biases (``ln1``,
+``ln1_b``, ...); then ``enc_final_norm(_b)``, ``final_norm_b``, the
+learned ``dec_pos`` and the frames' adapter ``frontend_w``/``frontend_b``.
 
 ``init_params`` draws random weights on a device from a
 ``torch.Generator`` (truncated-normal fan-in, ones for norms, zeros for
@@ -38,21 +44,39 @@ def _dt(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _attn_block(cfg: ModelConfig, mk: Creator, L: int) -> Dict:
+def _attn_block(cfg: ModelConfig, mk: Creator, L: int,
+                biases: bool = False) -> Dict:
     d, dt = cfg.d_model, _dt(cfg)
     qd, kvd = cfg.q_dim, cfg.kv_dim
     p = {"wq": mk("wq", (L, d, qd), dt, d), "wk": mk("wk", (L, d, kvd), dt, d),
          "wv": mk("wv", (L, d, kvd), dt, d),
          "wo": mk("wo", (L, qd, d), dt, qd)}
+    if biases:
+        p.update({"bq": mk("bq", (L, qd), dt, 0),
+                  "bv": mk("bv", (L, kvd), dt, 0),
+                  "bo": mk("bo", (L, d), dt, 0)})
     if cfg.qk_norm:
         p["qnorm"] = mk("qnorm", (L, cfg.head_dim), torch.float32, -1)
         p["knorm"] = mk("knorm", (L, cfg.head_dim), torch.float32, -1)
     return p
 
 
-def _norms(cfg: ModelConfig, mk: Creator, L: int) -> Dict:
-    return {n: mk(n, (L, cfg.d_model), torch.float32, -1)
-            for n in ("ln1", "ln2")}
+def _norms(cfg: ModelConfig, mk: Creator, L: int, names=("ln1", "ln2"),
+           biases: bool = False) -> Dict:
+    p = {}
+    for n in names:
+        p[n] = mk(n, (L, cfg.d_model), torch.float32, -1)
+        if biases:
+            p[n + "_b"] = mk(n + "_b", (L, cfg.d_model), torch.float32, 0)
+    return p
+
+
+def _gelu_mlp(cfg: ModelConfig, mk: Creator, L: int) -> Dict:
+    d, dt, ff = cfg.d_model, _dt(cfg), cfg.d_ff
+    return {"mlp_w1": mk("mlp_w1", (L, d, ff), dt, d),
+            "mlp_b1": mk("mlp_b1", (L, ff), dt, 0),
+            "mlp_w2": mk("mlp_w2", (L, ff, d), dt, ff),
+            "mlp_b2": mk("mlp_b2", (L, d), dt, 0)}
 
 
 def _dense_stack(cfg: ModelConfig, mk: Creator, L: int) -> Dict:
@@ -131,10 +155,8 @@ def param_tree(cfg: ModelConfig, mk: Creator) -> Dict:
     """``mk(name, shape, dtype, scale)`` per leaf, in the JAX package's
     order; scale -1 for ones, 0 for zeros, -2 for the family's special
     init (``m_A_log``, ``decay_base``), n > 0 for the fan-in n."""
-    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"parameters of {cfg.name!r} ({cfg.family}) are not ported yet "
-            f"(ROADMAP.md)")
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "encdec"):
+        raise ValueError(f"unknown family {cfg.family}")
     d, dt, V = cfg.d_model, _dt(cfg), cfg.vocab_size
     p: Dict = {"embed": mk("embed", (V, d), dt, 1.0)}
     if not cfg.tie_embeddings:
@@ -156,6 +178,20 @@ def param_tree(cfg: ModelConfig, mk: Creator) -> Dict:
         stack("blocks_", _mamba_stack(cfg, mk, cfg.num_layers))
         # the shared attention + MLP blocks, alternated over the stack
         stack("sa_", _dense_stack(cfg, mk, cfg.num_shared_attn_blocks))
+    elif cfg.family == "encdec":
+        stack("e_", {**_attn_block(cfg, mk, cfg.encoder_layers, True),
+                     **_gelu_mlp(cfg, mk, cfg.encoder_layers),
+                     **_norms(cfg, mk, cfg.encoder_layers, biases=True)})
+        dec = cfg.decoder_layers
+        stack("d_", _attn_block(cfg, mk, dec, True))
+        stack("x_", _attn_block(cfg, mk, dec, True))
+        stack("d_", {**_gelu_mlp(cfg, mk, dec),
+                     **_norms(cfg, mk, dec, ("ln1", "ln2", "ln3"), True)})
+        f32 = torch.float32
+        p["enc_final_norm_b"] = mk("enc_final_norm_b", (d,), f32, 0)
+        p["enc_final_norm"] = mk("enc_final_norm", (d,), f32, -1)
+        p["final_norm_b"] = mk("final_norm_b", (d,), f32, 0)
+        p["dec_pos"] = mk("dec_pos", (cfg.max_target_len, d), dt, 1.0)
     elif cfg.global_every > 1:            # gemma3's local/global pattern
         n_super = cfg.num_layers // cfg.global_every
         n_trail = cfg.num_layers - n_super * cfg.global_every
@@ -166,7 +202,7 @@ def param_tree(cfg: ModelConfig, mk: Creator) -> Dict:
             stack("trail_", _dense_stack(cfg, mk, n_trail))
     else:
         stack("blocks_", _dense_stack(cfg, mk, cfg.num_layers))
-    if cfg.frontend == "vit_patch":
+    if cfg.frontend in ("vit_patch", "conv_audio"):
         p["frontend_w"] = mk("frontend_w", (cfg.frontend_dim, d), dt,
                              cfg.frontend_dim)
         p["frontend_b"] = mk("frontend_b", (d,), dt, 0)

@@ -26,7 +26,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import activation, rmsnorm
+from repro_torch.models.layers import activation, mm, rmsnorm
 
 LOG_DECAY_CLAMP = -5.0   # per step; chunk 16 -> max |exponent| 80 < 88 (f32)
 CHUNK = 16
@@ -38,12 +38,6 @@ class RWKVState(NamedTuple):
     wkv: torch.Tensor      # (B, H, P, P) f32
     shift_t: torch.Tensor  # (B, D) last input of the token-mix sublayer
     shift_c: torch.Tensor  # (B, D) last input of the channel-mix sublayer
-
-
-def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``a @ w`` in the promoted dtype, as jnp multiplies mixed dtypes."""
-    dt = torch.promote_types(a.dtype, w.dtype)
-    return a.to(dt) @ w.to(dt)
 
 
 def _shift(x: torch.Tensor, last: Optional[torch.Tensor]) -> torch.Tensor:
@@ -58,7 +52,7 @@ def _shift(x: torch.Tensor, last: Optional[torch.Tensor]) -> torch.Tensor:
 def _ddlerp(x, sx, p):
     """The data-dependent lerp: the five mixed streams (w, k, v, r, g)."""
     xx = x + sx * p["maa_x"]
-    delta = torch.tanh(_mm(xx, p["maa_w1"]))            # (B, S, 5 * LORA)
+    delta = torch.tanh(mm(xx, p["maa_w1"]))            # (B, S, 5 * LORA)
     B, S, _ = delta.shape
     delta = delta.reshape(B, S, 5, LORA_MIX)
     w2 = p["maa_w2"]
@@ -147,10 +141,10 @@ def rwkv6_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
     log_decay = torch.clamp(-torch.exp(lw), LOG_DECAY_CLAMP, 0.0)
     log_decay = log_decay.reshape(B, S, H, P)
 
-    r = _mm(mr, p["wr"]).reshape(B, S, H, P)
-    k = _mm(mk, p["wk"]).reshape(B, S, H, P)
-    v = _mm(mv, p["wv"]).reshape(B, S, H, P)
-    g = activation(_mm(mg, p["wg"]), "silu")
+    r = mm(mr, p["wr"]).reshape(B, S, H, P)
+    k = mm(mk, p["wk"]).reshape(B, S, H, P)
+    v = mm(mv, p["wv"]).reshape(B, S, H, P)
+    g = activation(mm(mg, p["wg"]), "silu")
 
     prev = state.wkv if state is not None else None
     if single_step:

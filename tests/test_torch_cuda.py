@@ -1107,3 +1107,51 @@ def test_cuda_recurrent_models_match_cpu(cuda, arch):
     for want, got in zip(*results):
         close(want, got)
     _tree_map(close, *trees)
+
+
+# ---------------------------------------------------------------------------
+# whisper's encoder-decoder (plain PyTorch, no kernel of its own), against
+# the CPU at SMOKE widths
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_whisper_matches_cpu(cuda, frames_dtype):
+    """whisper-small SMOKE in float32: the encoder's memory over 40 frames
+    of a (2,) batch, a 6-token prefill, then 8 decode steps at different
+    positions (one row past ``max_target_len``): the memory, the logits
+    and every cache within 1e-4 of the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward as TF
+    from repro_torch.models import model as TM
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import _tree_map
+    cfg = get_config("whisper-small", smoke=True).replace(
+        dtype="float32", kv_cache_dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(3)
+    frames = rng.normal(size=(2, 40, cfg.frontend_dim)).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab_size, (2, 14))
+    results, trees = [], []
+    for dev in ("cpu", cuda):
+        p = {k: v.to(dev) for k, v in params.items()}
+        f = torch.as_tensor(frames, device=dev).to(frames_dtype)
+        t = torch.as_tensor(toks, device=dev)
+        out = [TF.encoder_trunk(p, cfg, f)]
+        logits, caches = TM.prefill(p, cfg, {"frames": f, "tokens": t[:, :6]},
+                                    TM.init_cache(cfg, 2, 40, dev))
+        out.append(logits)
+        pos = torch.tensor([6, cfg.max_target_len - 3], device=dev)
+        for i in range(8):
+            logits, caches = TM.decode_step(p, cfg, t[:, 6 + i:7 + i],
+                                            caches, pos + i)
+            out.append(logits)
+        results.append([o.cpu() for o in out])
+        trees.append(caches)
+
+    def close(want, got):
+        assert (got.float().cpu() - want.float()).abs().max().item() <= 1e-4
+
+    for want, got in zip(*results):
+        close(want, got)
+    _tree_map(close, *trees)

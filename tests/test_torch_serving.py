@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro.configs.base import ServeConfig as JServeConfig
+from repro.configs.registry import ARCH_IDS as JARCH_IDS
 from repro.configs.registry import get_config as jget_config
 from repro.models import layers as JL
 from repro.models import model as JM
@@ -34,7 +35,8 @@ from repro_torch.serving.engine import Request, ServingEngine
 ARCH = "internvl2-26b"
 PORTED = ["internvl2-26b", "h2o-danube3-4b", "gemma3-27b",
           "mistral-nemo-12b", "deepseek-67b", "deepseek-moe-16b",
-          "qwen3-moe-235b-a22b", "rwkv6-7b", "zamba2-2.7b"]
+          "qwen3-moe-235b-a22b", "rwkv6-7b", "zamba2-2.7b",
+          "whisper-small"]
 F32 = dict(dtype="float32", kv_cache_dtype="float32")
 
 
@@ -243,8 +245,6 @@ def test_configs_and_params_mirror_reference(arch):
             jget_config(arch, smoke).param_count()
         assert get_config(arch, smoke).active_param_count() == \
             jget_config(arch, smoke).active_param_count()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("whisper-small")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     cfg = get_config(arch, smoke=True)
@@ -287,11 +287,13 @@ def test_qk_norm_follows_the_flag_not_the_name():
         "blocks_knorm", "blocks_qnorm"]
 
 
-def test_unported_families_raise():
-    """whisper's encoder-decoder still raises, naming ROADMAP."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("whisper-small")
+def test_arch_ids_equal_the_reference():
+    """Every arch of the JAX package, in its order; an unknown id raises
+    ``KeyError``."""
+    assert ARCH_IDS == JARCH_IDS
     assert sorted(ARCH_IDS) == sorted(PORTED)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
 
 
 def test_no_hidden_device(monkeypatch):
