@@ -231,6 +231,19 @@ is non-zero:
    printed in bf16 beside a rounding floor; in bf16 also a prefill of
    float32 frames (jnp's promotion: float32 encoder and cross K/V); the
    phase launches none of the kernels;
+3l. the one-device training step, after 3k: (a) h2o-danube3-4b at full
+   width and depth (bf16 weights and float32 AdamW moments drawn on the
+   card, ``TrainConfig()`` with remat, ``SyntheticLM`` markov batches of
+   2 x 4,096 tokens -- the train_4k cell's global batch of 256 cut) for
+   5 steps of ``train_loss`` -> ``torch.autograd.grad`` ->
+   ``adamw_update``: each step's loss, grad_norm, lr and host-clock ms,
+   the peak memory, the loss and every gradient finite, every weight
+   matrix moved; (b) every arch at SMOKE in float32, the card's loss and
+   gradients against the port's CPU path within 1e-4 of each leaf's
+   largest |g| (or twice the CPU path's own rounding floor), remat on
+   == off, ``causal_skip`` == the exhaustive walk (bitwise on the rows
+   and the loss) and three AdamW steps == the CPU's, within 1e-6; the
+   phase launches none of the kernels;
 4. a ``kernels`` JSON line with each kernel's launches on its path (B1-B5
    on the fleet path of phases 3 and 3b, B10 and B11 on the rate-control
    loop, B6-B9 on phase 3d's paths, B12 on the engine's tensors in 3f),
@@ -3850,6 +3863,244 @@ def encdec_phase(torch, dev):
     assert not failed, failed
 
 
+# ---------------------------------------------------------------------------
+# phase 3l: the one-device training step
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "h2o-danube3-4b"
+TRAIN_STEPS = 5
+# the train_4k cell's global batch of 256, cut to 2: at 2 the peak is
+# 50.6 GiB, at 1 46.7 (profile_train_step.py, PR 31)
+TRAIN_BATCH = 2
+# (b) the card against the port's CPU path at SMOKE, float32: the loss and
+# each gradient leaf within 1e-4 of its largest |g| (the CPU path is the
+# one the tests hold against JAX), or within twice the CPU path's own
+# rounding floor where that is larger: how far its gradients move when
+# the embedding moves by 2^-24 of itself (rwkv6's draw: 2.1e-4-3.5e-4 in
+# the first chip run, the card 2.8e-4); remat on == off, causal_skip's
+# gradients == the exhaustive walk's and AdamW on the card == the CPU
+# within 1e-6 of each leaf's largest
+TRAIN_TOL, TRAIN_TIGHT = 1e-4, 1e-6
+TRAIN_SMOKE = ["h2o-danube3-4b", "gemma3-27b", "mistral-nemo-12b",
+               "deepseek-67b", "internvl2-26b", "deepseek-moe-16b",
+               "qwen3-moe-235b-a22b", "rwkv6-7b", "zamba2-2.7b",
+               "whisper-small"]
+SKIP_ARCH, SKIP_SEQ = "mistral-nemo-12b", 2048   # 4 query blocks, 2 chunks
+
+
+def loss_and_grads(torch, M, params, cfg, batch, **kw):
+    """``train_loss`` and the gradient of every leaf (zeros where unused,
+    as ``jax.grad`` gives): (loss, metrics, {name: grad})."""
+    loss, metrics = M.train_loss(params, cfg, batch, **kw)
+    names = sorted(params)
+    grads = torch.autograd.grad(loss, [params[k] for k in names],
+                                allow_unused=True, materialize_grads=True)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+        dict(zip(names, grads))
+
+
+def leaf_share(got, want):
+    """The largest of |got - want| over each leaf's largest |want|."""
+    return max((got[k].float().cpu() - want[k].float().cpu()).abs().max()
+               .item() / max(want[k].float().abs().max().item(), 1e-30)
+               for k in want)
+
+
+def train_full(torch, dev, smi):
+    """(a) h2o-danube3-4b FULL (24 layers, d_model 3840, a window of
+    4,096 on every layer; nothing of its width or depth cut), bf16
+    weights drawn on the card, ``TrainConfig()`` (remat on), a
+    ``SyntheticLM`` markov batch of TRAIN_BATCH x 4,096 tokens per step:
+    TRAIN_STEPS steps of ``train_loss`` -> ``torch.autograd.grad`` ->
+    ``adamw_update``, each timed on the host clock ending in a
+    synchronize; the loss and every gradient finite, the parameters
+    moved."""
+    from repro_torch.configs import SHAPES, TrainConfig, get_config
+    from repro_torch.data.lm import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.optim.adamw import adamw_init, adamw_update
+
+    cfg, tcfg, cell = get_config(TRAIN_ARCH), TrainConfig(), \
+        SHAPES["train_4k"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    for p in params.values():
+        p.requires_grad_(True)
+    state = adamw_init(params, dev)
+    torch.cuda.synchronize()
+    n = count_params(params)
+    assert n == cfg.param_count(), n
+    say(f"[3l] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, window {cfg.window_size} (full size); {n / 1e9:.3f} B "
+        f"parameters in {cfg.dtype} and the AdamW moments in float32: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB, drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    say(f"[3l] batch {TRAIN_BATCH} x {cell.seq_len} tokens a step: the "
+        f"{cell.name} cell's global batch of {cell.global_batch} is cut "
+        f"(gradient accumulation, TrainConfig.microbatch, comes with A6b); "
+        f"TrainConfig() remat={tcfg.remat!r}, causal_skip="
+        f"{tcfg.causal_skip}, warmup {tcfg.warmup_steps} steps")
+    data = SyntheticLM(cfg.vocab_size, cell.seq_len, TRAIN_BATCH,
+                       mode="markov", seed=SEED)
+    # every 97th element of each leaf, to count those the steps move
+    before = {k: p.detach().view(-1)[::97].clone() for k, p in
+              params.items()}
+    rows, losses = [], []
+    for step in range(TRAIN_STEPS):
+        batch = data.batch(step, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, grads = loss_and_grads(
+            torch, M, params, cfg, batch, remat=tcfg.remat != "none",
+            causal_skip=tcfg.causal_skip)
+        params, state, met = adamw_update(params, grads, state, tcfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        bad = [k for k, g in grads.items() if not bool(
+            torch.isfinite(g).all())]
+        assert bool(torch.isfinite(loss)) and not bad, (step, bad)
+        del grads
+        rows.append(ms)
+        losses.append(float(loss))
+        say(f"[3l] step {step + 1}: loss {float(loss):.5f} grad_norm "
+            f"{float(met['grad_norm']):.5f} lr {float(met['lr']):.3e} "
+            f"{ms:.1f} ms")
+    moved = {k: int((p.detach().view(-1)[::97] != before[k]).sum())
+             for k, p in params.items()}
+    total = sum(v.numel() for v in before.values())
+    say(f"[3l] {TRAIN_STEPS} steps: median {statistics.median(rows):.1f} ms "
+        f"a step (first {rows[0]:.1f}; {smi}); peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; sampled "
+        f"elements (every 97th) moved {sum(moved.values())} of {total} "
+        f"({sum(moved.values()) / total:.4f}; per leaf {moved})")
+    # bf16 weights without a float32 master copy, as in the JAX package:
+    # an update under half a bf16 step of its weight rounds back
+    assert sum(moved.values()) > 0 and all(
+        moved[k] > 0 for k, p in params.items() if p.ndim >= 2), moved
+    del params, state, before
+    return rows, losses
+
+
+def train_identities(torch, dev):
+    """(b) every family at SMOKE in float32: the card's loss and gradients
+    against the port's CPU path, remat on == off, causal_skip == the
+    exhaustive walk (bitwise on the attention's rows and the loss, the
+    gradients within TRAIN_TIGHT), three AdamW steps on the card == on
+    the CPU.  Returns the largest shares."""
+    from repro_torch.configs import ShapeCell, TrainConfig, get_config
+    from repro_torch.models import layers as L, model as M
+    from repro_torch.models.params import init_params
+    from repro_torch.optim.adamw import adamw_init, adamw_update
+
+    def case(arch, S=64):
+        cfg = get_config(arch, smoke=True).replace(
+            dtype="float32", kv_cache_dtype="float32")
+        params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                             "cpu")
+        b = M.make_batch(cfg, ShapeCell("smoke", S, 2, "train"),
+                         torch.Generator().manual_seed(SEED + 1), "cpu")
+        return cfg, params, {k: v.float() if v.is_floating_point() else v
+                             for k, v in b.items()}
+
+    def run(cfg, params, b, where, **kw):
+        p = {k: v.detach().to(where).requires_grad_(True)
+             for k, v in params.items()}
+        return loss_and_grads(torch, M, p, cfg,
+                              {k: v.to(where) for k, v in b.items()}, **kw)
+
+    def floor(cfg, params, b, g_cpu):
+        """The CPU path's own rounding floor: the largest share its
+        gradients move by when the embedding moves by 2^-24 of itself
+        (two draws)."""
+        out = 0.0
+        for i in (1, 2):
+            gen = torch.Generator().manual_seed(SEED + i)
+            e = params["embed"]
+            e = e * (1 + 2 ** -24 * torch.randn(e.shape, generator=gen))
+            out = max(out, leaf_share(
+                run(cfg, dict(params, embed=e), b, "cpu")[2], g_cpu))
+        return out
+
+    worst = {"card": 0.0, "remat": 0.0, "metrics": 0.0, "floor": 0.0}
+    for arch in TRAIN_SMOKE:
+        cfg, params, b = case(arch)
+        l_cpu, m_cpu, g_cpu = run(cfg, params, b, "cpu")
+        l_dev, m_dev, g_dev = run(cfg, params, b, dev)
+        l_nr, _, g_nr = run(cfg, params, b, dev, remat=False)
+        card = max(abs(float(l_dev) - float(l_cpu)) / max(1.0, abs(float(
+            l_cpu))), leaf_share(g_dev, g_cpu))
+        fl = floor(cfg, params, b, g_cpu)
+        bar = max(TRAIN_TOL, 2 * fl)
+        remat = max(abs(float(l_nr) - float(l_dev)),
+                    leaf_share(g_nr, g_dev))
+        met = max([abs(float(m_dev[k]) - float(m_cpu[k])) for k in m_cpu],
+                  default=0.0)
+        say(f"[3l] (b) {arch} SMOKE f32: loss {float(l_dev):.6f}, card vs "
+            f"CPU {card:.3g} (bar {bar:.3g}: the CPU's floor {fl:.3g}), "
+            f"remat on vs off {remat:.3g} (bar {TRAIN_TIGHT})"
+            f"{'' if not m_cpu else f', metrics {met:.3g}'}")
+        assert card <= bar and remat <= TRAIN_TIGHT, arch
+        assert met <= TRAIN_TIGHT, arch
+        for k, v in (("card", card), ("remat", remat), ("metrics", met),
+                     ("floor", fl)):
+            worst[k] = max(worst[k], v)
+    # causal_skip on a full-attention arch, past the default blocks
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn((2, SKIP_SEQ, 4, 32), generator=g, device=dev)
+               for _ in range(3))
+    attn_same = torch.equal(L.blockwise_attention(q, k, v, causal_skip=True),
+                            L.blockwise_attention(q, k, v))
+    cfg, params, b = case(SKIP_ARCH, SKIP_SEQ)
+    l_skip, _, g_skip = run(cfg, params, b, dev, causal_skip=True)
+    l_ex, _, g_ex = run(cfg, params, b, dev)
+    skip = leaf_share(g_skip, g_ex)
+    say(f"[3l] (b) causal_skip at S = {SKIP_SEQ}: attention rows bitwise "
+        f"the exhaustive walk's: {attn_same}; {SKIP_ARCH} loss bitwise: "
+        f"{torch.equal(l_skip, l_ex)}; gradients {skip:.3g} (bar "
+        f"{TRAIN_TIGHT})")
+    assert attn_same and torch.equal(l_skip, l_ex) and skip <= TRAIN_TIGHT
+    # AdamW: three steps on the card against the CPU (bf16 embed, f32 rest)
+    cfg, params, b = case(TRAIN_ARCH)
+    _, _, grads = run(cfg, params, b, "cpu")
+    params["embed"] = params["embed"].bfloat16()
+    tcfg = TrainConfig(warmup_steps=2, total_steps=10)
+    runs = []
+    for where in ("cpu", dev):
+        p = {k: v.detach().clone().to(where) for k, v in params.items()}
+        st = adamw_init(p, where)
+        for i in range(3):
+            p, st, _ = adamw_update(
+                p, {k: (gr * (1 + i)).to(where, p[k].dtype)
+                    for k, gr in grads.items()}, st, tcfg)
+        runs.append((p, st.m, st.v))
+    adam = max(leaf_share(a, c) for a, c in zip(runs[1], runs[0]))
+    say(f"[3l] (b) AdamW, 3 steps on the card vs the CPU: {adam:.3g} (bar "
+        f"{TRAIN_TIGHT})")
+    assert adam <= TRAIN_TIGHT
+    worst.update(skip=skip, adam=adam)
+    return worst
+
+
+def train_phase(torch, dev):
+    """Phase 3l: (a) ``train_full``, (b) ``train_identities``."""
+    smi = " | ".join(nvidia_smi())
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows, losses = train_full(torch, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ta = time.perf_counter() - t0
+    worst = train_identities(torch, dev)
+    say(f"[3l] (b) largest shares {worst}; (a) {ta:.1f} s, (b) "
+        f"{time.perf_counter() - t0 - ta:.1f} s ({smi})")
+    return rows, losses
+
+
 def run_path(torch, fn, *args):
     """Drive one path with every count set to 0 just before it; returns
     (its result, kernel launches, dispatches, peak GiB)."""
@@ -3998,6 +4249,14 @@ def main() -> int:
         f"kernels lies on this path); peak memory {peak:.2f} GiB; "
         f"{time.perf_counter() - t0:.1f} s")
     assert launches["encdec"] == {} and disp == {}
+    t0 = time.perf_counter()
+    _, launches["train"], disp, peak = run_path(torch, train_phase, torch,
+                                                dev)
+    say(f"[main] phase 3l, the one-device training step: kernel launches "
+        f"{launches['train']}, dispatches {disp} (none of the twelve "
+        f"kernels lies on this path); peak memory {peak:.2f} GiB; "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert launches["train"] == {} and disp == {}
 
     rows = []
     for kname, (source, replaces) in KERNELS.items():

@@ -28,7 +28,9 @@ with its shared attention blocks; internvl2-26b, h2o-danube3-4b,
 gemma3-27b, mistral-nemo-12b, deepseek-67b, deepseek-moe-16b,
 qwen3-moe-235b-a22b, rwkv6-7b, zamba2-2.7b), and whisper-small's
 encoder-decoder (``encdec``), served through ``models.model.prefill``
-over audio frames and ``decode_step``.
+over audio frames and ``decode_step``; and the one-device training step
+of every family (``models.model.train_loss`` with remat and the causal
+block skip, ``optim.adamw``, ``data.lm.SyntheticLM``).
 Thirteen CUDA kernels carry them, built from ``kernels/csrc`` with
 ``nvcc`` at first use:
 

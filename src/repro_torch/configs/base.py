@@ -1,8 +1,9 @@
 """Config dataclasses: the port's copy of ``ModelConfig`` (every field of
 the JAX package's, so that configurations read the same, and ``qk_norm``,
-which the JAX package infers from the config's name) and
-``ServeConfig``.  Parameter counts cover every family: dense, vlm, moe,
-ssm (rwkv6), hybrid (zamba2) and encdec (whisper).
+which the JAX package infers from the config's name), the input-shape
+cells (``ShapeCell``, ``SHAPES``), ``TrainConfig`` and ``ServeConfig``.
+Parameter counts cover every family: dense, vlm, moe, ssm (rwkv6), hybrid
+(zamba2) and encdec (whisper).
 """
 from __future__ import annotations
 
@@ -166,6 +167,42 @@ def _param_counts(cfg: ModelConfig) -> dict:
     if cfg.frontend == "vit_patch":
         counts["frontend_proj"] = cfg.frontend_dim * d + d
     return counts
+
+
+# ---------------------------------------------------------------------------
+# input-shape cells (the same set for every arch)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Knobs of the training step (``optim.adamw``, ``models.model.
+    train_loss``) and of the loop that will carry it."""
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    microbatch: int = 0  # 0 => no gradient accumulation
+    remat: str = "block"  # none | block | offloadable
+    sharding_mode: str = "tp"  # tp (paper-era baseline) | fsdp | fsdp_pod
+    grad_compression: str = "none"  # none | int8
+    causal_skip: bool = False  # skip fully-masked attention chunks (perf)
+    seed: int = 0
 
 
 @dataclass(frozen=True)

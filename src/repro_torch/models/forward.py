@@ -1,15 +1,19 @@
-"""Forward passes, the port's copy of the parts of ``repro.models.forward``
-the serving path runs: the dense and vlm trunk (a uniform stack, full or
-sliding-window, or gemma3's local/global pattern), the moe trunk, the
-rwkv6 trunk (``ssm``), zamba2's Mamba2 hybrid trunk, and whisper's
-encoder and decoder trunks with the decoder's cross-attention K/V
-(``encdec``).
+"""Forward passes, the port's copy of ``repro.models.forward``: the dense
+and vlm trunk (a uniform stack, full or sliding-window, or gemma3's
+local/global pattern), the moe trunk, the rwkv6 trunk (``ssm``), zamba2's
+Mamba2 hybrid trunk, and whisper's encoder and decoder trunks with the
+decoder's cross-attention K/V (``encdec``); and the chunked
+cross-entropy of the training loss.
 
-Modes: ``prefill`` (the whole prompt; fills the KV caches when given
-them) and ``decode`` (one token per sequence against the caches).  Each
-layer stack is a Python loop over the stacked ``(L, ...)`` parameters, in
-place of ``lax.scan``.  KV caches are written in place: the KV tensors
-the caller passes come back updated, not copied.  Recurrent states are
+Modes: ``train`` (the whole sequence, no caches; with ``remat`` each
+block the JAX package wraps in ``jax.checkpoint`` is recomputed in the
+backward pass, and ``causal_skip`` reaches ``blockwise_attention``),
+``prefill`` (the whole prompt; fills the KV caches when given them) and
+``decode`` (one token per sequence against the caches).  Each layer
+stack is a Python loop over the stacked ``(L, ...)`` parameters, in
+place of ``lax.scan``, each leaf unbound once per stack (``unstack``).
+KV caches are written in place: the KV tensors the caller passes come
+back updated, not copied.  Recurrent states are
 returned as new tensors, stacked over the layers: a state the caller
 passes seeds the recurrence and is not written.
 
@@ -21,12 +25,15 @@ another thing, its "group cache ring": one slot per request.)
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.dist import DistContext
 from repro_torch.models.moe import moe_layer
 from repro_torch.models.rwkv import RWKVState, rwkv6_block
 from repro_torch.models.ssm import MambaState, mamba2_block
@@ -43,6 +50,31 @@ def layer_params(stack: Dict, i: int) -> Dict:
     return {k: v[i] for k, v in stack.items()}
 
 
+def unstack(stack: Dict, n: int) -> List[Dict]:
+    """The ``n`` layers' parameters of a stacked ``(n, ...)`` dict, each
+    leaf unbound once: the backward pass then stacks the layers'
+    gradients of a leaf in one step, where indexing each layer would add
+    a leaf-sized gradient per layer."""
+    parts = {k: v.unbind(0) for k, v in stack.items()}
+    return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+
+
+def shard_act(x: torch.Tensor, dist: Optional[DistContext], *spec_tail):
+    """The activation's sharding constraint: the identity on one device,
+    the only layout a ``DistContext`` holds until A6b."""
+    return x
+
+
+def _maybe_remat(fn, remat: bool):
+    """``fn``, recomputed in the backward pass instead of keeping its
+    intermediates when ``remat`` (``jax.checkpoint``'s role).  No block
+    draws randomness or reads state that changes between the forward
+    pass and the recompute."""
+    if not remat:
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.long()]
 
@@ -50,6 +82,25 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
 def _unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     w = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return x @ w.T
+
+
+def chunked_ce(params, cfg: ModelConfig, x: torch.Tensor,
+               labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """The mean cross-entropy of (B, S, D) ``x`` against (B, S) ``labels``
+    without a (B, S, V) tensor: ``chunk`` rows at a time (halved until it
+    divides S), each chunk's mean times 1/n added to a float32 total in
+    chunk order, as the JAX package's scan adds them."""
+    B, S, _ = x.shape
+    chunk = max(1, min(chunk, S))
+    while S % chunk:
+        chunk //= 2
+    n = S // chunk
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        logits = _unembed(params, cfg, x[:, c0:c0 + chunk])
+        tot = tot + L.cross_entropy(logits, labels[:, c0:c0 + chunk]) \
+            * (1.0 / n)
+    return tot
 
 
 def _rope(cfg: ModelConfig, S: int, pos0=0, positions=None, theta=None,
@@ -101,15 +152,18 @@ def project_qkv(x: torch.Tensor, lp: Dict, cfg: ModelConfig, rope_sincos,
 def attn_sublayer(x, lp: Dict, cfg: ModelConfig, *, window: int = 0,
                   rope_sincos=None, mode: str = "prefill",
                   cache: Optional[Tuple] = None, pos=0, causal: bool = True,
-                  kv_src=None, positions=None, prefix: str = ""):
+                  kv_src=None, positions=None, causal_skip: bool = False,
+                  prefix: str = ""):
     """Returns (attn_out (B, S, D), cache or None).  ``cache`` is (k_cache,
     v_cache) (B, Smax, KH, Dh), written in place: rows [0, S) in prefill,
     each sequence's row ``pos`` (a scalar or (B,) tensor) in decode -- or,
     with ``window > 0`` and Smax == window, the ring's slots: prefill
     writes the last min(window, S) rows at their row index mod window,
-    decode slot pos mod window.  Prefill attention is causal unless
-    ``causal`` is False; with ``kv_src`` (B, S_kv, D) k and v are its
-    projections (cross-attention)."""
+    decode slot pos mod window.  ``train`` is prefill's attention with no
+    cache written, ``causal_skip`` passed to ``blockwise_attention``.
+    Prefill and train attention is causal unless ``causal`` is False;
+    with ``kv_src`` (B, S_kv, D) k and v are its projections
+    (cross-attention)."""
     B, S, _ = x.shape
     H, Dh = cfg.num_heads, cfg.head_dim
     G = H // cfg.num_kv_heads
@@ -142,25 +196,23 @@ def attn_sublayer(x, lp: Dict, cfg: ModelConfig, *, window: int = 0,
             o = L.decode_attention(
                 q, L.repeat_kv(k_cache, G), L.repeat_kv(v_cache, G),
                 clen, window=win, softcap=cfg.logit_softcap)
-    elif mode == "prefill":
-        if ring:
+    elif mode in ("prefill", "train"):       # train writes no cache
+        if mode == "prefill" and ring:
             # the last rows, each at its row index mod window (padding
             # rows of a packed prompt included, as in the JAX package)
             take = min(window, S)
             idx = (torch.arange(take, device=x.device) + (S - take)) % window
             cache[0][:, idx] = k[:, S - take:].to(cache[0].dtype)
             cache[1][:, idx] = v[:, S - take:].to(cache[1].dtype)
-        elif cache is not None:
+        elif mode == "prefill" and cache is not None:
             cache[0][:, :S] = k.to(cache[0].dtype)
             cache[1][:, :S] = v.to(cache[1].dtype)
         o = L.blockwise_attention(
             q, L.repeat_kv(k, G), L.repeat_kv(v, G), causal=causal,
             window=window, softcap=cfg.logit_softcap, q_positions=positions,
-            kv_positions=positions)
+            kv_positions=positions, causal_skip=causal_skip)
     else:
-        raise NotImplementedError(
-            f"mode {mode!r}: the training path comes with the train slice "
-            f"(ROADMAP.md)")
+        raise ValueError(f"unknown mode {mode!r}")
     out = L.mm(o.reshape(B, S, H * Dh), lp[prefix + "wo"])
     bo = lp.get(prefix + "bo")
     if bo is not None:
@@ -169,25 +221,31 @@ def attn_sublayer(x, lp: Dict, cfg: ModelConfig, *, window: int = 0,
 
 
 def dense_block(x, lp, cfg: ModelConfig, *, window=0, rope_sincos,
-                mode="prefill", cache=None, pos=0, positions=None):
+                mode="prefill", cache=None, pos=0, positions=None,
+                causal_skip=False):
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     a, new_cache = attn_sublayer(
         h, lp, cfg, window=window, rope_sincos=rope_sincos, mode=mode,
-        cache=cache, pos=pos, positions=positions)
+        cache=cache, pos=pos, positions=positions, causal_skip=causal_skip)
     x = x + a
     h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
     x = x + L.glu_mlp(h, lp["w1"], lp["w3"], lp["w2"], act=cfg.act)
     return x, new_cache
 
 
+def _dense_x(x, lp, cfg: ModelConfig, **kw):
+    """``dense_block``'s output alone: the unit remat recomputes."""
+    return dense_block(x, lp, cfg, **kw)[0]
+
+
 def moe_block(x, lp, cfg: ModelConfig, *, rope_sincos, mode="prefill",
-              cache=None, pos=0, positions=None):
+              cache=None, pos=0, positions=None, causal_skip=False):
     """Full attention, then the MoE layer (with the shared experts when
     the layer has them).  Returns (x, aux, dropped, cache)."""
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     a, new_cache = attn_sublayer(
         h, lp, cfg, rope_sincos=rope_sincos, mode=mode, cache=cache,
-        pos=pos, positions=positions)
+        pos=pos, positions=positions, causal_skip=causal_skip)
     x = x + a
     h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
     shared = None
@@ -198,21 +256,26 @@ def moe_block(x, lp, cfg: ModelConfig, *, rope_sincos, mode="prefill",
     return x + y, aux, dropped, new_cache
 
 
+def _moe_x(x, lp, cfg: ModelConfig, **kw):
+    """``moe_block``'s (x, aux, dropped): the unit remat recomputes."""
+    return moe_block(x, lp, cfg, **kw)[:3]
+
+
 def _run_stack(x, params, prefix: str, n: int, cfg: ModelConfig, caches,
-               *, window: int, rope_sincos, mode, pos, positions):
+               *, window: int, rope_sincos, remat=False, **kw):
     """Layers 0..n-1 of the dense stack under ``prefix``, layer i against
-    cache i of ``caches`` ((n, B, Smax, KH, Dh) pair) when given."""
-    stack = _sub(params, prefix)
-    for i in range(n):
+    cache i of ``caches`` ((n, B, Smax, KH, Dh) pair) when given, each
+    layer recomputed in the backward pass with ``remat``."""
+    block = _maybe_remat(_dense_x, remat)
+    for i, lp in enumerate(unstack(_sub(params, prefix), n)):
         cache = (caches[0][i], caches[1][i]) if caches is not None else None
-        x, _ = dense_block(x, layer_params(stack, i), cfg, window=window,
-                           rope_sincos=rope_sincos, mode=mode, cache=cache,
-                           pos=pos, positions=positions)
+        x = block(x, lp, cfg, window=window, rope_sincos=rope_sincos,
+                  cache=cache, **kw)
     return x
 
 
 def dense_trunk(params, cfg: ModelConfig, x, *, mode="prefill", caches=None,
-                pos=0, positions=None):
+                pos=0, positions=None, remat=False, causal_skip=False):
     """Runs the dense blocks over (B, S, D) ``x``: the uniform stack
     ``blocks_`` (every layer at ``cfg.window_size``), or with
     ``cfg.global_every > 1`` gemma3's pattern -- ``n_super`` super-blocks
@@ -220,16 +283,23 @@ def dense_trunk(params, cfg: ModelConfig, x, *, mode="prefill", caches=None,
     RoPE theta 10,000) and one global layer (full attention at
     ``cfg.rope_theta``), then the trailing local layers.  ``caches``:
     {"blocks": (k, v)}, or {"local", "global"[, "trail"]}, each pair of
-    (L, B, Smax, KH, Dh), written in place.  Returns (x, caches)."""
+    (L, B, Smax, KH, Dh), written in place.  In train mode ``remat``
+    recomputes each layer -- gemma3's local and global layers each, its
+    trailing layers not, as the JAX package wraps them.  Returns (x,
+    caches)."""
     S = x.shape[1]
-    kw = dict(mode=mode, pos=pos, positions=positions)
+    # remat and causal_skip act in train mode only, as in the JAX package
+    train = mode == "train"
+    remat, causal_skip = remat and train, causal_skip and train
+    kw = dict(mode=mode, pos=pos, positions=positions,
+              causal_skip=causal_skip)
     caches_of = (lambda key: caches[key]) if caches is not None \
         else (lambda key: None)
     if cfg.global_every <= 1:
         rope = _rope(cfg, S, pos0=pos, positions=positions, device=x.device)
         x = _run_stack(x, params, "blocks_", cfg.num_layers, cfg,
                        caches_of("blocks"), window=cfg.window_size,
-                       rope_sincos=rope, **kw)
+                       rope_sincos=rope, remat=remat, **kw)
         return x, caches
     n_super = cfg.num_layers // cfg.global_every
     n_lp = cfg.global_every - 1
@@ -238,19 +308,20 @@ def dense_trunk(params, cfg: ModelConfig, x, *, mode="prefill", caches=None,
                    device=x.device)
     rope_g = _rope(cfg, S, pos0=pos, positions=positions,
                    theta=cfg.rope_theta, device=x.device)
-    local, glob = _sub(params, "local_"), _sub(params, "global_")
+    local = unstack(_sub(params, "local_"), n_super * n_lp)
+    glob = unstack(_sub(params, "global_"), n_super)
     lc, gc = caches_of("local"), caches_of("global")
+    block = _maybe_remat(_dense_x, remat)
     for sb in range(n_super):
         # local layer sb * n_lp + j: the JAX package's (n_super, n_lp)
         # reshape of the local stack, in the same order
         for i in range(sb * n_lp, (sb + 1) * n_lp):
             cache = (lc[0][i], lc[1][i]) if lc is not None else None
-            x, _ = dense_block(x, layer_params(local, i), cfg,
-                               window=cfg.window_size, rope_sincos=rope_l,
-                               cache=cache, **kw)
+            x = block(x, local[i], cfg, window=cfg.window_size,
+                      rope_sincos=rope_l, cache=cache, **kw)
         cache = (gc[0][sb], gc[1][sb]) if gc is not None else None
-        x, _ = dense_block(x, layer_params(glob, sb), cfg, window=0,
-                           rope_sincos=rope_g, cache=cache, **kw)
+        x = block(x, glob[sb], cfg, window=0, rope_sincos=rope_g,
+                  cache=cache, **kw)
     if n_trail:
         x = _run_stack(x, params, "trail_", n_trail, cfg, caches_of("trail"),
                        window=cfg.window_size, rope_sincos=rope_l, **kw)
@@ -258,48 +329,65 @@ def dense_trunk(params, cfg: ModelConfig, x, *, mode="prefill", caches=None,
 
 
 def moe_trunk(params, cfg: ModelConfig, x, *, mode="prefill", caches=None,
-              pos=0, positions=None):
+              pos=0, positions=None, remat=False, causal_skip=False):
     """The ``cfg.first_dense_layers`` dense layers (``dense_``), then the
     MoE blocks (``blocks_``), all at full attention.  ``caches``:
-    {"blocks": (k, v)[, "dense": (k, v)]}, written in place.  Returns (x,
-    caches, aux, dropped): the router's load-balance loss and the dropped
-    share, each summed over the MoE layers."""
+    {"blocks": (k, v)[, "dense": (k, v)]}, written in place.  In train
+    mode ``remat`` recomputes each block.  Returns (x, caches, aux,
+    dropped): the router's load-balance loss and the dropped share, each
+    summed over the MoE layers."""
     S = x.shape[1]
+    # remat and causal_skip act in train mode only, as in the JAX package
+    train = mode == "train"
+    remat, causal_skip = remat and train, causal_skip and train
     rope = _rope(cfg, S, pos0=pos, positions=positions, device=x.device)
-    kw = dict(mode=mode, pos=pos, positions=positions)
+    kw = dict(mode=mode, pos=pos, positions=positions,
+              causal_skip=causal_skip)
     if cfg.first_dense_layers:
         x = _run_stack(x, params, "dense_", cfg.first_dense_layers, cfg,
                        caches["dense"] if caches is not None else None,
-                       window=0, rope_sincos=rope, **kw)
-    stack = _sub(params, "blocks_")
+                       window=0, rope_sincos=rope, remat=remat, **kw)
+    n = cfg.num_layers - cfg.first_dense_layers
     aux_tot = torch.zeros((), dtype=torch.float32, device=x.device)
     drop_tot = torch.zeros((), dtype=torch.float32, device=x.device)
     ck, cv = caches["blocks"] if caches is not None else (None, None)
-    for i in range(cfg.num_layers - cfg.first_dense_layers):
+    block = _maybe_remat(_moe_x, remat)
+    for i, lp in enumerate(unstack(_sub(params, "blocks_"), n)):
         cache = (ck[i], cv[i]) if ck is not None else None
-        x, aux, dropped, _ = moe_block(x, layer_params(stack, i), cfg,
-                                       rope_sincos=rope, cache=cache, **kw)
+        x, aux, dropped = block(x, lp, cfg, rope_sincos=rope, cache=cache,
+                                **kw)
         aux_tot = aux_tot + aux
         drop_tot = drop_tot + dropped
     return x, caches, aux_tot, drop_tot
 
 
-def rwkv_trunk(params, cfg: ModelConfig, x, *, mode="prefill", states=None):
+def _rwkv_x(x, lp, cfg: ModelConfig):
+    """One stateless RWKV6 block's output: the unit remat recomputes."""
+    return rwkv6_block(x, lp, cfg)[0]
+
+
+def rwkv_trunk(params, cfg: ModelConfig, x, *, mode="prefill", states=None,
+               remat=False):
     """``ln_in``, then the RWKV6 layers over (B, S, D) ``x``.  ``states``:
     (wkv (L, B, H, P, P), shift_t (L, B, D), shift_c (L, B, D)) float32,
     each layer's seed, or None for zeros.  Returns (x, the new states as
     the same tuple, or None without ``states``).  No positions: a packed
-    prompt's padding rows run through the recurrence (ROADMAP C-R5)."""
-    stack = _sub(params, "blocks_")
+    prompt's padding rows run through the recurrence (ROADMAP C-R5).
+    Without ``states``, in train mode, ``remat`` recomputes each
+    block."""
+    layers = unstack(_sub(params, "blocks_"), cfg.num_layers)
     x = L.rmsnorm(x, params["ln_in"], cfg.norm_eps)
+    if states is None:
+        block = _maybe_remat(_rwkv_x, remat and mode == "train")
+        for lp in layers:
+            x = block(x, lp, cfg)
+        return x, None
     new = []
-    for i in range(cfg.num_layers):
-        st = None if states is None else RWKVState(*(s[i] for s in states))
-        x, ns = rwkv6_block(x, layer_params(stack, i), cfg, state=st,
+    for i, lp in enumerate(layers):
+        x, ns = rwkv6_block(x, lp, cfg,
+                            state=RWKVState(*(s[i] for s in states)),
                             single_step=mode == "decode")
         new.append(ns)
-    if states is None:
-        return x, None
     return x, tuple(torch.stack(parts) for parts in zip(*new))
 
 
@@ -311,8 +399,23 @@ def _mamba_pdict(lp: Dict) -> Dict:
             "norm_w": lp["m_norm"], "out_proj": lp["m_out"]}
 
 
+def _mamba_residual(x, lp, cfg: ModelConfig, state=None,
+                    single_step=False):
+    """x + one Mamba2 block of its norm: (x, the block's new state)."""
+    h = L.rmsnorm(x, lp["m_ln"], cfg.norm_eps)
+    y, ns = mamba2_block(h, _mamba_pdict(lp), cfg, state=state,
+                         single_step=single_step)
+    return x + y, ns
+
+
+def _mamba_x(x, lp, cfg: ModelConfig):
+    """One stateless Mamba2 residual's output: the unit remat
+    recomputes."""
+    return _mamba_residual(x, lp, cfg)[0]
+
+
 def hybrid_trunk(params, cfg: ModelConfig, x, *, mode="prefill",
-                 states=None, caches=None, pos=0):
+                 states=None, caches=None, pos=0, remat=False):
     """zamba2: the Mamba2 stack, with shared attention + MLP block ``i %
     num_shared_attn_blocks`` after the i-th run of ``attn_every`` Mamba2
     blocks.  ``states``: (ssm (L, B, H, N, P) f32, conv (L, B, cw - 1,
@@ -320,25 +423,29 @@ def hybrid_trunk(params, cfg: ModelConfig, x, *, mode="prefill",
     B, Smax, KH, Dh) KV pair, one cache per application of a shared
     block, written in place.  The attention takes no positions -- RoPE at
     ``pos`` + the row index, as the JAX package's, so a packed prompt's
-    rows sit at their packed index (ROADMAP C-R5).  Returns (x, the new
-    states or None, caches)."""
+    rows sit at their packed index (ROADMAP C-R5).  Without ``states``,
+    in train mode, ``remat`` recomputes each Mamba2 block (not the shared
+    blocks, as in the JAX package).  Returns (x, the new states or None,
+    caches)."""
     S = x.shape[1]
     per = cfg.attn_every
-    stack, shared = _sub(params, "blocks_"), _sub(params, "sa_")
+    layers = unstack(_sub(params, "blocks_"), cfg.num_layers)
+    shared = unstack(_sub(params, "sa_"), cfg.num_shared_attn_blocks)
     rope = _rope(cfg, S, pos0=pos, device=x.device)
+    block = _maybe_remat(_mamba_x, remat and mode == "train")
     new_ssm, new_conv = [], []
     for app in range(cfg.num_layers // per):
         for i in range(app * per, (app + 1) * per):
-            lp = layer_params(stack, i)
-            st = None if states is None else MambaState(states[0][i],
-                                                        states[1][i])
-            h = L.rmsnorm(x, lp["m_ln"], cfg.norm_eps)
-            y, ns = mamba2_block(h, _mamba_pdict(lp), cfg, state=st,
-                                 single_step=mode == "decode")
-            x = x + y
+            if states is None:
+                x = block(x, layers[i], cfg)
+                continue
+            x, ns = _mamba_residual(
+                x, layers[i], cfg,
+                state=MambaState(states[0][i], states[1][i]),
+                single_step=mode == "decode")
             new_ssm.append(ns.ssm)
             new_conv.append(ns.conv)
-        sp = layer_params(shared, app % cfg.num_shared_attn_blocks)
+        sp = shared[app % cfg.num_shared_attn_blocks]
         cache = None if caches is None else (caches[0][app], caches[1][app])
         h = L.rmsnorm(x, sp["ln1"], cfg.norm_eps)
         a, _ = attn_sublayer(h, sp, cfg, rope_sincos=rope, mode=mode,
@@ -364,21 +471,25 @@ def _ln(x, lp, name, cfg: ModelConfig):
     return L.layernorm(x, lp[name], lp[name + "_b"], cfg.norm_eps)
 
 
-def encoder_trunk(params, cfg: ModelConfig, frames):
+def _encoder_block(x, lp, cfg: ModelConfig):
+    o, _ = attn_sublayer(_ln(x, lp, "ln1", cfg), lp, cfg, causal=False)
+    x = x + o
+    return x + _gelu_mlp(_ln(x, lp, "ln2", cfg), lp)
+
+
+def encoder_trunk(params, cfg: ModelConfig, frames, *, remat=False):
     """frames: (B, S, frontend_dim) precomputed conv-frontend embeddings ->
     the memory (B, S, D): the linear adapter, sinusoid positions, pre-LN
     blocks of non-causal attention and a GELU MLP, the final LayerNorm.
     Float32 frames keep the encoder in float32 against bfloat16 weights,
-    as jnp promotes them."""
+    as jnp promotes them.  ``remat`` recomputes each block in the
+    backward pass."""
     x = L.mm(frames, params["frontend_w"]) + params["frontend_b"]
     _, S, D = x.shape
     x = x + L.sinusoid_positions(S, D, device=x.device).to(x.dtype)
-    stack = _sub(params, "e_")
-    for i in range(cfg.encoder_layers):
-        lp = layer_params(stack, i)
-        o, _ = attn_sublayer(_ln(x, lp, "ln1", cfg), lp, cfg, causal=False)
-        x = x + o
-        x = x + _gelu_mlp(_ln(x, lp, "ln2", cfg), lp)
+    block = _maybe_remat(_encoder_block, remat)
+    for lp in unstack(_sub(params, "e_"), cfg.encoder_layers):
+        x = block(x, lp, cfg)
     return L.layernorm(x, params["enc_final_norm"],
                        params["enc_final_norm_b"], cfg.norm_eps)
 
@@ -407,46 +518,55 @@ def _dec_positions(params, T: int, pos, device) -> torch.Tensor:
     return table[start[:, None] + torch.arange(T, device=device)]
 
 
+def _decoder_block(x, lp, xp, memory, cfg: ModelConfig):
+    """One decoder block without caches: causal self-attention,
+    cross-attention projecting k and v of ``memory``, the GELU MLP."""
+    o, _ = attn_sublayer(_ln(x, lp, "ln1", cfg), lp, cfg)
+    x = x + o
+    o, _ = attn_sublayer(_ln(x, lp, "ln2", cfg), xp, cfg, causal=False,
+                         kv_src=memory)
+    x = x + o
+    return x + _gelu_mlp(_ln(x, lp, "ln3", cfg), lp)
+
+
 def decoder_trunk(params, cfg: ModelConfig, tokens, memory, *,
-                  mode: str = "prefill", caches=None, pos=0):
+                  mode: str = "prefill", caches=None, pos=0, remat=False):
     """tokens (B, T) -> (x (B, T, D) before the final norm, caches).
     Learned positions from ``pos``, then pre-LN blocks of causal
     self-attention, cross-attention and a GELU MLP.  Without ``caches``
     the cross-attention projects k and v of ``memory`` (B, S_enc, D) in
-    every layer; with ``caches`` {"self": (k, v) (L, B, Tmax, KH, Dh),
-    written in place, "cross": (k, v) (L, B, S_enc, KH, Dh) from
+    every layer, and ``remat`` recomputes each block in the backward pass
+    (the training route); with ``caches`` {"self": (k, v) (L, B, Tmax,
+    KH, Dh), written in place, "cross": (k, v) (L, B, S_enc, KH, Dh) from
     ``cross_kv``} it reads the cross K/V (``memory`` unused) and runs
     ``mode`` "prefill" or "decode" (one token at ``pos``, a scalar or
     (B,))."""
     x = _embed(params, cfg, tokens)
     B, T, _ = x.shape
     x = x + _dec_positions(params, T, pos, x.device)
-    dstack, xstack = _sub(params, "d_"), _sub(params, "x_")
+    layers = list(zip(unstack(_sub(params, "d_"), cfg.decoder_layers),
+                      unstack(_sub(params, "x_"), cfg.decoder_layers)))
+    if caches is None:
+        block = _maybe_remat(_decoder_block, remat)
+        for lp, xp in layers:
+            x = block(x, lp, xp, memory, cfg)
+        return x, None
     H, Dh = cfg.num_heads, cfg.head_dim
     G = H // cfg.num_kv_heads
-    for i in range(cfg.decoder_layers):
-        lp, xp = layer_params(dstack, i), layer_params(xstack, i)
-        h = _ln(x, lp, "ln1", cfg)
-        if caches is None:
-            o, _ = attn_sublayer(h, lp, cfg)
-            x = x + o
-            o, _ = attn_sublayer(_ln(x, lp, "ln2", cfg), xp, cfg,
-                                 causal=False, kv_src=memory)
-        else:
-            sk, sv = caches["self"]
-            o, _ = attn_sublayer(h, lp, cfg, mode=mode,
-                                 cache=(sk[i], sv[i]), pos=pos)
-            x = x + o
-            # cross-attention against the precomputed K/V
-            h = _ln(x, lp, "ln2", cfg)
-            q = (L.mm(h, xp["wq"]) + xp["bq"]).reshape(B, T, H, Dh)
-            xk = L.repeat_kv(caches["cross"][0][i], G)
-            xv = L.repeat_kv(caches["cross"][1][i], G)
-            if mode == "decode":
-                o = L.decode_attention(q, xk, xv, xk.shape[1])
-            else:
-                o = L.blockwise_attention(q, xk, xv, causal=False)
-            o = L.mm(o.reshape(B, T, H * Dh), xp["wo"]) + xp["bo"]
+    sk, sv = caches["self"]
+    for i, (lp, xp) in enumerate(layers):
+        o, _ = attn_sublayer(_ln(x, lp, "ln1", cfg), lp, cfg, mode=mode,
+                             cache=(sk[i], sv[i]), pos=pos)
         x = x + o
+        # cross-attention against the precomputed K/V
+        h = _ln(x, lp, "ln2", cfg)
+        q = (L.mm(h, xp["wq"]) + xp["bq"]).reshape(B, T, H, Dh)
+        xk = L.repeat_kv(caches["cross"][0][i], G)
+        xv = L.repeat_kv(caches["cross"][1][i], G)
+        if mode == "decode":
+            o = L.decode_attention(q, xk, xv, xk.shape[1])
+        else:
+            o = L.blockwise_attention(q, xk, xv, causal=False)
+        x = x + (L.mm(o.reshape(B, T, H * Dh), xp["wo"]) + xp["bo"])
         x = x + _gelu_mlp(_ln(x, lp, "ln3", cfg), lp)
     return x, caches

@@ -1,6 +1,7 @@
 """Transformer building blocks, the port's copy of ``repro.models.layers``
-for the serving path (full, sliding-window and non-causal attention, the
-norms, the MLPs, the rotary and sinusoid positions).
+(full, sliding-window and non-causal attention with the training path's
+causal block skip, the norms, the MLPs, the rotary and sinusoid
+positions, the cross-entropy).
 
 Parameters are plain dicts of tensors; layer stacks carry a leading ``L``
 dim.  Prefill attention is blockwise online softmax with float32
@@ -124,14 +125,19 @@ def blockwise_attention(
 
     ``window > 0`` (self-attention, Sq == Skv) is banded attention
     (``_banded_attention``): a key is visible when also > the query's
-    position - window."""
+    position - window.
+
+    ``causal_skip`` (with ``causal``, Sq == Skv and no window) is the JAX
+    package's causal block skip: query block ``i`` (``q_block`` halved
+    until it divides Sq) takes only its first ceil((i + 1) q_block /
+    kv_chunk) chunks, as on default positions nothing later is visible to
+    it.  So chunk ``c`` updates only the rows from block floor(c kv_chunk
+    / q_block) on; a skipped step would leave a row's running max,
+    denominator and accumulator as they are, so each row's result is the
+    exhaustive walk's."""
     if window > 0:
         return _banded_attention(q, k, v, window, softcap, q_block,
                                  q_offset, q_positions, kv_positions)
-    if causal_skip:
-        raise NotImplementedError(
-            "the unrolled causal-skip variant is the training path's and "
-            "comes with the train slice (ROADMAP.md)")
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
     dev = q.device
@@ -142,28 +148,40 @@ def blockwise_attention(
     kv_chunk = max(min(kv_chunk, Skv), 1)
     while Skv % kv_chunk:
         kv_chunk //= 2
+    skip = causal_skip and causal and Sq == Skv
+    if skip:
+        q_block = max(min(q_block, Sq), 1)
+        while Sq % q_block:
+            q_block //= 2
 
     qh = (q.float() * scale).permute(0, 2, 1, 3).contiguous()  # (B,H,Sq,D)
     m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=dev)
     for c0 in range(0, Skv, kv_chunk):
+        # the first row whose query block takes this chunk
+        r0 = c0 // q_block * q_block if skip else 0
         kc = k[:, c0:c0 + kv_chunk].float().permute(0, 2, 3, 1)  # (B,H,D,K)
         vc = v[:, c0:c0 + kv_chunk].float().permute(0, 2, 1, 3)  # (B,H,K,D)
         kpos = kv_positions[:, c0:c0 + kv_chunk]
         mask = (kpos >= 0)[:, None, :]
         if causal:
-            mask = mask & (q_positions[:, :, None] >= kpos[:, None, :])
-        s = _softcap(torch.matmul(qh, kc), softcap)
+            mask = mask & (q_positions[:, r0:, None] >= kpos[:, None, :])
+        s = _softcap(torch.matmul(qh[:, :, r0:], kc), softcap)
         s = torch.where(mask[:, None], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_r = m[..., r0:]
+        m_new = torch.maximum(m_r, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         del s
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.matmul(p, vc)
-        m = m_new
+        alpha = torch.exp(m_r - m_new)
+        l_new = l[..., r0:] * alpha + p.sum(dim=-1)
+        acc_new = acc[:, :, r0:] * alpha[..., None] + torch.matmul(p, vc)
         del p
+        if r0:
+            m_new = torch.cat([m[..., :r0], m_new], dim=-1)
+            l_new = torch.cat([l[..., :r0], l_new], dim=-1)
+            acc_new = torch.cat([acc[:, :, :r0], acc_new], dim=2)
+        m, l, acc = m_new, l_new, acc_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
@@ -329,3 +347,17 @@ def sinusoid_positions(length: int, dim: int,
     scaled = torch.arange(length, dtype=torch.float32,
                           device=device)[:, None] * inv[None, :]
     return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# softmax cross-entropy
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits: (..., V); labels: (...) int.  The mean NLL in float32: the
+    log-sum-exp (shifted by the row max) minus the gold logit."""
+    logits = logits.float()
+    m = logits.amax(dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (lse - gold).mean()

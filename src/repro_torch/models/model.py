@@ -1,34 +1,139 @@
 """Model API of every family (dense, vlm, moe, ssm, hybrid and encdec):
 
+  train_loss(params, cfg, batch, ...)             -> (loss, metrics)
   init_cache(cfg, batch, max_seq, device)         -> the cache tree
   prefill(params, cfg, batch, caches, ...)        -> (last_logits, caches)
   decode_step(params, cfg, tokens, caches, pos)   -> (logits, caches)
+  input_specs(cfg, shape_cell)                    -> the batch as meta tensors
+  make_batch(cfg, cell_or_specs, generator)       -> a random batch
 
 Batch schemas: dense, moe, ssm and hybrid ``{tokens (B, S)}``; vlm
 ``{tokens (B, S_txt), patches (B, S_img, frontend_dim)}``, the projected
-patches ahead of the text tokens; encdec ``{frames (B, S, frontend_dim),
-tokens (B, T)}``, the frames through the encoder, the tokens through the
-decoder (prefill starts them at position 0).  ``decode_step`` takes
-``pos`` as a scalar or a (B,) vector of per-sequence positions: the batch
-dimension written out where the JAX engine vmaps per-request scalars.  Every cache
+patches ahead of the text tokens (S_img = S // 2 of a shape cell's S, the
+multi-camera patch slots); encdec ``{frames (B, S, frontend_dim), tokens
+(B, T)}``, the frames through the encoder, the tokens through the decoder
+(from position 0; T = min(max_target_len, S)).  A training batch adds
+``labels`` shaped as ``tokens``.  ``decode_step`` takes ``pos`` as a
+scalar or a (B,) vector of per-sequence positions: the batch dimension
+written out where the JAX engine vmaps per-request scalars.  Every cache
 tensor has its batch on axis 1.  KV caches are written in place; the
 recurrent states (ssm, hybrid) come back as new tensors, which the caller
 carries to the next call (the caches passed seed the recurrence).
 """
 from __future__ import annotations
 
+from typing import Dict, Optional
+
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.models import forward as F
 from repro_torch.models import layers as L
+from repro_torch.models.dist import DistContext
 from repro_torch.models.ssm import conv_dim
 
 
 def _families(cfg: ModelConfig) -> None:
     if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "encdec"):
         raise ValueError(f"unknown family {cfg.family}")
+
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell) -> Dict[str, torch.Tensor]:
+    """Every model input of a shape cell, as ``meta`` tensors of its shape
+    and dtype (the JAX package's ShapeDtypeStructs): int32 tokens and
+    labels, bfloat16 patches and frames; labels in a ``train`` cell
+    only."""
+    B, S = cell.global_batch, cell.seq_len
+
+    def spec(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if cfg.family == "vlm":
+        s_img = S // 2
+        s_txt = S - s_img
+        d = {"tokens": spec((B, s_txt)),
+             "patches": spec((B, s_img, cfg.frontend_dim), torch.bfloat16)}
+        if cell.kind == "train":
+            d["labels"] = spec((B, s_txt))
+        return d
+    if cfg.family == "encdec":
+        T = min(cfg.max_target_len, S)
+        d = {"frames": spec((B, S, cfg.frontend_dim), torch.bfloat16),
+             "tokens": spec((B, T))}
+        if cell.kind == "train":
+            d["labels"] = spec((B, T))
+        return d
+    d = {"tokens": spec((B, S))}
+    if cell.kind == "train":
+        d["labels"] = spec((B, S))
+    return d
+
+
+def make_batch(cfg: ModelConfig, cell_or_specs, generator: torch.Generator,
+               device=None) -> Dict[str, torch.Tensor]:
+    """A random batch matching ``input_specs`` (a ShapeCell) or the given
+    specs, on ``device`` (the card unless the caller passes one), drawn
+    from ``generator`` on its own device, in the specs' sorted name
+    order: integers uniform in [0, vocab_size), floats standard normal in
+    float32 cast to the spec's dtype.  The bits differ from the JAX
+    package's ``jax.random`` draws."""
+    device = resolve_device(device)
+    specs = input_specs(cfg, cell_or_specs) \
+        if isinstance(cell_or_specs, ShapeCell) else cell_or_specs
+    out = {}
+    for name, s in sorted(specs.items()):
+        if s.dtype.is_floating_point:
+            t = torch.randn(s.shape, dtype=torch.float32,
+                            generator=generator, device=generator.device)
+        else:
+            t = torch.randint(0, cfg.vocab_size, s.shape,
+                              generator=generator, device=generator.device)
+        out[name] = t.to(device=device, dtype=s.dtype)
+    return out
+
+
+def train_loss(params, cfg: ModelConfig, batch, *,
+               dist: Optional[DistContext] = None, remat: bool = True,
+               causal_skip: bool = False):
+    """The mean next-token cross-entropy of ``batch`` (chunked over the
+    sequence, ``forward.chunked_ce``) and its metrics: for moe the
+    router's load-balance loss and the dropped share summed over the MoE
+    layers (``moe_aux``, ``moe_dropped``), and ``router_aux_coef *
+    moe_aux`` added to the loss.  vlm scores the text rows after the
+    patches.  ``remat`` recomputes the JAX package's blocks in the
+    backward pass; ``causal_skip`` reaches the full-attention layers.
+    Differentiate it with ``torch.autograd``."""
+    _families(cfg)
+    metrics: Dict[str, torch.Tensor] = {}
+    if cfg.family == "encdec":
+        memory = F.encoder_trunk(params, cfg, batch["frames"], remat=remat)
+        x, _ = F.decoder_trunk(params, cfg, batch["tokens"], memory,
+                               mode="train", remat=remat)
+        x = L.layernorm(x, params["final_norm"], params["final_norm_b"],
+                        cfg.norm_eps)
+        return F.chunked_ce(params, cfg, x, batch["labels"]), metrics
+
+    x = F.shard_act(_front(params, cfg, batch), dist, None, None)
+    kw = dict(mode="train", remat=remat)
+    if cfg.family == "moe":
+        x, _, aux, dropped = F.moe_trunk(params, cfg, x,
+                                         causal_skip=causal_skip, **kw)
+        metrics["moe_aux"] = aux
+        metrics["moe_dropped"] = dropped
+    elif cfg.family == "ssm":
+        x, _ = F.rwkv_trunk(params, cfg, x, **kw)
+    elif cfg.family == "hybrid":
+        x = F.hybrid_trunk(params, cfg, x, **kw)[0]
+    else:
+        x, _ = F.dense_trunk(params, cfg, x, causal_skip=causal_skip, **kw)
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.family == "vlm":
+        x = x[:, -batch["tokens"].shape[1]:]
+    loss = F.chunked_ce(params, cfg, x, batch["labels"])
+    if "moe_aux" in metrics:
+        loss = loss + cfg.router_aux_coef * metrics["moe_aux"]
+    return loss, metrics
 
 
 def _trunk(params, cfg: ModelConfig, x, *, mode, caches, pos=0,

@@ -11,8 +11,10 @@ renormalised router values, in ``x.dtype``.  The dropped share is
 returned as a metric, beside the Switch-style load-balance loss.
 
 The JAX package also runs the dispatch under a model-parallel
-``shard_map`` with E/tp experts a rank; that route waits for the port's
-``distributed`` slice, so ``moe_layer`` runs every expert locally.
+``shard_map`` with E/tp experts a rank; that route waits for the
+training loop's slice (A6b in ROADMAP.md), and a ``DistContext`` holds
+no mesh until then (``models.dist``), so ``moe_layer`` runs every expert
+locally.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.dist import DistContext
 from repro_torch.models.layers import activation, glu_mlp
 
 
@@ -97,12 +100,13 @@ def moe_layer(x: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
     """Full MoE layer on one device.  Returns (y, aux_loss, dropped_frac).
 
     wg, wu: (E, D, F); wd: (E, F, D).  ``shared``: optional (wg, wu, wd)
-    of the always-on shared-expert MLP.  ``dist`` must be None: the
-    expert-parallel route waits for the port's ``distributed`` slice."""
-    if dist is not None:
+    of the always-on shared-expert MLP.  ``dist``: None or a
+    ``DistContext``, which holds no mesh (one device); the
+    expert-parallel route waits for A6b."""
+    if dist is not None and not isinstance(dist, DistContext):
         raise NotImplementedError(
             "expert parallelism over a model-parallel mesh comes with the "
-            "distributed slice (ROADMAP.md)")
+            "training loop's slice (A6b in ROADMAP.md)")
     top_vals, top_idx, aux = router_topk(x, router_w, cfg.experts_per_token)
     y, dropped = _dispatch_compute_combine(
         x, top_vals.to(x.dtype), top_idx, wg, wu, wd,

@@ -82,7 +82,10 @@ def wkv_chunked(r, k, v, lw, u, init_state=None):
     strict = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dev),
                         diagonal=-1)
 
-    clw = torch.cumsum(lw, dim=2)                         # inclusive
+    # inclusive; summed in float64 and rounded once, as the CPU's float32
+    # cumsum does (CUDA's sums in float32, and exp turns its rounding in
+    # sums of up to |80| into relative errors)
+    clw = torch.cumsum(lw.double(), dim=2).float()
     # pairwise decay from s (exclusive) to t-1 (inclusive): clw_{t-1}-clw_s
     clw_tm1 = torch.cat([torch.zeros_like(clw[:, :, :1]), clw[:, :, :-1]],
                         dim=2)

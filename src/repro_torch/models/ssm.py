@@ -80,7 +80,10 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     tril = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=dev))
 
-    la = torch.cumsum(aq, dim=2)                          # (B,c,Q,H)
+    # (B,c,Q,H), summed in float64 and rounded once, as the CPU's float32
+    # cumsum does (CUDA's sums in float32; exp turns that rounding into
+    # relative errors)
+    la = torch.cumsum(aq.double(), dim=2).float()
     # intra-chunk: M[t,s,h] = (C_t.B_s) exp(la_t - la_s) dt_s (s <= t),
     # the exponent masked before exp
     CB = torch.einsum("bctn,bcsn->bcts", Cq, Bq)

@@ -1155,3 +1155,133 @@ def test_cuda_whisper_matches_cpu(cuda, frames_dtype):
     for want, got in zip(*results):
         close(want, got)
     _tree_map(close, *trees)
+
+
+# ---------------------------------------------------------------------------
+# the training step's plain PyTorch on the card (train_loss for every
+# family, remat, causal_skip, AdamW, SyntheticLM), against the CPU at SMOKE
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ["h2o-danube3-4b", "gemma3-27b", "mistral-nemo-12b",
+               "deepseek-67b", "internvl2-26b", "deepseek-moe-16b",
+               "qwen3-moe-235b-a22b", "rwkv6-7b", "zamba2-2.7b",
+               "whisper-small"]
+
+
+def _train_case(arch, seed=0, S=64):
+    """(cfg, float32 params on the CPU, a CPU batch) at SMOKE."""
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.models import model as TM
+    from repro_torch.models.params import init_params
+    cfg = get_config(arch, smoke=True).replace(
+        dtype="float32", kv_cache_dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    b = TM.make_batch(cfg, ShapeCell("t", S, 2, "train"),
+                      torch.Generator().manual_seed(seed + 1), "cpu")
+    return cfg, params, {k: v.float() if v.is_floating_point() else v
+                         for k, v in b.items()}
+
+
+def _loss_and_grads(cfg, params, b, dev, **kw):
+    from repro_torch.models import model as TM
+    p = {k: v.detach().to(dev).requires_grad_(True)
+         for k, v in params.items()}
+    loss, metrics = TM.train_loss(p, cfg, {k: v.to(dev)
+                                           for k, v in b.items()}, **kw)
+    names = sorted(p)
+    grads = torch.autograd.grad(loss, [p[k] for k in names],
+                                allow_unused=True, materialize_grads=True)
+    return (loss.detach().cpu(), {k: v.detach().cpu()
+                                  for k, v in metrics.items()},
+            {k: g.cpu() for k, g in zip(names, grads)})
+
+
+def _grads_close(got, want, rel):
+    for k in want:
+        scale = max(want[k].abs().max().item(), 1e-30)
+        assert (got[k] - want[k]).abs().max().item() <= rel * scale, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_cuda_train_loss_matches_cpu(cuda, arch):
+    """float32 at SMOKE: the loss within 1e-5 and every gradient leaf
+    within 1e-4 of its largest |g| of the CPU's (the path the CPU tests
+    hold against JAX) -- or within twice the CPU path's own rounding
+    floor, where larger: how far its gradients move when the embedding
+    moves by 2^-24 of itself (rwkv6's draw sits at 2.1e-4-3.5e-4) --,
+    metrics within 1e-6; remat on == off within 1e-6 on the card."""
+    cfg, params, b = _train_case(arch)
+    l_cpu, m_cpu, g_cpu = _loss_and_grads(cfg, params, b, "cpu")
+    l_dev, m_dev, g_dev = _loss_and_grads(cfg, params, b, cuda)
+    assert abs(l_dev.item() - l_cpu.item()) <= 1e-5 * max(1, l_cpu.item())
+    for k in m_cpu:
+        assert abs(m_dev[k].item() - m_cpu[k].item()) <= 1e-6, k
+    floor = 0.0
+    for seed in (1, 2):
+        e = params["embed"]
+        e = e * (1 + 2 ** -24 * torch.randn(
+            e.shape, generator=torch.Generator().manual_seed(seed)))
+        g_p = _loss_and_grads(cfg, dict(params, embed=e), b, "cpu")[2]
+        floor = max(floor, max(
+            ((g_p[k] - g_cpu[k]).abs().max()
+             / g_cpu[k].abs().max().clamp_min(1e-30)).item() for k in g_cpu))
+    _grads_close(g_dev, g_cpu, max(1e-4, 2 * floor))
+    l_nr, _, g_nr = _loss_and_grads(cfg, params, b, cuda, remat=False)
+    assert abs(l_nr.item() - l_dev.item()) <= 1e-6
+    _grads_close(g_nr, g_dev, 1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_causal_skip_equals_exhaustive_walk(cuda):
+    """blockwise_attention at S = 2,048 (4 query blocks, 2 chunks), f32:
+    the skip bitwise the exhaustive walk on every row; and mistral-nemo's
+    loss with causal_skip == without, its gradients within 1e-6."""
+    from repro_torch.models import layers as TL
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((2, 2048, 4, 32), generator=g, device=cuda)
+               for _ in range(3))
+    assert torch.equal(TL.blockwise_attention(q, k, v, causal_skip=True),
+                       TL.blockwise_attention(q, k, v))
+    cfg, params, b = _train_case("mistral-nemo-12b", S=2048)
+    l_skip, _, g_skip = _loss_and_grads(cfg, params, b, cuda,
+                                        causal_skip=True)
+    l_ex, _, g_ex = _loss_and_grads(cfg, params, b, cuda)
+    assert abs(l_skip.item() - l_ex.item()) <= 1e-6
+    _grads_close(g_skip, g_ex, 1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_matches_cpu(cuda):
+    """Three AdamW steps on h2o-danube3-4b SMOKE's leaves (bf16 and f32)
+    with its gradients: parameters and moments within 1e-6 of each
+    leaf's largest on the CPU."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.optim import adamw as TA
+    cfg, params, b = _train_case("h2o-danube3-4b")
+    _, _, grads = _loss_and_grads(cfg, params, b, "cpu")
+    params["embed"] = params["embed"].bfloat16()
+    tcfg = TrainConfig(warmup_steps=2, total_steps=10)
+    runs = []
+    for dev in ("cpu", cuda):
+        p = {k: v.clone().to(dev) for k, v in params.items()}
+        st = TA.adamw_init(p, device=dev)
+        for i in range(3):
+            g = {k: (v * (1 + i)).to(dev, p[k].dtype)
+                 for k, v in grads.items()}
+            p, st, _ = TA.adamw_update(p, g, st, tcfg)
+        runs.append([{k: v.float().cpu() for k, v in t.items()}
+                     for t in (p, st.m, st.v)])
+    for want, got in zip(*runs):
+        _grads_close(got, want, 1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_synthetic_lm_is_the_cpu_stream(cuda):
+    from repro_torch.data.lm import SyntheticLM
+    d = SyntheticLM(32000, 512, 4, seed=3)
+    for step in (0, 9):
+        a, b = d.batch(step, device="cpu"), d.batch(step)
+        assert b["tokens"].device.type == "cuda"
+        for k in a:
+            assert torch.equal(a[k], b[k].cpu())

@@ -138,7 +138,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.mesh",
             "repro_torch.distributed.shardings",
             "repro_torch.models.moe", "repro_torch.launch.serve",
-            "repro_torch.models.rwkv", "repro_torch.models.ssm"} <= set(mods)
+            "repro_torch.models.rwkv", "repro_torch.models.ssm",
+            "repro_torch.models.dist", "repro_torch.data.lm",
+            "repro_torch.optim", "repro_torch.optim.adamw"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'"
@@ -175,7 +177,8 @@ def test_port_sources_import_no_jax_or_reference():
     assert {port / "fleet" / "sharded.py", port / "launch" / "mesh.py",
             port / "distributed" / "shardings.py", port / "models" / "moe.py",
             port / "launch" / "serve.py", port / "models" / "rwkv.py",
-            port / "models" / "ssm.py"} <= set(files)
+            port / "models" / "ssm.py", port / "models" / "dist.py",
+            port / "data" / "lm.py", port / "optim" / "adamw.py"} <= set(files)
     files.append(ROOT / "chip_smoke.py")
     examples = sorted((ROOT / "examples").glob("torch_*.py"))
     assert len(examples) == 3
