@@ -244,6 +244,27 @@ is non-zero:
    == off, ``causal_skip`` == the exhaustive walk (bitwise on the rows
    and the loss) and three AdamW steps == the CPU's, within 1e-6; the
    phase launches none of the kernels;
+3m. the training loop, after 3l: (a) h2o-danube3-4b at full width and
+   depth through ``train.loop.make_train_step`` with 2 microbatches
+   (remat on) on batches of 2 x 4,096 (the train_4k cell's global batch
+   of 256 cut), 3 steps without compression and 3 with int8 from the
+   same seeded state: loss, grad_norm, lr, host ms, peak memory, and
+   the first batch's loss without accumulation beside it; (b) at full
+   width and 2 of 24 layers, the data-axis route on a one-rank NCCL
+   group for tp, fsdp and dp_only, with and without int8: 3 steps ==
+   ``mesh=None`` bitwise (parameters, moments, metrics) under
+   deterministic algorithms; (c) the fault drill: ``train()`` 5 steps
+   clean twice, then with checkpoints every 2 steps and a fault at step
+   3 into a temporary directory under ``build/``: free disk, save
+   (snapshot, write) and restore seconds, the checkpoint's bytes,
+   restarts == 1, the final state == the clean run's bitwise (under
+   deterministic algorithms if two clean runs differ), a reload
+   bitwise; (d) h2o-danube3-4b, deepseek-moe-16b and zamba2-2.7b at
+   SMOKE in float32: the step's gradients with 2 microbatches and with
+   int8 on the card against the CPU (within max(1e-4, twice the CPU's
+   rounding floor) of each leaf's largest, plus one quantization step
+   under int8), ``quantize_int8`` bitwise; the phase launches none of
+   the kernels;
 4. a ``kernels`` JSON line with each kernel's launches on its path (B1-B5
    on the fleet path of phases 3 and 3b, B10 and B11 on the rate-control
    loop, B6-B9 on phase 3d's paths, B12 on the engine's tensors in 3f),
@@ -2951,8 +2972,8 @@ def routing_tape(torch, forced=None, row=None):
     orig = moe.router_topk
     tape = []
 
-    def topk(x, router_w, k):
-        vals, idx, aux = orig(x, router_w, k)
+    def topk(x, router_w, k, dist=None):
+        vals, idx, aux = orig(x, router_w, k, dist)
         rec = {"idx": idx}
         f = None if forced is None else forced[len(tape)]
         if row is not None or f is not None:
@@ -4101,6 +4122,373 @@ def train_phase(torch, dev):
     return rows, losses
 
 
+# ---------------------------------------------------------------------------
+# phase 3m: the training loop
+# ---------------------------------------------------------------------------
+
+LOOP_STEPS = 3
+# (b) and (c): h2o-danube3-4b at full width, 2 of its 24 layers
+LOOP_LAYERS = 2
+DRILL_STEPS, DRILL_EVERY, DRILL_FAULT = 5, 2, 3
+LOOP_SMOKE = ["h2o-danube3-4b", "deepseek-moe-16b", "zamba2-2.7b"]
+BUILD = ROOT / "build"        # ignored by git: rendezvous, checkpoints
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """``torch.use_deterministic_algorithms`` on (warnings only, for ops
+    without a deterministic version) inside the block."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+@contextlib.contextmanager
+def one_rank_group(torch, backend):
+    """A one-rank process group (a ``file://`` rendezvous under build/)."""
+    import tempfile
+
+    import torch.distributed as dist
+    BUILD.mkdir(parents=True, exist_ok=True)
+    d = tempfile.mkdtemp(dir=BUILD, prefix="pg_")
+    dist.init_process_group(backend, init_method=f"file://{d}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def state_equal(torch, a, b):
+    """Bitwise: the step count, every parameter and both moments."""
+    return torch.equal(a.opt.step, b.opt.step) and all(
+        torch.equal(a.params[n], b.params[n])
+        and torch.equal(a.opt.m[n], b.opt.m[n])
+        and torch.equal(a.opt.v[n], b.opt.v[n]) for n in b.params)
+
+
+def state_spread(a, b):
+    """The largest |a - b| over each leaf's largest |b|, over the
+    parameters and both moments."""
+    return max(leaf_share(x, y) for x, y in ((a.params, b.params),
+                                             (a.opt.m, b.opt.m),
+                                             (a.opt.v, b.opt.v)))
+
+
+def loop_full(torch, dev, smi):
+    """(a) h2o-danube3-4b FULL through ``make_train_step`` with gradient
+    accumulation (``TrainConfig(microbatch=2)``, remat on) on a batch of
+    TRAIN_BATCH x 4,096, LOOP_STEPS steps without compression, then
+    LOOP_STEPS with int8 from the same initial state (drawn again from
+    the seed); each step's loss, grad_norm, lr and host ms ending in a
+    synchronize, the peak; the first batch's loss at microbatch 0 beside
+    the accumulated step's."""
+    from repro_torch.configs import SHAPES, TrainConfig, get_config
+    from repro_torch.data.lm import SyntheticLM
+    from repro_torch.train.loop import init_state, make_train_step
+
+    cfg, cell = get_config(TRAIN_ARCH), SHAPES["train_4k"]
+    data = SyntheticLM(cfg.vocab_size, cell.seq_len, TRAIN_BATCH,
+                       mode="markov", seed=SEED)
+    say(f"[3m] (a) {cfg.name} FULL ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}; nothing of its width or depth cut): batch "
+        f"{TRAIN_BATCH} x {cell.seq_len} in 2 microbatches, the "
+        f"{cell.name} cell's global batch of {cell.global_batch} cut to "
+        f"{TRAIN_BATCH}; {smi}")
+    out = {}
+    for comp in ("none", "int8"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tcfg = TrainConfig(microbatch=2, grad_compression=comp, seed=SEED)
+        t0 = time.perf_counter()
+        state = init_state(cfg, tcfg, device=dev)
+        torch.cuda.synchronize()
+        say(f"[3m] (a) grad_compression={comp!r}: init_state on the card "
+            f"in {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+        step = make_train_step(cfg, tcfg)
+        if comp == "none":
+            whole = make_train_step(cfg, dataclasses.replace(tcfg,
+                                                             microbatch=0))
+            l0, g0 = whole.gradients(state, data.batch(0, device=dev))
+            l0 = float(l0)
+            del g0
+            gc.collect()
+            torch.cuda.empty_cache()
+        rows = []
+        for s in range(LOOP_STEPS):
+            batch = data.batch(s, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            loss = float(m["loss"])
+            assert np.isfinite(loss) and np.isfinite(float(m["grad_norm"]))
+            rows.append((loss, float(m["grad_norm"]), float(m["lr"]), ms))
+            say(f"[3m] (a) {comp} step {s + 1}: loss {loss:.6f} grad_norm "
+                f"{float(m['grad_norm']):.5f} lr {float(m['lr']):.3e} "
+                f"{ms:.1f} ms")
+            if s == 0 and comp == "none":
+                say(f"[3m] (a) step 1's batch at microbatch 0: loss "
+                    f"{l0:.6f}, accumulated {loss:.6f}, difference "
+                    f"{loss - l0:.3e}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        med = statistics.median(r[3] for r in rows)
+        say(f"[3m] (a) {comp}: median {med:.1f} ms a step; peak "
+            f"{peak:.2f} GiB ({smi})")
+        assert peak < 79.0, peak
+        out[comp] = (rows, peak)
+        del state, step
+    return out
+
+
+def loop_route(torch, dev, cfg):
+    """(b) the data-axis route on a one-rank NCCL group: for tp, fsdp and
+    dp_only, without compression (microbatch 0) and with int8
+    (microbatch 2), LOOP_STEPS steps on the mesh == LOOP_STEPS with
+    ``mesh=None``, bitwise (the parameters, both moments, the metrics),
+    under deterministic algorithms."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data.lm import SyntheticLM
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.train.loop import init_state, make_train_step
+
+    data = SyntheticLM(cfg.vocab_size, 4096, TRAIN_BATCH, seed=SEED)
+    results = {}
+    with one_rank_group(torch, "nccl"), deterministic(torch):
+        mesh = make_train_mesh((1, 1), device=dev)
+        for mode in ("tp", "fsdp", "dp_only"):
+            for mb, comp in ((0, "none"), (2, "int8")):
+                tcfg = TrainConfig(microbatch=mb, grad_compression=comp,
+                                   sharding_mode=mode, seed=SEED)
+                runs = []
+                for m in (None, mesh):
+                    state = init_state(cfg, tcfg, m, device=dev)
+                    step = make_train_step(cfg, tcfg, m)
+                    mets = []
+                    for s in range(LOOP_STEPS):
+                        state, met = step(state, data.batch(s, device=dev))
+                        mets.append(met)
+                    runs.append((state, mets))
+                (want, wm), (got, gm) = runs
+                same = state_equal(torch, got, want) and all(
+                    torch.equal(g[k], w[k]) for g, w in zip(gm, wm)
+                    for k in w)
+                say(f"[3m] (b) {mode}, microbatch {mb}, {comp}: "
+                    f"{LOOP_STEPS} steps on the one-rank NCCL mesh == "
+                    f"mesh=None bitwise: {same} (losses "
+                    f"{[round(float(x['loss']), 6) for x in gm]})")
+                assert same, (mode, comp)
+                results[(mode, comp)] = same
+                del runs, want, got
+    say("[3m] (b) no route over more than one rank runs here: this "
+        "machine has one card")
+    return results
+
+
+def loop_drill(torch, dev, cfg):
+    """(c) the fault drill: ``train()`` DRILL_STEPS steps clean twice, then
+    with checkpoints every DRILL_EVERY and a fault at step DRILL_FAULT,
+    into a temporary directory under build/: restarts == 1; the final
+    loss and parameters against the clean run (bitwise when the two clean
+    runs agree bitwise; else the spread is printed, and the drill runs
+    again under deterministic algorithms, where it must); a port
+    checkpoint reloads bitwise, bf16 leaves included."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs import TrainConfig
+    from repro_torch.distributed.fault import FaultInjector
+    from repro_torch.train.loop import state_template, train
+
+    BUILD.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(BUILD).free
+    say(f"[3m] (c) free disk under {BUILD}: {free / 1e9:.1f} GB")
+    tcfg = TrainConfig(seed=SEED)
+    kw = dict(steps=DRILL_STEPS, batch_shape=(1, 4096), verbose=False,
+              device=dev)
+
+    def drill(tag):
+        clean = [train(cfg, tcfg, **kw) for _ in range(2)]
+        work = tempfile.mkdtemp(dir=BUILD, prefix="ckpt_")
+        try:
+            t0 = time.perf_counter()
+            faulted = train(cfg, tcfg, workdir=work, ckpt_every=DRILL_EVERY,
+                            injector=FaultInjector((DRILL_FAULT,)), **kw)
+            wall = time.perf_counter() - t0
+            step_dir = Path(work) / f"step_{DRILL_EVERY * 2:06d}"
+            nbytes = sum(f.stat().st_size for f in step_dir.rglob("*.npy"))
+            t0 = time.perf_counter()
+            _, trees = load_checkpoint(work, state_template(cfg),
+                                       device=dev)
+            t_load = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        st = trees["state"]
+        bf16 = [n for n, p in st["params"].items()
+                if p.dtype == torch.bfloat16]
+        say(f"[3m] (c) {tag}: restarts {faulted.restarts}; checkpoint "
+            f"{nbytes / 1e9:.3f} GB ({len(bf16)} bf16 leaves); saves: "
+            f"snapshot {fmt(faulted.ckpt_snapshot_s)} s, write "
+            f"{fmt(faulted.ckpt_write_s)} s; restore "
+            f"{fmt(faulted.restore_s)} s; reload {t_load:.2f} s; the "
+            f"faulted run {wall:.1f} s; losses "
+            f"{[round(x, 6) for x in faulted.losses]}")
+        assert faulted.restarts == 1 and bf16
+        twins = state_equal(torch, clean[0].final_state,
+                            clean[1].final_state) and \
+            clean[0].losses == clean[1].losses
+        same = state_equal(torch, faulted.final_state, clean[0].final_state) \
+            and faulted.final_loss == clean[0].final_loss
+        spread = state_spread(clean[1].final_state, clean[0].final_state)
+        dist_f = state_spread(faulted.final_state, clean[0].final_state)
+        say(f"[3m] (c) {tag}: two clean runs bitwise: {twins} (spread "
+            f"{spread:.3g}, final losses {clean[0].final_loss!r} / "
+            f"{clean[1].final_loss!r}); the faulted run == the clean run "
+            f"bitwise: {same} (spread {dist_f:.3g}, final loss "
+            f"{faulted.final_loss!r})")
+        return twins, same, faulted, trees, spread, dist_f
+
+    twins, same, faulted, trees, spread, dist_f = drill("default")
+    if twins:
+        assert same
+    else:
+        with deterministic(torch):
+            twins_d, same_d, faulted, trees, _, _ = drill("deterministic")
+        assert twins_d and same_d
+    # a port checkpoint reloads bitwise, bf16 leaves included
+    from repro_torch.checkpoint import save_checkpoint
+    work = tempfile.mkdtemp(dir=BUILD, prefix="ckpt_")
+    try:
+        save_checkpoint(work, 1, trees)
+        _, again = load_checkpoint(work, state_template(cfg), device=dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    a, b = trees["state"], again["state"]
+    reload_same = torch.equal(a["opt"].step, b["opt"].step) and all(
+        torch.equal(a[g][n], b[g][n]) for g in ("params",)
+        for n in a["params"]) and all(
+        torch.equal(getattr(a["opt"], f)[n], getattr(b["opt"], f)[n])
+        for f in ("m", "v") for n in a["params"])
+    say(f"[3m] (c) a port checkpoint reloads bitwise: {reload_same}")
+    assert reload_same
+    return faulted, twins, spread, dist_f
+
+
+def loop_identities(torch, dev):
+    """(d) SMOKE in float32 on the card against the CPU: ``make_train_
+    step``'s gradients (as AdamW receives them) with microbatch 2, and
+    with int8, within max(TRAIN_TOL, twice the CPU's rounding floor) of
+    each leaf's largest (plus one quantization step of the row's scale
+    under int8), the step's loss and grad_norm within 1e-5; and
+    ``quantize_int8`` on the card == the CPU's, bitwise."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.lm import SyntheticLM
+    from repro_torch.distributed.compression import quantize_int8
+    from repro_torch.models.params import init_params
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.loop import TrainState, make_train_step
+
+    def state_on(params, where):
+        p = {k: v.detach().clone().to(where) for k, v in params.items()}
+        return TrainState(p, adamw_init(p, where))
+
+    def rel(a, b):
+        return abs(a - b) / max(1.0, abs(b))
+
+    worst = {}
+    for arch in LOOP_SMOKE:
+        cfg = get_config(arch, smoke=True).replace(dtype="float32",
+                                                   kv_cache_dtype="float32")
+        params = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        batch = SyntheticLM(cfg.vocab_size, 64, 4, seed=SEED).batch(
+            0, device="cpu")
+        fl = None
+        for comp in ("none", "int8"):
+            tcfg = TrainConfig(microbatch=2, grad_compression=comp,
+                               seed=SEED)
+            step = make_train_step(cfg, tcfg)
+            l_cpu, g_cpu = step.gradients(state_on(params, "cpu"), batch)
+            l_dev, g_dev = step.gradients(state_on(params, dev), batch)
+            if fl is None:      # the float floor, before any quantization
+                fl = 0.0
+                for i in (1, 2):
+                    e = params["embed"]
+                    e = e * (1 + 2 ** -24 * torch.randn(
+                        e.shape, generator=torch.Generator().manual_seed(
+                            SEED + i)))
+                    fl = max(fl, leaf_share(step.gradients(
+                        state_on(dict(params, embed=e), "cpu"), batch)[1],
+                        g_cpu))
+            bar = max(TRAIN_TOL, 2 * fl)
+            share = 0.0
+            for n, g in g_cpu.items():
+                err = (g_dev[n].float().cpu() - g).abs()
+                allow = bar * g.abs().max().clamp_min(1e-30)
+                if comp == "int8":
+                    allow = allow + quantize_int8(g)[1]
+                assert bool((err <= allow).all()), (arch, comp, n)
+                share = max(share, float((err / allow).max()))
+            s_cpu, m_cpu = step(state_on(params, "cpu"), batch)
+            s_dev, m_dev = step(state_on(params, dev), batch)
+            dl = rel(float(m_dev["loss"]), float(m_cpu["loss"]))
+            dn = rel(float(m_dev["grad_norm"]), float(m_cpu["grad_norm"]))
+            say(f"[3m] (d) {arch} SMOKE f32, microbatch 2, {comp}: "
+                f"gradients at {share:.3g} of the bar (bar {bar:.3g}: the "
+                f"CPU's floor {fl:.3g}"
+                f"{' + a quantization step' if comp == 'int8' else ''}); "
+                f"loss {dl:.3g}, grad_norm {dn:.3g} (bar 1e-5)")
+            assert dl <= 1e-5 and dn <= 1e-5, (arch, comp)
+            worst[(arch, comp)] = share
+            if comp == "int8":
+                g = g_cpu["blocks_w1" if "blocks_w1" in g_cpu else "embed"]
+                q_c, s_c = quantize_int8(g)
+                q_d, s_d = quantize_int8(g.to(dev))
+                ties = torch.tensor([[127.0, 0.5, 1.5, 2.5, -0.5, -2.5,
+                                      126.5, 0.0], [0.0] * 8])
+                q_t, s_t = quantize_int8(ties.to(dev))
+                same = torch.equal(q_d.cpu(), q_c) and torch.equal(
+                    s_d.cpu(), s_c) and torch.equal(
+                    q_t.cpu(), quantize_int8(ties)[0]) and torch.equal(
+                    s_t.cpu(), quantize_int8(ties)[1])
+                say(f"[3m] (d) {arch}: quantize_int8 on the card == the "
+                    f"CPU bitwise (a gradient leaf, .5 ties, a zero row): "
+                    f"{same}")
+                assert same, arch
+    return worst
+
+
+def loop_phase(torch, dev):
+    """Phase 3m: (a) ``loop_full``, (b) ``loop_route``, (c) ``loop_drill``,
+    (d) ``loop_identities``."""
+    from repro_torch.configs import get_config
+    smi = " | ".join(nvidia_smi())
+    t0 = time.perf_counter()
+    full = loop_full(torch, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ta = time.perf_counter() - t0
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=LOOP_LAYERS)
+    say(f"[3m] (b), (c): {cfg.name} at full width, {LOOP_LAYERS} of 24 "
+        f"layers: {cfg.param_count() / 1e9:.3f} B parameters")
+    loop_route(torch, dev, cfg)
+    tb = time.perf_counter() - t0 - ta
+    loop_drill(torch, dev, cfg)
+    tc = time.perf_counter() - t0 - ta - tb
+    gc.collect()
+    torch.cuda.empty_cache()
+    loop_identities(torch, dev)
+    say(f"[3m] (a) {ta:.1f} s, (b) {tb:.1f} s, (c) {tc:.1f} s, (d) "
+        f"{time.perf_counter() - t0 - ta - tb - tc:.1f} s ({smi})")
+    return full
+
+
 def run_path(torch, fn, *args):
     """Drive one path with every count set to 0 just before it; returns
     (its result, kernel launches, dispatches, peak GiB)."""
@@ -4257,6 +4645,16 @@ def main() -> int:
         f"kernels lies on this path); peak memory {peak:.2f} GiB; "
         f"{time.perf_counter() - t0:.1f} s")
     assert launches["train"] == {} and disp == {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, launches["train_loop"], disp, peak = run_path(torch, loop_phase,
+                                                     torch, dev)
+    say(f"[main] phase 3m, the training loop: kernel launches "
+        f"{launches['train_loop']}, dispatches {disp} (none of the twelve "
+        f"kernels lies on this path); peak memory {peak:.2f} GiB; "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert launches["train_loop"] == {} and disp == {}
 
     rows = []
     for kname, (source, replaces) in KERNELS.items():

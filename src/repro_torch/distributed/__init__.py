@@ -1,2 +1,3 @@
-"""Placement of sharded state: the sharded fleet runtime's stacked
-per-shard state over a fleet mesh (``distributed.shardings``)."""
+"""Distribution: the training state's sharding rules and placements, the
+int8 gradient all-reduce, fault tolerance, and the sharded fleet
+runtime's placement over a fleet mesh (``distributed.shardings``)."""

@@ -1,20 +1,345 @@
-"""Placement of the sharded fleet runtime's stacked state over a fleet mesh.
+"""Placement of sharded state: the training state's partition specs over
+a training mesh, and the sharded fleet runtime's stacked per-shard state
+over a fleet mesh.
 
-Every piece of sharded fleet state is stacked as ``(S, ...)`` with one
-padded shape for all shards.  Shards that share a device share one block
-of that stack there: a block is the ``(S_b, ...)`` rows of its shards, in
-shard order, so one kernel launch per device serves every shard on it
-(on a one-device mesh the whole ``(S, ...)`` stack is one block).
+**Training.**  ``param_pspecs`` pattern-matches the stable names of
+``models/params.py``, as the JAX package's ``distributed/shardings.py``
+does, in its modes:
+
+  tp       -- tensor parallelism only: parameters replicated over the
+              data axes, contracted / expanded dims over ``"model"``;
+  fsdp     -- the same, plus the largest remaining divisible dim over
+              ``"data"`` (fully sharded parameters and optimizer state);
+  fsdp_pod -- the same over ``("pod", "data")``;
+  dp_only  -- pure data parallelism over the whole mesh: no tensor role,
+              the FSDP dim split over every axis.
+
+The rules are plain logic over names and shapes, with the JAX package's
+divisibility checks and its production axis sizes (pod 2, data 16,
+model 16) when no mesh is given; ``P`` is the port's partition spec,
+entry for entry a JAX ``PartitionSpec``.  ``named`` turns a spec into a
+``Placement`` on a ``TrainMesh``: which dim is split over which batch
+axes, with the collectives that cut a full tensor into this rank's
+shard, reduce a gradient into it and gather it back.  A split over a
+model axis above 1 is tensor parallelism, which comes with A6d
+(ROADMAP.md): placements raise on it.
+
+**Fleet.**  Every piece of sharded fleet state is stacked as ``(S, ...)``
+with one padded shape for all shards.  Shards that share a device share
+one block of that stack there: a block is the ``(S_b, ...)`` rows of its
+shards, in shard order, so one kernel launch per device serves every
+shard on it (on a one-device mesh the whole ``(S, ...)`` stack is one
+block).
 """
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.launch.mesh import FleetMesh
+from repro_torch.launch.mesh import FleetMesh, TrainMesh
+
+A6D = ("tensor and expert parallelism over the model axis come with A6d "
+       "in ROADMAP.md")
+
+
+class P(tuple):
+    """A partition spec: one entry per dim, ``None`` (not split), an axis
+    name, or a tuple of axis names split over together.  A one-name tuple
+    is that name, as JAX normalizes it."""
+
+    def __new__(cls, *dims):
+        return super().__new__(cls, tuple(
+            d[0] if isinstance(d, tuple) and len(d) == 1 else d
+            for d in dims))
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+# suffix-pattern rules: (regex on the trailing name, role); roles: "col"
+# = shard the last dim on model; "row" = the second-to-last; "expert" =
+# the expert dim; "vocab" = the vocabulary dim; "rep" = replicated
+_RULES: Tuple[Tuple[str, str], ...] = (
+    # order matters: expert/shared rules must fire before the generic
+    # wg/w1 suffixes ("moe_wg" ends in "_wg" too)
+    (r"(^|_)(moe_wg|moe_wu|moe_wd)$", "expert"),
+    (r"(^|_)(shared_wg|shared_wu)$", "col"),
+    (r"(^|_)shared_wd$", "row"),
+    (r"(^|_)(wq|wk|wv|bq|bv)$", "col"),
+    (r"(^|_)wo$", "row"),
+    (r"(^|_)(w1|w3|b1|cmix_k|wr|wg)$", "col"),
+    (r"(^|_)(w2|cmix_v)$", "row"),
+    (r"(^|_)(m_in)$", "col"),
+    (r"(^|_)(m_out)$", "row"),
+    (r"(^|_)(embed|unembed)$", "vocab"),
+    (r"(^|_)cmix_r$", "col"),
+)
+
+
+def _role(name: str) -> str:
+    for pat, role in _RULES:
+        if re.search(pat, name):
+            return role
+    return "rep"
+
+
+def _spec_for(name: str, shape, mode: str, fsdp_axes, axis_size) -> P:
+    """The spec of one parameter, respecting divisibility."""
+    role = _role(name) if mode != "dp_only" else "rep"
+    ndim = len(shape)
+    model = "model"
+    dims = [None] * ndim
+
+    def ok(i, axes) -> bool:
+        return shape[i] % axis_size(axes) == 0
+
+    if role == "col" and ndim >= 2 and ok(ndim - 1, model):
+        dims[-1] = model
+    elif role == "row" and ndim >= 2 and ok(ndim - 2, model):
+        dims[-2] = model
+    elif role == "expert" and ndim >= 3 and ok(ndim - 3, model):
+        dims[-3] = model            # (L, E, d, F): experts over model
+    elif role == "vocab" and ok(0, model):
+        dims[0] = model             # (V, d): vocab-sharded
+    # (an indivisible vocabulary stays replicated on the model axis)
+
+    if mode in ("fsdp", "fsdp_pod", "dp_only"):
+        # shard the largest remaining divisible dim over the data axes
+        free = [i for i, d in enumerate(dims)
+                if d is None and shape[i] % axis_size(fsdp_axes) == 0
+                and shape[i] >= axis_size(fsdp_axes)]
+        if free:
+            tgt = max(free, key=lambda i: shape[i])
+            dims[tgt] = fsdp_axes
+    if all(d is None for d in dims):
+        return P()
+    return P(*dims)
+
+
+def _axis_size(mesh, axes) -> int:
+    """The ranks along ``axes`` of ``mesh`` (anything with a ``shape``
+    dict; absent axes count 1), or of the production mesh (pod 2, data
+    16, model 16) without one."""
+    if isinstance(axes, str):
+        axes = (axes,)
+    n = 1
+    for a in axes:
+        n *= mesh.shape.get(a, 1) if mesh is not None else \
+            {"pod": 2, "data": 16, "model": 16}[a]
+    return n
+
+
+def param_pspecs(cfg, specs: Dict, mode: str = "tp",
+                 multi_pod: bool = False, mesh=None) -> Dict:
+    """The spec of every leaf of a parameter (or optimizer-moment) tree,
+    divisibility checked against ``mesh``'s axis sizes (the production
+    sizes without one)."""
+    fsdp_axes = ("pod", "data") if multi_pod else ("data",)
+    if mode == "fsdp_pod":
+        fsdp_axes = ("pod", "data")
+    if mode == "dp_only":
+        # pure data parallelism over the whole mesh: the model axis joins
+        # the data axes and no tensor role applies
+        fsdp_axes = ("pod", "data", "model") if multi_pod \
+            else ("data", "model")
+
+    out = {}
+    for name, v in specs.items():
+        if len(v.shape) <= 1 or min(v.shape) == 0:
+            out[name] = P()
+        else:
+            out[name] = _spec_for(name, v.shape, mode, fsdp_axes,
+                                  lambda axes: _axis_size(mesh, axes))
+    return out
+
+
+def batch_pspec(multi_pod: bool = False) -> P:
+    return P(("pod", "data") if multi_pod else ("data",))
+
+
+def batch_pspecs_for(specs: Dict, mesh, multi_pod: bool = False) -> Dict:
+    """Split the leading (batch) dim of every input when divisible; else
+    the sequence dim (sequence parallelism) for a batch of 1."""
+    b = ("pod", "data") if multi_pod else ("data",)
+    dp = _axis_size(mesh, b)
+    out = {}
+    for k, v in specs.items():
+        dims = [None] * len(v.shape)
+        if v.shape and v.shape[0] % dp == 0 and v.shape[0] > 0:
+            dims[0] = b
+        elif len(v.shape) >= 2 and v.shape[1] % dp == 0:
+            dims[1] = b            # (1, S, ...) long context: split S
+        out[k] = P(*dims)
+    return out
+
+
+def tree_map(fn, tree):
+    """``fn`` over the leaves of dicts, lists, tuples and NamedTuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, P):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def cache_pspecs(cache, mesh, multi_pod: bool = False,
+                 kv_seq_shard: bool = False):
+    """KV caches and recurrent states, shape-aware.
+
+    kv (L, B, S, KH, Dh): B over data when divisible (else S takes data:
+    sequence parallelism at batch 1); KH over model when divisible, else S
+    over model.  The port computes these placements but runs none of
+    them until A6d."""
+    b = ("pod", "data") if multi_pod else ("data",)
+    dp = _axis_size(mesh, b)
+    tp = _axis_size(mesh, "model")
+
+    def one(leaf):
+        shape = leaf.shape
+        nd = len(shape)
+        if nd >= 5:      # (L, B, S, KH, Dh)
+            L, B, S, KH, Dh = shape[-5:]
+            bdim = b if (B % dp == 0 and not kv_seq_shard) else None
+            s_axes = [] if bdim is not None else list(b)
+            hdim = "model" if KH % tp == 0 else None
+            if hdim is None:
+                s_axes.append("model")
+            sdim = tuple(s_axes) if s_axes else None
+            if sdim is not None and S % _axis_size(mesh, sdim) != 0:
+                sdim = None     # give up: replicate sequence
+            return P(None, bdim, sdim, hdim, None)
+        if nd == 3:      # (L, B, S) position cache: follow the kv B/S split
+            L, B, S = shape
+            if B % dp == 0 and not kv_seq_shard:
+                return P(None, b, None)
+            return P(None, None, b if S % dp == 0 else None)
+        if nd >= 2:      # recurrent states (L, B, H, ...) / conv (L, B, W, C)
+            B = shape[1]
+            bdim = b if B % dp == 0 else None
+            dims = [None, bdim] + [None] * (nd - 2)
+            # shard the widest trailing dim over model when divisible
+            for i in range(nd - 1, 1, -1):
+                if shape[i] % tp == 0 and shape[i] >= tp:
+                    dims[i] = "model"
+                    break
+            return P(*dims)
+        return P()
+
+    return tree_map(one, cache)
+
+
+def make_dist(mesh: Optional[TrainMesh], auto_moe: bool = False,
+              dp_only: bool = False):
+    """The model code's ``DistContext`` on ``mesh`` (one device without
+    one).  A model axis above 1 outside ``dp_only`` raises (A6d)."""
+    from repro_torch.models.dist import DistContext
+    if mesh is None:
+        return DistContext(mesh=None)
+    axes = ("pod", "data", "model") if dp_only else ("pod", "data")
+    batch_axes = tuple(a for a in axes if a in mesh.shape)
+    return DistContext(mesh=mesh, batch_axes=batch_axes,
+                       model_axis="model" if not dp_only else "__none__",
+                       auto_moe=auto_moe)
+
+
+def _lead(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t`` with ``dim`` moved first, contiguous (the collectives'
+    layout)."""
+    return t.movedim(dim, 0).contiguous()
+
+
+class Placement:
+    """One leaf's placement on a training mesh: ``dim`` (or None) split
+    over ``axes`` into ``parts`` shards, this rank holding shard
+    ``index``, every other dim whole.  Spec entries over axes of one rank
+    split nothing."""
+
+    def __init__(self, mesh: TrainMesh, spec: P):
+        self.mesh, self.spec = mesh, P(*spec)
+        split = []
+        for d, entry in enumerate(self.spec):
+            if entry is None:
+                continue
+            axes = (entry,) if isinstance(entry, str) else tuple(entry)
+            if mesh.size(axes) > 1:
+                split.append((d, axes))
+        live = {a for a, n in mesh.shape.items() if n > 1}
+        if len(split) > 1 or (split and "model" in live
+                              and "model" in split[0][1]
+                              and not live <= set(split[0][1])):
+            raise NotImplementedError(
+                f"placement {self.spec} on {mesh.shape}: {A6D}")
+        self.dim, self.axes = split[0] if split else (None, ())
+        self.parts = mesh.size(self.axes)
+        self.index = mesh.index(self.axes)
+
+    @property
+    def split(self) -> bool:
+        return self.dim is not None
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Placement) and other.mesh is self.mesh \
+            and (other.dim, other.axes) == (self.dim, self.axes)
+
+    def __repr__(self) -> str:
+        return f"Placement({self.spec}, dim={self.dim}, parts={self.parts})"
+
+    @torch.no_grad()
+    def shard(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the full tensor, a fresh tensor (the full
+        tensor itself where nothing is split)."""
+        if not self.split:
+            return full
+        n = full.shape[self.dim] // self.parts
+        return full.narrow(self.dim, self.index * n, n).clone(
+            memory_format=torch.contiguous_format)
+
+    @torch.no_grad()
+    def gather(self, shard: torch.Tensor) -> torch.Tensor:
+        """The full tensor from every rank's shard (an all-gather; the
+        shard itself where nothing is split)."""
+        if not self.split:
+            return shard
+        src = _lead(shard, self.dim)
+        out = torch.empty((src.shape[0] * self.parts,) + src.shape[1:],
+                          dtype=src.dtype, device=src.device)
+        dist.all_gather_into_tensor(out, src,
+                                    group=self.mesh.group(self.axes))
+        return out.movedim(0, self.dim).contiguous()
+
+    @torch.no_grad()
+    def reduce_mean(self, g: torch.Tensor, batch_axes) -> torch.Tensor:
+        """This rank's shard of the mean of ``g`` over the ranks of
+        ``batch_axes``: a reduce-scatter where the split runs over exactly
+        those ranks, else an all-reduce and then the shard."""
+        n = self.mesh.size(batch_axes)
+        group = self.mesh.group(batch_axes)
+        if self.split and self.parts == n:
+            src = _lead(g, self.dim)
+            out = torch.empty((src.shape[0] // n,) + src.shape[1:],
+                              dtype=src.dtype, device=src.device)
+            dist.reduce_scatter_tensor(out, src, group=group)
+            return out.div_(n).movedim(0, self.dim).contiguous()
+        out = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return self.shard(out.div_(n))
+
+
+def named(mesh: TrainMesh, spec_tree):
+    """Each spec of ``spec_tree`` as its ``Placement`` on ``mesh``."""
+    return tree_map(lambda s: Placement(mesh, s), spec_tree)
+
+
+# ---------------------------------------------------------------------------
+# fleet-serving shardings (the sharded super-launch state)
+# ---------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)
@@ -73,4 +398,6 @@ def put_fleet_state(mesh: FleetMesh, tree):
     return walk(tree)
 
 
-__all__ = ["FleetStateSharding", "fleet_state_sharding", "put_fleet_state"]
+__all__ = ["P", "param_pspecs", "batch_pspec", "batch_pspecs_for",
+           "cache_pspecs", "make_dist", "named", "Placement", "tree_map",
+           "FleetStateSharding", "fleet_state_sharding", "put_fleet_state"]

@@ -1,4 +1,5 @@
-"""The fleet mesh: the devices the sharded fleet runtime's shards live on.
+"""The meshes: the fleet mesh, the devices the sharded fleet runtime's
+shards live on, and the training mesh over the ranks of a process group.
 
 Camera groups never leak across each other, so they shard over a 1-D
 ``"shard"`` axis with no collectives on the hot path
@@ -6,9 +7,18 @@ Camera groups never leak across each other, so they shard over a 1-D
 ``torch.device``s, one per shard; shards listed on the same device share
 one stacked block of state there and one launch per kernel
 (``distributed.shardings``).
+
+A ``TrainMesh`` lays the ranks of the initialized ``torch.distributed``
+process group row-major over the JAX package's axes, ``("data",
+"model")`` or ``("pod", "data", "model")``, one device a rank: the card
+of the rank's local index under NCCL, the CPU under gloo.  It gives the
+process group of a set of axes and this rank's coordinate.  The
+production and debug meshes of the JAX package's ``launch/mesh.py`` are
+not ported yet (A6c in ROADMAP.md).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -71,4 +81,98 @@ def make_fleet_mesh(n_shards: int = 0,
     return FleetMesh([devices[s % len(devices)] for s in range(n)])
 
 
-__all__ = ["FLEET_AXIS", "FleetMesh", "make_fleet_mesh"]
+TRAIN_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
+
+
+class TrainMesh:
+    """The ranks of the process group laid row-major over ``axes``, with
+    ``shape[axis]`` ranks along each (``shape`` is a dict, as a JAX
+    mesh's).  ``device`` is this rank's device; ``device_mesh`` the
+    ``torch.distributed`` DeviceMesh over the same layout."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str],
+                 device: torch.device):
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+        if not dist.is_initialized():
+            raise RuntimeError("a training mesh needs an initialized "
+                               "torch.distributed process group")
+        shape, axes = tuple(int(n) for n in shape), tuple(axes)
+        if len(shape) != len(axes) or math.prod(shape) != \
+                dist.get_world_size():
+            raise ValueError(f"mesh {shape} over {axes} does not lay out "
+                             f"{dist.get_world_size()} ranks")
+        self.axis_names = axes
+        self.shape: Dict[str, int] = dict(zip(axes, shape))
+        self.device = _pin_index(torch.device(device))
+        self.rank = dist.get_rank()
+        self.device_mesh = init_device_mesh(self.device.type, shape,
+                                            mesh_dim_names=axes)
+        coords, r = [], self.rank
+        for n in reversed(shape):
+            coords.append(r % n)
+            r //= n
+        self.coords: Dict[str, int] = dict(zip(axes, reversed(coords)))
+
+    def size(self, axes) -> int:
+        """The number of ranks along ``axes`` (a name or a tuple; names
+        not on the mesh count 1)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return math.prod(self.shape.get(a, 1) for a in axes)
+
+    def index(self, axes) -> int:
+        """This rank's row-major index along ``axes``, in mesh order."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        i = 0
+        for a in self.axis_names:
+            if a in axes:
+                i = i * self.shape[a] + self.coords[a]
+        return i
+
+    def group(self, axes):
+        """The process group of the ranks that share this rank's
+        coordinates off ``axes``; its ranks are ordered as ``index``
+        orders them.  Groups over several axes that leave out a
+        non-trivial axis belong to tensor parallelism (A6d)."""
+        import torch.distributed as dist
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        live = [a for a in self.axis_names if a in axes
+                and self.shape[a] > 1]
+        rest = [a for a in self.axis_names if a not in axes
+                and self.shape[a] > 1]
+        if not rest:
+            return dist.group.WORLD
+        if len(live) <= 1:
+            return self.device_mesh.get_group(live[0] if live else
+                                              next(a for a in axes
+                                                   if a in self.shape))
+        raise NotImplementedError(
+            f"a group over {axes} beside the model axis {self.shape}: "
+            f"tensor and expert parallelism come with A6d in ROADMAP.md")
+
+    def __repr__(self) -> str:
+        return f"TrainMesh({self.shape}, {self.device})"
+
+
+def make_train_mesh(shape: Sequence[int], axes: Optional[Sequence[str]]
+                    = None, device=None) -> TrainMesh:
+    """A training mesh of ``shape`` over the initialized process group,
+    with the JAX package's axis names for its rank unless ``axes`` is
+    given.  ``device``: this rank's device, the card unless the caller
+    passes another; a card without an index is the one of the rank's
+    local index (``LOCAL_RANK``, as ``torchrun`` sets it)."""
+    import os
+
+    from repro_torch import resolve_device
+    axes = tuple(axes) if axes is not None else TRAIN_AXES[len(shape)]
+    device = resolve_device(device)
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda",
+                                  int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    return TrainMesh(shape, axes, device)
+
+
+__all__ = ["FLEET_AXIS", "FleetMesh", "make_fleet_mesh", "TRAIN_AXES",
+           "TrainMesh", "make_train_mesh"]

@@ -60,8 +60,9 @@ def unstack(stack: Dict, n: int) -> List[Dict]:
 
 
 def shard_act(x: torch.Tensor, dist: Optional[DistContext], *spec_tail):
-    """The activation's sharding constraint: the identity on one device,
-    the only layout a ``DistContext`` holds until A6b."""
+    """The activation's sharding constraint: the identity.  On the
+    data-axis route each rank already holds its own rows; layouts over a
+    model axis come with A6d."""
     return x
 
 
@@ -239,9 +240,11 @@ def _dense_x(x, lp, cfg: ModelConfig, **kw):
 
 
 def moe_block(x, lp, cfg: ModelConfig, *, rope_sincos, mode="prefill",
-              cache=None, pos=0, positions=None, causal_skip=False):
+              cache=None, pos=0, positions=None, causal_skip=False,
+              dist=None):
     """Full attention, then the MoE layer (with the shared experts when
-    the layer has them).  Returns (x, aux, dropped, cache)."""
+    the layer has them; ``dist`` as ``moe_layer`` takes it).  Returns (x,
+    aux, dropped, cache)."""
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     a, new_cache = attn_sublayer(
         h, lp, cfg, rope_sincos=rope_sincos, mode=mode, cache=cache,
@@ -252,7 +255,8 @@ def moe_block(x, lp, cfg: ModelConfig, *, rope_sincos, mode="prefill",
     if "shared_wg" in lp:
         shared = (lp["shared_wg"], lp["shared_wu"], lp["shared_wd"])
     y, aux, dropped = moe_layer(h, lp["router"], lp["moe_wg"], lp["moe_wu"],
-                                lp["moe_wd"], cfg, shared=shared)
+                                lp["moe_wd"], cfg, dist=dist,
+                                shared=shared)
     return x + y, aux, dropped, new_cache
 
 
@@ -329,9 +333,11 @@ def dense_trunk(params, cfg: ModelConfig, x, *, mode="prefill", caches=None,
 
 
 def moe_trunk(params, cfg: ModelConfig, x, *, mode="prefill", caches=None,
-              pos=0, positions=None, remat=False, causal_skip=False):
+              pos=0, positions=None, remat=False, causal_skip=False,
+              dist=None):
     """The ``cfg.first_dense_layers`` dense layers (``dense_``), then the
-    MoE blocks (``blocks_``), all at full attention.  ``caches``:
+    MoE blocks (``blocks_``, each ``moe_layer`` given ``dist``), all at
+    full attention.  ``caches``:
     {"blocks": (k, v)[, "dense": (k, v)]}, written in place.  In train
     mode ``remat`` recomputes each block.  Returns (x, caches, aux,
     dropped): the router's load-balance loss and the dropped share, each
@@ -355,7 +361,7 @@ def moe_trunk(params, cfg: ModelConfig, x, *, mode="prefill", caches=None,
     for i, lp in enumerate(unstack(_sub(params, "blocks_"), n)):
         cache = (ck[i], cv[i]) if ck is not None else None
         x, aux, dropped = block(x, lp, cfg, rope_sincos=rope, cache=cache,
-                                **kw)
+                                dist=dist, **kw)
         aux_tot = aux_tot + aux
         drop_tot = drop_tot + dropped
     return x, caches, aux_tot, drop_tot

@@ -103,6 +103,8 @@ def train_loss(params, cfg: ModelConfig, batch, *,
     moe_aux`` added to the loss.  vlm scores the text rows after the
     patches.  ``remat`` recomputes the JAX package's blocks in the
     backward pass; ``causal_skip`` reaches the full-attention layers.
+    With a mesh ``dist`` (the data-axis route) ``batch`` is this rank's
+    rows and the loss their mean; the MoE aux loss is the global batch's.
     Differentiate it with ``torch.autograd``."""
     _families(cfg)
     metrics: Dict[str, torch.Tensor] = {}
@@ -117,7 +119,7 @@ def train_loss(params, cfg: ModelConfig, batch, *,
     x = F.shard_act(_front(params, cfg, batch), dist, None, None)
     kw = dict(mode="train", remat=remat)
     if cfg.family == "moe":
-        x, _, aux, dropped = F.moe_trunk(params, cfg, x,
+        x, _, aux, dropped = F.moe_trunk(params, cfg, x, dist=dist,
                                          causal_skip=causal_skip, **kw)
         metrics["moe_aux"] = aux
         metrics["moe_dropped"] = dropped

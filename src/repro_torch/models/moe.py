@@ -11,10 +11,14 @@ renormalised router values, in ``x.dtype``.  The dropped share is
 returned as a metric, beside the Switch-style load-balance loss.
 
 The JAX package also runs the dispatch under a model-parallel
-``shard_map`` with E/tp experts a rank; that route waits for the
-training loop's slice (A6b in ROADMAP.md), and a ``DistContext`` holds
-no mesh until then (``models.dist``), so ``moe_layer`` runs every expert
-locally.
+``shard_map`` with E/tp experts a rank; that route comes with A6d in
+ROADMAP.md, and a ``DistContext`` over a model axis above 1 raises
+(``models.dist``), so ``moe_layer`` runs every expert locally.  On the
+data-axis route each rank routes its own rows; the load-balance loss is
+the global batch's, as under the JAX package's mesh: its per-expert
+shares and mean probabilities are averaged over the batch axes (through
+an all-reduce that autograd differentiates), and so is the dropped
+share.
 """
 from __future__ import annotations
 
@@ -36,9 +40,25 @@ def capacity(cfg: ModelConfig, seq_len: int) -> int:
     return max(8, -(-c // 8) * 8) if seq_len > 8 else max(1, c)
 
 
-def router_topk(x: torch.Tensor, router_w: torch.Tensor, k: int):
+def _batch_mean(t: torch.Tensor, dist, grad: bool = False):
+    """``t`` averaged over the batch axes of ``dist``'s mesh (itself on
+    one device); ``grad``: through autograd's all-reduce."""
+    if dist is None or dist.mesh is None or dist.dp == 1:
+        return t
+    if grad:
+        from torch.distributed.nn.functional import all_reduce
+        return all_reduce(t, group=dist.batch_group()) / dist.dp
+    import torch.distributed as tdist
+    t = t.detach().clone()
+    tdist.all_reduce(t, group=dist.batch_group())
+    return t / dist.dp
+
+
+def router_topk(x: torch.Tensor, router_w: torch.Tensor, k: int,
+                dist=None):
     """x: (B, S, D) -> (top_vals (B, S, k) float32 renormalised, top_idx
-    (B, S, k), aux load-balance loss, a float32 scalar)."""
+    (B, S, k), aux load-balance loss, a float32 scalar); with a mesh
+    ``dist``, the loss of the global batch."""
     logits = torch.einsum("bsd,de->bse", x.float(), router_w.float())
     probs = torch.softmax(logits, dim=-1)
     top_vals, top_idx = torch.topk(probs, k, dim=-1)
@@ -47,8 +67,8 @@ def router_topk(x: torch.Tensor, router_w: torch.Tensor, k: int):
     # Switch-style aux loss: E * sum_e f_e * P_e
     E = router_w.shape[-1]
     ass = F.one_hot(top_idx, E).float().sum(dim=2)              # (B,S,E)
-    f = ass.mean(dim=(0, 1)) / k
-    p = probs.mean(dim=(0, 1))
+    f = _batch_mean(ass.mean(dim=(0, 1)), dist) / k
+    p = _batch_mean(probs.mean(dim=(0, 1)), dist, grad=True)
     aux = E * (f * p).sum()
     return top_vals, top_idx, aux
 
@@ -97,20 +117,24 @@ def moe_layer(x: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
               dist=None,
               shared: Optional[Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]] = None):
-    """Full MoE layer on one device.  Returns (y, aux_loss, dropped_frac).
+    """Full MoE layer, every expert local.  Returns (y, aux_loss,
+    dropped_frac).
 
     wg, wu: (E, D, F); wd: (E, F, D).  ``shared``: optional (wg, wu, wd)
     of the always-on shared-expert MLP.  ``dist``: None or a
-    ``DistContext``, which holds no mesh (one device); the
-    expert-parallel route waits for A6b."""
+    ``DistContext``; on a data-axis mesh the aux loss and the dropped
+    share are the global batch's.  The expert-parallel route over a model
+    axis comes with A6d."""
     if dist is not None and not isinstance(dist, DistContext):
         raise NotImplementedError(
-            "expert parallelism over a model-parallel mesh comes with the "
-            "training loop's slice (A6b in ROADMAP.md)")
-    top_vals, top_idx, aux = router_topk(x, router_w, cfg.experts_per_token)
+            "expert parallelism over a model-parallel mesh comes with A6d "
+            "in ROADMAP.md")
+    top_vals, top_idx, aux = router_topk(x, router_w, cfg.experts_per_token,
+                                         dist)
     y, dropped = _dispatch_compute_combine(
         x, top_vals.to(x.dtype), top_idx, wg, wu, wd,
         cap=capacity(cfg, x.shape[1]), act=cfg.act)
+    dropped = _batch_mean(dropped, dist)
     if shared is not None:
         sg, su, sd = shared
         y = y + glu_mlp(x, sg, su, sd, act=cfg.act)

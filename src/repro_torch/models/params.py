@@ -269,5 +269,13 @@ def params_from_numpy(tree: Dict, device=None) -> Dict:
     return out
 
 
+def param_specs(cfg: ModelConfig) -> Dict:
+    """The parameter tree as ``meta`` tensors of each leaf's shape and
+    dtype (the JAX package's ShapeDtypeStructs): nothing is allocated."""
+    def mk(name, shape, dtype, scale):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return param_tree(cfg, mk)
+
+
 def count_params(tree: Dict) -> int:
     return sum(int(v.numel()) for v in tree.values())

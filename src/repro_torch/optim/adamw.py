@@ -17,7 +17,7 @@ tensors.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -112,12 +112,16 @@ def _decay_mask(params: Dict) -> Dict:
 @torch.no_grad()
 def adamw_update(params: Dict, grads: Dict, state: AdamWState,
                  cfg: TrainConfig, *, b1: float = 0.9, b2: float = 0.95,
-                 eps: float = 1e-8) -> Tuple[Dict, AdamWState, Dict]:
+                 eps: float = 1e-8, gnorm: Optional[torch.Tensor] = None
+                 ) -> Tuple[Dict, AdamWState, Dict]:
     """One AdamW step on the gradients clipped to global norm 1.  Returns
     (params, the state at step + 1, {"grad_norm", "lr"}); the parameters
     and moments are updated in place and returned, so a caller that
-    keeps the old values passes copies."""
-    gnorm = _global_norm(grads)
+    keeps the old values passes copies.  ``gnorm``: the global norm when
+    the caller has it (the data-axis route, whose ``grads`` are shards),
+    else ``_global_norm(grads)``."""
+    if gnorm is None:
+        gnorm = _global_norm(grads)
     scale = _clip_scale(gnorm, 1.0)
     step = state.step + 1
     lr = cosine_schedule(cfg, step)

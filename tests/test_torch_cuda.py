@@ -1285,3 +1285,94 @@ def test_cuda_synthetic_lm_is_the_cpu_stream(cuda):
         assert b["tokens"].device.type == "cuda"
         for k in a:
             assert torch.equal(a[k], b[k].cpu())
+
+
+def _loop_state(params, dev):
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.loop import TrainState
+    p = {k: v.detach().clone().to(dev) for k, v in params.items()}
+    return TrainState(p, adamw_init(p, dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["tp", "fsdp", "dp_only"])
+def test_cuda_one_rank_route_equals_no_mesh(cuda, tmp_path, mode):
+    """h2o-danube3-4b SMOKE on a one-rank NCCL mesh, without compression
+    and with int8 over 2 microbatches: 3 steps == 3 steps with
+    ``mesh=None``, bitwise (parameters, both moments, metrics), under
+    deterministic algorithms."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.lm import SyntheticLM
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.train.loop import init_state, make_train_step
+    cfg = get_config("h2o-danube3-4b", smoke=True)
+    data = SyntheticLM(cfg.vocab_size, 128, 4, seed=0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mesh = make_train_mesh((1, 1), device=cuda)
+        for mb, comp in ((0, "none"), (2, "int8")):
+            tcfg = TrainConfig(microbatch=mb, grad_compression=comp,
+                               sharding_mode=mode, warmup_steps=2)
+            runs = []
+            for m in (None, mesh):
+                st = init_state(cfg, tcfg, m, device=cuda)
+                step = make_train_step(cfg, tcfg, m)
+                mets = []
+                for s in range(3):
+                    st, met = step(st, data.batch(s, device=cuda))
+                    mets.append(met)
+                runs.append((st, mets))
+            (a, am), (b, bm) = runs
+            assert torch.equal(a.opt.step, b.opt.step)
+            for n in a.params:
+                assert torch.equal(a.params[n], b.params[n]), n
+                assert torch.equal(a.opt.m[n], b.opt.m[n]), n
+                assert torch.equal(a.opt.v[n], b.opt.v[n]), n
+            for x, y in zip(am, bm):
+                assert all(torch.equal(x[k], y[k]) for k in x)
+    finally:
+        torch.use_deterministic_algorithms(was)
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["h2o-danube3-4b", "deepseek-moe-16b",
+                                  "zamba2-2.7b"])
+def test_cuda_train_step_matches_cpu(cuda, arch):
+    """``make_train_step`` at SMOKE in float32 with 2 microbatches, and
+    with int8: the gradients AdamW receives on the card within 1e-4 of
+    each leaf's largest of the CPU's (plus one quantization step of the
+    row's scale under int8), the loss and grad_norm within 1e-5;
+    ``quantize_int8`` on the card == the CPU's, bitwise."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data.lm import SyntheticLM
+    from repro_torch.distributed.compression import quantize_int8
+    from repro_torch.train.loop import make_train_step
+    cfg, params, _ = _train_case(arch)
+    batch = SyntheticLM(cfg.vocab_size, 64, 4, seed=0).batch(0,
+                                                            device="cpu")
+    for comp in ("none", "int8"):
+        step = make_train_step(cfg, TrainConfig(microbatch=2,
+                                                grad_compression=comp))
+        _, want = step.gradients(_loop_state(params, "cpu"), batch)
+        _, got = step.gradients(_loop_state(params, cuda), batch)
+        for k, g in want.items():
+            allow = 1e-4 * g.abs().max().clamp_min(1e-30)
+            if comp == "int8":
+                allow = allow + quantize_int8(g)[1]
+            assert bool(((got[k].cpu() - g).abs() <= allow).all()), k
+        _, mc = step(_loop_state(params, "cpu"), batch)
+        _, md = step(_loop_state(params, cuda), batch)
+        for k in ("loss", "grad_norm"):
+            assert abs(md[k].item() - mc[k].item()) <= 1e-5 * max(
+                1.0, abs(mc[k].item())), k
+        if comp == "int8":
+            g = want["embed"]
+            qc, sc = quantize_int8(g)
+            qd, sd = quantize_int8(g.to(cuda))
+            assert torch.equal(qd.cpu(), qc) and torch.equal(sd.cpu(), sc)

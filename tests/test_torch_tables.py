@@ -140,7 +140,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.moe", "repro_torch.launch.serve",
             "repro_torch.models.rwkv", "repro_torch.models.ssm",
             "repro_torch.models.dist", "repro_torch.data.lm",
-            "repro_torch.optim", "repro_torch.optim.adamw"} <= set(mods)
+            "repro_torch.optim", "repro_torch.optim.adamw",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+            "repro_torch.distributed.fault",
+            "repro_torch.distributed.compression", "repro_torch.train",
+            "repro_torch.train.loop", "repro_torch.launch.train"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'"
@@ -178,10 +182,14 @@ def test_port_sources_import_no_jax_or_reference():
             port / "distributed" / "shardings.py", port / "models" / "moe.py",
             port / "launch" / "serve.py", port / "models" / "rwkv.py",
             port / "models" / "ssm.py", port / "models" / "dist.py",
-            port / "data" / "lm.py", port / "optim" / "adamw.py"} <= set(files)
+            port / "data" / "lm.py", port / "optim" / "adamw.py",
+            port / "checkpoint" / "ckpt.py", port / "distributed" / "fault.py",
+            port / "distributed" / "compression.py",
+            port / "train" / "loop.py",
+            port / "launch" / "train.py"} <= set(files)
     files.append(ROOT / "chip_smoke.py")
     examples = sorted((ROOT / "examples").glob("torch_*.py"))
-    assert len(examples) == 3
+    assert len(examples) == 4
     files += examples
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)\b(?!_torch)", re.M)
     for f in files:

@@ -10,6 +10,7 @@ train_loss, remat=False))``.  Bars: the loss within 1e-5 x max(1,
 loss within 2e-2, the serving bar.
 """
 import functools
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -249,11 +250,11 @@ def test_make_batch_draws_the_specs():
 def test_one_device_context():
     """``LOCAL`` and ``DistContext()`` are one device (tp = dp = 1, no
     expert parallelism) and leave the loss as ``dist=None`` does; a mesh
-    raises and names A6b."""
+    with a model axis above 1 raises and names A6d."""
     assert LOCAL.mesh is None and LOCAL.tp == 1 and LOCAL.dp == 1
     assert not DistContext(auto_moe=True).manual_moe
-    with pytest.raises(NotImplementedError, match="A6b"):
-        DistContext(mesh=object())
+    with pytest.raises(NotImplementedError, match="A6d"):
+        DistContext(mesh=SimpleNamespace(shape={"data": 1, "model": 2}))
     _, cfg, _, npp = pair("deepseek-moe-16b")
     b = {k: torch.from_numpy(v) for k, v in batch(cfg, seed=6).items()}
     params = port_params(npp)
