@@ -265,6 +265,22 @@ is non-zero:
    rounding floor) of each leaf's largest, plus one quantization step
    under int8), ``quantize_int8`` bitwise; the phase launches none of
    the kernels;
+3n. the model axis in training, after 3m: (a) h2o-danube3-4b at full
+   width and 2 of 24 layers on a one-rank NCCL group under tp and fsdp,
+   without compression and with int8 over 2 microbatches: 3 steps ==
+   ``mesh=None`` bitwise under deterministic algorithms, ms a step and
+   peak memory; (b) a probe of whether two processes on the one card
+   carry the route's collectives over gloo (NCCL refuses two ranks on
+   one device): each collective on CUDA tensors, in order, the first
+   that fails printed with its error on its own line, and then (b) runs
+   no further; where all carry, h2o-danube3-4b and deepseek-moe-16b at
+   full width, 2 layers, float32, on a (1, 2) tp mesh of the two
+   processes against the one-rank step on the card (rank 0, before):
+   the first step's gradients within 1e-5 of each leaf's largest, 3
+   steps' losses and grad norms within 1e-5 relative, the leaves
+   replicated over the model axis bitwise equal on both ranks, ms a step
+   and each rank's peak; a failure inside the route fails the run; the
+   phase launches none of the kernels;
 4. a ``kernels`` JSON line with each kernel's launches on its path (B1-B5
    on the fleet path of phases 3 and 3b, B10 and B11 on the rate-control
    loop, B6-B9 on phase 3d's paths, B12 on the engine's tensors in 3f),
@@ -4247,47 +4263,57 @@ def loop_full(torch, dev, smi):
     return out
 
 
-def loop_route(torch, dev, cfg):
-    """(b) the data-axis route on a one-rank NCCL group: for tp, fsdp and
-    dp_only, without compression (microbatch 0) and with int8
-    (microbatch 2), LOOP_STEPS steps on the mesh == LOOP_STEPS with
-    ``mesh=None``, bitwise (the parameters, both moments, the metrics),
-    under deterministic algorithms."""
+def loop_route(torch, dev, cfg, modes=("tp", "fsdp", "dp_only"),
+               tag="[3m] (b)"):
+    """(b) the route on a one-rank NCCL group: for each of ``modes``,
+    without compression (microbatch 0) and with int8 (microbatch 2),
+    LOOP_STEPS steps on the mesh == LOOP_STEPS with ``mesh=None``,
+    bitwise (the parameters, both moments, the metrics), under
+    deterministic algorithms; the mesh's median ms a step and peak."""
     from repro_torch.configs import TrainConfig
     from repro_torch.data.lm import SyntheticLM
     from repro_torch.launch.mesh import make_train_mesh
     from repro_torch.train.loop import init_state, make_train_step
 
     data = SyntheticLM(cfg.vocab_size, 4096, TRAIN_BATCH, seed=SEED)
+    smi = " | ".join(nvidia_smi())
     results = {}
     with one_rank_group(torch, "nccl"), deterministic(torch):
         mesh = make_train_mesh((1, 1), device=dev)
-        for mode in ("tp", "fsdp", "dp_only"):
+        for mode in modes:
             for mb, comp in ((0, "none"), (2, "int8")):
                 tcfg = TrainConfig(microbatch=mb, grad_compression=comp,
                                    sharding_mode=mode, seed=SEED)
                 runs = []
                 for m in (None, mesh):
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
                     state = init_state(cfg, tcfg, m, device=dev)
                     step = make_train_step(cfg, tcfg, m)
-                    mets = []
+                    mets, ms = [], []
                     for s in range(LOOP_STEPS):
-                        state, met = step(state, data.batch(s, device=dev))
+                        batch = data.batch(s, device=dev)
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        state, met = step(state, batch)
+                        torch.cuda.synchronize()
+                        ms.append((time.perf_counter() - t0) * 1e3)
                         mets.append(met)
-                    runs.append((state, mets))
-                (want, wm), (got, gm) = runs
+                    runs.append((state, mets, statistics.median(ms),
+                                 torch.cuda.max_memory_allocated() / 2 ** 30))
+                (want, wm, _, _), (got, gm, ms, peak) = runs
                 same = state_equal(torch, got, want) and all(
                     torch.equal(g[k], w[k]) for g, w in zip(gm, wm)
                     for k in w)
-                say(f"[3m] (b) {mode}, microbatch {mb}, {comp}: "
+                say(f"{tag} {mode}, microbatch {mb}, {comp}: "
                     f"{LOOP_STEPS} steps on the one-rank NCCL mesh == "
                     f"mesh=None bitwise: {same} (losses "
-                    f"{[round(float(x['loss']), 6) for x in gm]})")
+                    f"{[round(float(x['loss']), 6) for x in gm]}); median "
+                    f"{ms:.1f} ms a step, peak {peak:.2f} GiB ({smi})")
                 assert same, (mode, comp)
-                results[(mode, comp)] = same
+                results[(mode, comp)] = (ms, peak)
                 del runs, want, got
-    say("[3m] (b) no route over more than one rank runs here: this "
-        "machine has one card")
     return results
 
 
@@ -4478,6 +4504,8 @@ def loop_phase(torch, dev):
     say(f"[3m] (b), (c): {cfg.name} at full width, {LOOP_LAYERS} of 24 "
         f"layers: {cfg.param_count() / 1e9:.3f} B parameters")
     loop_route(torch, dev, cfg)
+    say("[3m] (b) no route over more than one rank runs here: this "
+        "machine has one card and NCCL takes one rank a card (3n (b))")
     tb = time.perf_counter() - t0 - ta
     loop_drill(torch, dev, cfg)
     tc = time.perf_counter() - t0 - ta - tb
@@ -4487,6 +4515,227 @@ def loop_phase(torch, dev):
     say(f"[3m] (a) {ta:.1f} s, (b) {tb:.1f} s, (c) {tc:.1f} s, (d) "
         f"{time.perf_counter() - t0 - ta - tb - tc:.1f} s ({smi})")
     return full
+
+
+# ---------------------------------------------------------------------------
+# phase 3n: the model axis in training
+# ---------------------------------------------------------------------------
+
+TP_ARCHS = ["h2o-danube3-4b", "deepseek-moe-16b"]
+TP_LAYERS = 2                  # of 24 (h2o-danube3-4b) and 28 (deepseek-moe)
+TP_BATCH, TP_SEQ = 2, 256      # (b)'s global batch
+TP_TIMEOUT = 600               # s, (b)'s two processes
+
+
+def _tp_probe(torch, dist, dev, rank, world):
+    """Each collective the route runs, on CUDA tensors over the gloo
+    group, in order, its result checked: [(name, "ok" or the error)],
+    stopping at the first that fails."""
+    mine = torch.arange(8, dtype=torch.float32, device=dev) + 10 * rank
+    every = [torch.arange(8, dtype=torch.float32) + 10 * r
+             for r in range(world)]
+
+    def all_reduce(op, want):
+        t = mine.clone()
+        dist.all_reduce(t, op=op)
+        return torch.equal(t.cpu(), want)
+
+    def gather():
+        out = torch.empty(8 * world, device=dev)
+        dist.all_gather_into_tensor(out, mine)
+        return torch.equal(out.cpu(), torch.cat(every))
+
+    def scatter():
+        out = torch.empty(8 // world, device=dev)
+        dist.reduce_scatter_tensor(out, mine)
+        n = 8 // world
+        return torch.equal(out.cpu(), sum(every)[rank * n:(rank + 1) * n])
+
+    def int32_max():
+        t = mine.to(torch.int32)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return torch.equal(t.cpu(), every[-1].to(torch.int32))
+
+    probes = [("all_reduce(SUM)",
+               lambda: all_reduce(dist.ReduceOp.SUM, sum(every))),
+              ("all_reduce(MAX)",
+               lambda: all_reduce(dist.ReduceOp.MAX, every[-1])),
+              ("all_gather_into_tensor", gather),
+              ("reduce_scatter_tensor", scatter),
+              ("all_reduce(MAX) on int32", int32_max)]
+    rows = []
+    for name, fn in probes:
+        try:
+            ok = fn()
+            torch.cuda.synchronize()
+            rows.append((name, "ok" if ok else "wrong result"))
+        except Exception as e:              # the probe's answer
+            rows.append((name, f"{type(e).__name__}: "
+                               f"{str(e).splitlines()[0][:300]}"))
+        if rows[-1][1] != "ok":
+            break
+    return rows
+
+
+def _tp_route(torch, dist, dev, rank, arch):
+    """One arch at full width, TP_LAYERS layers, float32: rank 0's
+    one-rank step on the card first (the first step's gradients and
+    LOOP_STEPS steps' metrics), then both ranks on a (1, 2) tp mesh."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.lm import SyntheticLM
+    from repro_torch.distributed.shardings import named
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.train.loop import (init_state, make_train_step,
+                                        state_pspecs)
+    cfg = get_config(arch).replace(num_layers=TP_LAYERS, dtype="float32")
+    tcfg = TrainConfig(sharding_mode="tp", seed=SEED)
+    data = SyntheticLM(cfg.vocab_size, TP_SEQ, TP_BATCH, seed=SEED)
+
+    def run(mesh):
+        torch.cuda.reset_peak_memory_stats()
+        state = init_state(cfg, tcfg, mesh, device=dev)
+        step = make_train_step(cfg, tcfg, mesh)
+        _, g = step.gradients(state, data.batch(0, device=dev))
+        if mesh is not None:
+            pl = named(mesh, state_pspecs(cfg, tcfg, False, mesh))
+            g = {n: pl.opt.m[n].gather(v) for n, v in g.items()}
+        g = {n: v.cpu() for n, v in g.items()}
+        mets, ms = [], []
+        for s in range(LOOP_STEPS):
+            batch = data.batch(s, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            mets.append({k: float(v) for k, v in m.items()})
+        same = True
+        if mesh is not None:     # replicated leaves: max == min bitwise
+            for n, p in state.params.items():
+                if pl.params[n].model is not None:
+                    continue
+                bits = p.contiguous().view(torch.int32)
+                hi, lo = bits.clone(), bits.clone()
+                dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+                dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+                same = same and torch.equal(hi, lo)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return g, mets, statistics.median(ms), peak, same
+
+    ref = run(None) if rank == 0 else None
+    dist.barrier()
+    got = run(make_train_mesh((1, 2), device=dev))
+    if rank != 0:
+        return None
+    (wg, wm, wms, wpeak, _), (gg, gm, gms, gpeak, same) = ref, got
+    share = max(float((gg[n] - w).abs().max())
+                / max(float(w.abs().max()), 1e-30) for n, w in wg.items())
+    dl = max(abs(g["loss"] - w["loss"]) / abs(w["loss"])
+             for g, w in zip(gm, wm))
+    dn = max(abs(g["grad_norm"] - w["grad_norm"]) / abs(w["grad_norm"])
+             for g, w in zip(gm, wm))
+    return {"arch": arch, "params_b": cfg.param_count() / 1e9,
+            "grad_share": share, "loss_rel": dl, "gnorm_rel": dn,
+            "losses": [m["loss"] for m in gm], "replicated_equal": same,
+            "ms_one_rank": wms, "ms_tp2": gms, "peak_one_rank": wpeak,
+            "peak_tp2_rank0": gpeak}
+
+
+def tp_rank_main(rank: int, out_dir: str) -> int:
+    """One of (b)'s two processes: the probe, then, where every
+    collective carries, the route for TP_ARCHS; rank 0 writes
+    ``result.json`` in ``out_dir``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/pg",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    res = {"probe": _tp_probe(torch, dist, dev, rank, 2), "routes": []}
+    try:
+        if all(r[1] == "ok" for r in res["probe"]):
+            with deterministic(torch):
+                for arch in TP_ARCHS:
+                    res["routes"].append(_tp_route(torch, dist, dev, rank,
+                                                   arch))
+    finally:
+        if rank == 0:
+            Path(out_dir, "result.json").write_text(json.dumps(res))
+        dist.destroy_process_group()
+    return 0
+
+
+def tp_two_ranks(torch, smi):
+    """(b): two processes on the card (``tp_rank_main``), waited on with
+    TP_TIMEOUT and killed past it."""
+    import tempfile
+    BUILD.mkdir(parents=True, exist_ok=True)
+    d = tempfile.mkdtemp(dir=BUILD, prefix="tp2_")
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--tp-rank", str(r), d]) for r in (0, 1)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, TP_TIMEOUT - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = json.loads(Path(d, "result.json").read_text())
+    for name, verdict in res["probe"]:
+        say(f"[3n] (b) probe: {name} over gloo on CUDA tensors, two "
+            f"processes on one card: {verdict}")
+    failed = [r for r in res["probe"] if r[1] != "ok"]
+    if failed:
+        say(f"[3n] (b) two ranks cannot run the route on this card: "
+            f"{failed[0][0]} failed ({failed[0][1]}); (b) runs no further")
+        assert all(p.returncode == 0 for p in procs)
+        return res
+    assert all(p.returncode == 0 for p in procs), \
+        [p.returncode for p in procs]
+    for r in res["routes"]:
+        say(f"[3n] (b) {r['arch']} full width, {TP_LAYERS} layers "
+            f"({r['params_b']:.3f} B parameters), float32, batch "
+            f"{TP_BATCH} x {TP_SEQ}: tp=2 on two processes against the "
+            f"one-rank step: first-step gradients at {r['grad_share']:.3g} "
+            f"of each leaf's largest (bar 1e-5), losses {r['loss_rel']:.3g}"
+            f", grad norms {r['gnorm_rel']:.3g} relative (bar 1e-5), "
+            f"replicated leaves bitwise equal on both ranks: "
+            f"{r['replicated_equal']}; median {r['ms_tp2']:.1f} ms a step "
+            f"(one rank {r['ms_one_rank']:.1f} ms), peak rank 0 "
+            f"{r['peak_tp2_rank0']:.2f} GiB (one rank "
+            f"{r['peak_one_rank']:.2f} GiB) ({smi})")
+        assert r["grad_share"] <= 1e-5 and r["loss_rel"] <= 1e-5 \
+            and r["gnorm_rel"] <= 1e-5 and r["replicated_equal"], r
+    return res
+
+
+def tp_phase(torch, dev):
+    """Phase 3n: (a) ``loop_route`` under tp and fsdp, (b)
+    ``tp_two_ranks``."""
+    from repro_torch.configs import get_config
+    smi = " | ".join(nvidia_smi())
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=LOOP_LAYERS)
+    say(f"[3n] (a) {cfg.name} at full width, {LOOP_LAYERS} of 24 layers: "
+        f"{cfg.param_count() / 1e9:.3f} B parameters")
+    loop_route(torch, dev, cfg, modes=("tp", "fsdp"), tag="[3n] (a)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ta = time.perf_counter() - t0
+    tp_two_ranks(torch, smi)
+    say(f"[3n] (a) {ta:.1f} s, (b) {time.perf_counter() - t0 - ta:.1f} s "
+        f"({smi})")
 
 
 def run_path(torch, fn, *args):
@@ -4655,6 +4904,16 @@ def main() -> int:
         f"kernels lies on this path); peak memory {peak:.2f} GiB; "
         f"{time.perf_counter() - t0:.1f} s")
     assert launches["train_loop"] == {} and disp == {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, launches["train_tp"], disp, peak = run_path(torch, tp_phase, torch,
+                                                   dev)
+    say(f"[main] phase 3n, the model axis in training: kernel launches "
+        f"{launches['train_tp']}, dispatches {disp} (none of the twelve "
+        f"kernels lies on this path); peak memory {peak:.2f} GiB; "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert launches["train_tp"] == {} and disp == {}
 
     rows = []
     for kname, (source, replaces) in KERNELS.items():
@@ -4675,4 +4934,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--tp-rank":
+        sys.exit(tp_rank_main(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -18,11 +18,12 @@ The rules are plain logic over names and shapes, with the JAX package's
 divisibility checks and its production axis sizes (pod 2, data 16,
 model 16) when no mesh is given; ``P`` is the port's partition spec,
 entry for entry a JAX ``PartitionSpec``.  ``named`` turns a spec into a
-``Placement`` on a ``TrainMesh``: which dim is split over which batch
-axes, with the collectives that cut a full tensor into this rank's
-shard, reduce a gradient into it and gather it back.  A split over a
-model axis above 1 is tensor parallelism, which comes with A6d
-(ROADMAP.md): placements raise on it.
+``Placement`` on a ``TrainMesh``: the dim split over the model axis
+(tensor or expert parallelism) and the dim split over batch axes (FSDP,
+ZeRO-1), each optional, with the collectives that cut a full tensor
+into this rank's shard, reduce a gradient into it and gather it back --
+over both splits, or over the batch axes alone (the model shard, which
+the model code runs on).
 
 **Fleet.**  Every piece of sharded fleet state is stacked as ``(S, ...)``
 with one padded shape for all shards.  Shards that share a device share
@@ -42,10 +43,6 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.launch.mesh import FleetMesh, TrainMesh
-
-A6D = ("tensor and expert parallelism over the model axis come with A6d "
-       "in ROADMAP.md")
-
 
 class P(tuple):
     """A partition spec: one entry per dim, ``None`` (not split), an axis
@@ -196,7 +193,7 @@ def cache_pspecs(cache, mesh, multi_pod: bool = False,
     kv (L, B, S, KH, Dh): B over data when divisible (else S takes data:
     sequence parallelism at batch 1); KH over model when divisible, else S
     over model.  The port computes these placements but runs none of
-    them until A6d."""
+    them until A6e (serving over a model axis, ROADMAP.md)."""
     b = ("pod", "data") if multi_pod else ("data",)
     dp = _axis_size(mesh, b)
     tp = _axis_size(mesh, "model")
@@ -238,7 +235,8 @@ def cache_pspecs(cache, mesh, multi_pod: bool = False,
 def make_dist(mesh: Optional[TrainMesh], auto_moe: bool = False,
               dp_only: bool = False):
     """The model code's ``DistContext`` on ``mesh`` (one device without
-    one).  A model axis above 1 outside ``dp_only`` raises (A6d)."""
+    one): the batch axes, and the model axis -- joined to the batch axes
+    under ``dp_only``."""
     from repro_torch.models.dist import DistContext
     if mesh is None:
         return DistContext(mesh=None)
@@ -256,40 +254,77 @@ def _lead(t: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 class Placement:
-    """One leaf's placement on a training mesh: ``dim`` (or None) split
-    over ``axes`` into ``parts`` shards, this rank holding shard
-    ``index``, every other dim whole.  Spec entries over axes of one rank
-    split nothing."""
+    """One leaf's placement on a training mesh: at most one dim split over
+    the model axis (``model``: (dim, axes)) and at most one over batch
+    axes (``batch``: (dim, axes)), every other dim whole.  Spec entries
+    over axes of one rank split nothing; an entry of the model axis alone
+    is the model split, any other the batch split (``dp_only``'s
+    ("data", "model") included)."""
 
     def __init__(self, mesh: TrainMesh, spec: P):
         self.mesh, self.spec = mesh, P(*spec)
-        split = []
+        self.model = self.batch = None
         for d, entry in enumerate(self.spec):
             if entry is None:
                 continue
             axes = (entry,) if isinstance(entry, str) else tuple(entry)
-            if mesh.size(axes) > 1:
-                split.append((d, axes))
-        live = {a for a, n in mesh.shape.items() if n > 1}
-        if len(split) > 1 or (split and "model" in live
-                              and "model" in split[0][1]
-                              and not live <= set(split[0][1])):
-            raise NotImplementedError(
-                f"placement {self.spec} on {mesh.shape}: {A6D}")
-        self.dim, self.axes = split[0] if split else (None, ())
-        self.parts = mesh.size(self.axes)
-        self.index = mesh.index(self.axes)
+            if mesh.size(axes) == 1:
+                continue
+            kind = "model" if axes == ("model",) else "batch"
+            if getattr(self, kind) is not None:
+                raise ValueError(f"placement {self.spec} on {mesh.shape}: "
+                                 f"two dims split over {kind} axes")
+            setattr(self, kind, (d, axes))
 
     @property
     def split(self) -> bool:
-        return self.dim is not None
+        return self.model is not None or self.batch is not None
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        """Every axis the leaf is split over."""
+        return sum((s[1] for s in (self.model, self.batch) if s), ())
+
+    def row_axes(self, ndim: int):
+        """The axes that split the last of ``ndim`` dims (each rank then
+        holds part of every row), or None."""
+        for s in (self.model, self.batch):
+            if s is not None and s[0] == ndim - 1:
+                return s[1]
+        return None
+
+    def local_shape(self, shape) -> Tuple[int, ...]:
+        shape = list(shape)
+        for s in (self.model, self.batch):
+            if s is not None:
+                shape[s[0]] //= self.mesh.size(s[1])
+        return tuple(shape)
 
     def __eq__(self, other) -> bool:
         return isinstance(other, Placement) and other.mesh is self.mesh \
-            and (other.dim, other.axes) == (self.dim, self.axes)
+            and (other.model, other.batch) == (self.model, self.batch)
 
     def __repr__(self) -> str:
-        return f"Placement({self.spec}, dim={self.dim}, parts={self.parts})"
+        return (f"Placement({self.spec}, model={self.model}, "
+                f"batch={self.batch})")
+
+    def _narrow(self, t: torch.Tensor, which) -> torch.Tensor:
+        if which is None:
+            return t
+        d, axes = which
+        n = t.shape[d] // self.mesh.size(axes)
+        return t.narrow(d, self.mesh.index(axes) * n, n)
+
+    def _gather(self, t: torch.Tensor, which) -> torch.Tensor:
+        if which is None:
+            return t
+        d, axes = which
+        src = _lead(t, d)
+        out = torch.empty((src.shape[0] * self.mesh.size(axes),)
+                          + src.shape[1:], dtype=src.dtype,
+                          device=src.device)
+        dist.all_gather_into_tensor(out, src, group=self.mesh.group(axes))
+        return out.movedim(0, d).contiguous()
 
     @torch.no_grad()
     def shard(self, full: torch.Tensor) -> torch.Tensor:
@@ -297,39 +332,49 @@ class Placement:
         tensor itself where nothing is split)."""
         if not self.split:
             return full
-        n = full.shape[self.dim] // self.parts
-        return full.narrow(self.dim, self.index * n, n).clone(
+        return self._narrow(self._narrow(full, self.model), self.batch) \
+            .clone(memory_format=torch.contiguous_format)
+
+    @torch.no_grad()
+    def shard_batch(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of a model shard (its batch split cut), a
+        fresh tensor (``t`` itself without a batch split)."""
+        if self.batch is None:
+            return t
+        return self._narrow(t, self.batch).clone(
             memory_format=torch.contiguous_format)
 
     @torch.no_grad()
     def gather(self, shard: torch.Tensor) -> torch.Tensor:
-        """The full tensor from every rank's shard (an all-gather; the
-        shard itself where nothing is split)."""
-        if not self.split:
-            return shard
-        src = _lead(shard, self.dim)
-        out = torch.empty((src.shape[0] * self.parts,) + src.shape[1:],
-                          dtype=src.dtype, device=src.device)
-        dist.all_gather_into_tensor(out, src,
-                                    group=self.mesh.group(self.axes))
-        return out.movedim(0, self.dim).contiguous()
+        """The full tensor from every rank's shard (all-gathers over the
+        batch split, then the model split; the shard itself where nothing
+        is split)."""
+        return self._gather(self._gather(shard, self.batch), self.model)
+
+    @torch.no_grad()
+    def gather_batch(self, shard: torch.Tensor) -> torch.Tensor:
+        """The model shard from every batch rank's shard (an all-gather
+        over the batch split alone)."""
+        return self._gather(shard, self.batch)
 
     @torch.no_grad()
     def reduce_mean(self, g: torch.Tensor, batch_axes) -> torch.Tensor:
-        """This rank's shard of the mean of ``g`` over the ranks of
-        ``batch_axes``: a reduce-scatter where the split runs over exactly
-        those ranks, else an all-reduce and then the shard."""
+        """This rank's shard of the mean of the model-shard gradient ``g``
+        over the ranks of ``batch_axes``: a reduce-scatter where the batch
+        split runs over exactly those ranks, else an all-reduce and then
+        the batch shard."""
         n = self.mesh.size(batch_axes)
         group = self.mesh.group(batch_axes)
-        if self.split and self.parts == n:
-            src = _lead(g, self.dim)
+        if self.batch is not None and self.mesh.size(self.batch[1]) == n:
+            d = self.batch[0]
+            src = _lead(g, d)
             out = torch.empty((src.shape[0] // n,) + src.shape[1:],
                               dtype=src.dtype, device=src.device)
             dist.reduce_scatter_tensor(out, src, group=group)
-            return out.div_(n).movedim(0, self.dim).contiguous()
+            return out.div_(n).movedim(0, d).contiguous()
         out = g.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, group=group)
-        return self.shard(out.div_(n))
+        return self.shard_batch(out.div_(n))
 
 
 def named(mesh: TrainMesh, spec_tree):

@@ -12,7 +12,8 @@ A ``TrainMesh`` lays the ranks of the initialized ``torch.distributed``
 process group row-major over the JAX package's axes, ``("data",
 "model")`` or ``("pod", "data", "model")``, one device a rank: the card
 of the rank's local index under NCCL, the CPU under gloo.  It gives the
-process group of a set of axes and this rank's coordinate.  The
+process group of any set of axes -- the model group, the batch axes'
+group beside a live model axis -- and this rank's coordinate.  The
 production and debug meshes of the JAX package's ``launch/mesh.py`` are
 not ported yet (A6c in ROADMAP.md).
 """
@@ -87,13 +88,13 @@ TRAIN_AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
 class TrainMesh:
     """The ranks of the process group laid row-major over ``axes``, with
     ``shape[axis]`` ranks along each (``shape`` is a dict, as a JAX
-    mesh's).  ``device`` is this rank's device; ``device_mesh`` the
-    ``torch.distributed`` DeviceMesh over the same layout."""
+    mesh's).  ``device`` is this rank's device.  The process group of
+    every set of axes is made when the mesh is: ``new_group`` is
+    collective, so every rank makes every group, in one order."""
 
     def __init__(self, shape: Sequence[int], axes: Sequence[str],
                  device: torch.device):
         import torch.distributed as dist
-        from torch.distributed.device_mesh import init_device_mesh
         if not dist.is_initialized():
             raise RuntimeError("a training mesh needs an initialized "
                                "torch.distributed process group")
@@ -106,13 +107,30 @@ class TrainMesh:
         self.shape: Dict[str, int] = dict(zip(axes, shape))
         self.device = _pin_index(torch.device(device))
         self.rank = dist.get_rank()
-        self.device_mesh = init_device_mesh(self.device.type, shape,
-                                            mesh_dim_names=axes)
-        coords, r = [], self.rank
-        for n in reversed(shape):
-            coords.append(r % n)
-            r //= n
-        self.coords: Dict[str, int] = dict(zip(axes, reversed(coords)))
+        self.coords: Dict[str, int] = self._coords(self.rank)
+        # a group for each proper subset of the live axes (the empty one
+        # included: each rank alone); the whole live set is the world
+        live = [a for a in axes if self.shape[a] > 1]
+        self._groups: Dict[tuple, object] = {}
+        for bits in range(2 ** len(live) - 1):
+            sub = tuple(a for i, a in enumerate(live) if bits >> i & 1)
+            members: Dict[tuple, List[int]] = {}
+            for r in range(math.prod(shape)):
+                c = self._coords(r)
+                members.setdefault(tuple(c[a] for a in live
+                                         if a not in sub), []).append(r)
+            mine = tuple(self.coords[a] for a in live if a not in sub)
+            for key, ranks in members.items():
+                g = dist.new_group(ranks)
+                if key == mine:
+                    self._groups[sub] = g
+
+    def _coords(self, rank: int) -> Dict[str, int]:
+        coords = []
+        for n in reversed(tuple(self.shape.values())):
+            coords.append(rank % n)
+            rank //= n
+        return dict(zip(self.axis_names, reversed(coords)))
 
     def size(self, axes) -> int:
         """The number of ranks along ``axes`` (a name or a tuple; names
@@ -131,24 +149,16 @@ class TrainMesh:
 
     def group(self, axes):
         """The process group of the ranks that share this rank's
-        coordinates off ``axes``; its ranks are ordered as ``index``
-        orders them.  Groups over several axes that leave out a
-        non-trivial axis belong to tensor parallelism (A6d)."""
+        coordinates off ``axes`` (``"model"``: the model group; the batch
+        axes: the ranks of this rank's model coordinate); its ranks are
+        ordered as ``index`` orders them."""
         import torch.distributed as dist
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        live = [a for a in self.axis_names if a in axes
-                and self.shape[a] > 1]
-        rest = [a for a in self.axis_names if a not in axes
-                and self.shape[a] > 1]
-        if not rest:
-            return dist.group.WORLD
-        if len(live) <= 1:
-            return self.device_mesh.get_group(live[0] if live else
-                                              next(a for a in axes
-                                                   if a in self.shape))
-        raise NotImplementedError(
-            f"a group over {axes} beside the model axis {self.shape}: "
-            f"tensor and expert parallelism come with A6d in ROADMAP.md")
+        live = tuple(a for a in self.axis_names if a in axes
+                     and self.shape[a] > 1)
+        if live in self._groups:
+            return self._groups[live]
+        return dist.group.WORLD
 
     def __repr__(self) -> str:
         return f"TrainMesh({self.shape}, {self.device})"

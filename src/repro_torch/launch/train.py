@@ -7,11 +7,10 @@
 The flags are the JAX launcher's (``repro.launch.train``), plus
 ``--device``: the card unless it names another device.  ``--smoke`` uses
 the reduced config; ``--fail-at`` injects a fault to drill the restore
-path.  ``--mesh d,m`` runs the data-axis route on a training mesh of
-``d x m`` ranks (``m`` is 1: a model axis above 1 comes with A6d in
-ROADMAP.md).  Over more than one rank, start one process a rank under
-``torchrun``, which sets the rendezvous (NCCL on the cards, gloo with
-``--device cpu``):
+path.  ``--mesh d,m`` runs on a training mesh of ``d x m`` ranks: the
+batch over ``d``, tensor and expert parallelism over ``m``.  Over more
+than one rank, start one process a rank under ``torchrun``, which sets
+the rendezvous (NCCL on the cards, gloo with ``--device cpu``):
 
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
       --smoke --mesh 2,1 --device cpu

@@ -5,6 +5,13 @@ Mamba2 hybrid trunk, and whisper's encoder and decoder trunks with the
 decoder's cross-attention K/V (``encdec``); and the chunked
 cross-entropy of the training loss.
 
+Over a model axis above 1 (``dist``, training only) each rank runs its
+model shard: query heads and KV heads of column-split ``wq``/``wk``/
+``wv`` (K and V gathered whole where the split cuts KV heads) and the
+row-split ``wo``, the MLPs' column and row halves, its vocabulary slice
+of the embedding and the cross-entropy, its experts, and RWKV6's heads;
+the collectives are ``distributed.tensor_parallel``'s.
+
 Modes: ``train`` (the whole sequence, no caches; with ``remat`` each
 block the JAX package wraps in ``jax.checkpoint`` is recomputed in the
 backward pass, and ``causal_skip`` reaches ``blockwise_attention``),
@@ -32,6 +39,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.tensor_parallel import (copy_to, gather_last,
+                                                     reduce_from, split_dim,
+                                                     tp_size)
 from repro_torch.models import layers as L
 from repro_torch.models.dist import DistContext
 from repro_torch.models.moe import moe_layer
@@ -60,9 +70,8 @@ def unstack(stack: Dict, n: int) -> List[Dict]:
 
 
 def shard_act(x: torch.Tensor, dist: Optional[DistContext], *spec_tail):
-    """The activation's sharding constraint: the identity.  On the
-    data-axis route each rank already holds its own rows; layouts over a
-    model axis come with A6d."""
+    """The activation's sharding constraint: the identity.  Each rank
+    already holds its own rows, replicated over the model group."""
     return x
 
 
@@ -76,8 +85,25 @@ def _maybe_remat(fn, remat: bool):
     return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
-def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+def _vocab_slice(ids: torch.Tensor, n: int, dist):
+    """The rank's local index of each id in its slice of ``n`` rows of the
+    vocabulary (clamped into it), and whether the id lies in the slice."""
+    local = ids.long() - dist.model_rank * n
+    inside = (local >= 0) & (local < n)
+    return local.clamp(0, n - 1), inside
+
+
+def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
+           dist=None) -> torch.Tensor:
+    """The rows of ``tokens``; over a model group whose ranks hold the
+    vocabulary split, each rank looks up the ids in its slice, zeroes the
+    rest, and the all-reduce sums the one row each id has."""
+    w = params["embed"]
+    if not split_dim(w.shape[0], cfg.vocab_size, dist):
+        return w[tokens.long()]
+    local, inside = _vocab_slice(tokens, w.shape[0], dist)
+    e = torch.where(inside[..., None], w[local], w.new_zeros(()))
+    return reduce_from(e, dist)
 
 
 def _unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -85,22 +111,49 @@ def _unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x @ w.T
 
 
+def _vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor,
+                       dist) -> torch.Tensor:
+    """``L.cross_entropy`` of logits split over the model group on their
+    last dim: the row max (a shift, no gradient), the sum of
+    exponentials and the label's logit each all-reduced."""
+    import torch.distributed as tdist
+    logits = logits.float()
+    with torch.no_grad():
+        m = logits.amax(dim=-1, keepdim=True)
+        tdist.all_reduce(m, op=tdist.ReduceOp.MAX, group=dist.model_group())
+    se = reduce_from(torch.exp(logits - m).sum(dim=-1), dist)
+    lse = m[..., 0] + torch.log(se)
+    local, inside = _vocab_slice(labels, logits.shape[-1], dist)
+    gold = torch.gather(logits, -1, local[..., None])[..., 0]
+    gold = reduce_from(torch.where(inside, gold, logits.new_zeros(())), dist)
+    return (lse - gold).mean()
+
+
 def chunked_ce(params, cfg: ModelConfig, x: torch.Tensor,
-               labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+               labels: torch.Tensor, chunk: int = 512,
+               dist=None) -> torch.Tensor:
     """The mean cross-entropy of (B, S, D) ``x`` against (B, S) ``labels``
     without a (B, S, V) tensor: ``chunk`` rows at a time (halved until it
     divides S), each chunk's mean times 1/n added to a float32 total in
-    chunk order, as the JAX package's scan adds them."""
+    chunk order, as the JAX package's scan adds them.  Over a model
+    group whose ranks hold the vocabulary split, each chunk's logits are
+    the rank's slice (``_vocab_parallel_ce``)."""
     B, S, _ = x.shape
     chunk = max(1, min(chunk, S))
     while S % chunk:
         chunk //= 2
     n = S // chunk
+    w = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    split = split_dim(w.shape[0], cfg.vocab_size, dist)
+    if split:
+        x = copy_to(x, dist)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, S, chunk):
         logits = _unembed(params, cfg, x[:, c0:c0 + chunk])
-        tot = tot + L.cross_entropy(logits, labels[:, c0:c0 + chunk]) \
-            * (1.0 / n)
+        lab = labels[:, c0:c0 + chunk]
+        ce = _vocab_parallel_ce(logits, lab, dist) if split \
+            else L.cross_entropy(logits, lab)
+        tot = tot + ce * (1.0 / n)
     return tot
 
 
@@ -150,11 +203,73 @@ def project_qkv(x: torch.Tensor, lp: Dict, cfg: ModelConfig, rope_sincos,
     return q, k, v
 
 
+def _attn_tp(x, lp: Dict, cfg: ModelConfig, dist, *, window, rope_sincos,
+             causal, kv_src, positions, causal_skip, prefix):
+    """``attn_sublayer``'s train route over a model group.  A rank whose
+    ``wq`` is column-split runs its H/tp query heads (``qnorm`` per head)
+    and its rows of the row-split ``wo``, all-reduced.  Its K and V: its
+    own KV heads where the split of ``wk``/``wv`` keeps them whole, else
+    K and V gathered whole (or projected whole, where they are not split)
+    and the KV heads its query heads map to taken from them.  Where ``wq``
+    is not split the attention runs whole on every rank."""
+    B, S, _ = x.shape
+    H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G, tp = H // KH, dist.tp
+    src = x if kv_src is None else kv_src
+    Skv = src.shape[1]
+    q_split = split_dim(lp[prefix + "wq"].shape[-1], cfg.q_dim, dist)
+    kv_split = split_dim(lp[prefix + "wk"].shape[-1], cfg.kv_dim, dist)
+    if q_split and H % tp:
+        raise NotImplementedError(
+            f"{H} query heads over a model group of {tp}: the column split "
+            f"of wq cuts heads")
+    Hl = H // tp if q_split else H
+    own_kv = kv_split and KH % tp == 0        # the split keeps KV heads whole
+
+    def proj(name, inp):
+        y = L.mm(inp, lp[prefix + "w" + name])
+        b = lp.get(prefix + "b" + name)
+        return y if b is None else y + b
+
+    xq = copy_to(x, dist) if q_split else x
+    xs = src if not kv_split else (xq if kv_src is None
+                                   else copy_to(src, dist))
+    q = proj("q", xq).reshape(B, S, Hl, Dh)
+    k, v = proj("k", xs), proj("v", xs)
+    if kv_split and not own_kv:
+        k, v = gather_last(k, dist), gather_last(v, dist)
+    KHl = KH // tp if own_kv else KH
+    k, v = k.reshape(B, Skv, KHl, Dh), v.reshape(B, Skv, KHl, Dh)
+    if prefix + "qnorm" in lp:
+        qn, kn = lp[prefix + "qnorm"], lp[prefix + "knorm"]
+        q = L.rmsnorm(q, copy_to(qn, dist) if q_split else qn, cfg.norm_eps)
+        k = L.rmsnorm(k, copy_to(kn, dist) if own_kv else kn, cfg.norm_eps)
+    if rope_sincos is not None:
+        sin_q, cos_q, sin_k, cos_k = rope_sincos
+        q = L.apply_rope(q, sin_q, cos_q)
+        k = L.apply_rope(k, sin_k, cos_k)
+    if own_kv or not q_split:
+        k, v = L.repeat_kv(k, G), L.repeat_kv(v, G)
+    else:                   # the KV head of each of this rank's query heads
+        h0 = dist.model_rank * Hl
+        idx = torch.arange(h0, h0 + Hl, device=x.device) // G
+        k, v = copy_to(k, dist)[:, :, idx], copy_to(v, dist)[:, :, idx]
+    o = L.blockwise_attention(
+        q, k, v, causal=causal, window=window, softcap=cfg.logit_softcap,
+        q_positions=positions, kv_positions=positions,
+        causal_skip=causal_skip)
+    out = L.mm(o.reshape(B, S, Hl * Dh), lp[prefix + "wo"])
+    if q_split:
+        out = reduce_from(out, dist)
+    bo = lp.get(prefix + "bo")
+    return out if bo is None else out + bo
+
+
 def attn_sublayer(x, lp: Dict, cfg: ModelConfig, *, window: int = 0,
                   rope_sincos=None, mode: str = "prefill",
                   cache: Optional[Tuple] = None, pos=0, causal: bool = True,
                   kv_src=None, positions=None, causal_skip: bool = False,
-                  prefix: str = ""):
+                  prefix: str = "", dist=None):
     """Returns (attn_out (B, S, D), cache or None).  ``cache`` is (k_cache,
     v_cache) (B, Smax, KH, Dh), written in place: rows [0, S) in prefill,
     each sequence's row ``pos`` (a scalar or (B,) tensor) in decode -- or,
@@ -164,7 +279,19 @@ def attn_sublayer(x, lp: Dict, cfg: ModelConfig, *, window: int = 0,
     cache written, ``causal_skip`` passed to ``blockwise_attention``.
     Prefill and train attention is causal unless ``causal`` is False;
     with ``kv_src`` (B, S_kv, D) k and v are its projections
-    (cross-attention)."""
+    (cross-attention).  Over a model axis above 1 (``dist``) attention
+    without a cache takes ``_attn_tp``; decode and the caches raise (A6e
+    in ROADMAP.md)."""
+    if tp_size(dist) > 1:
+        if mode == "decode" or cache is not None:
+            raise NotImplementedError(
+                f"attention in {mode!r} mode over a model axis of "
+                f"{dist.tp}: serving over a model axis comes with A6e in "
+                f"ROADMAP.md")
+        return _attn_tp(x, lp, cfg, dist, window=window,
+                        rope_sincos=rope_sincos, causal=causal,
+                        kv_src=kv_src, positions=positions,
+                        causal_skip=causal_skip, prefix=prefix), None
     B, S, _ = x.shape
     H, Dh = cfg.num_heads, cfg.head_dim
     G = H // cfg.num_kv_heads
@@ -223,14 +350,16 @@ def attn_sublayer(x, lp: Dict, cfg: ModelConfig, *, window: int = 0,
 
 def dense_block(x, lp, cfg: ModelConfig, *, window=0, rope_sincos,
                 mode="prefill", cache=None, pos=0, positions=None,
-                causal_skip=False):
+                causal_skip=False, dist=None):
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     a, new_cache = attn_sublayer(
         h, lp, cfg, window=window, rope_sincos=rope_sincos, mode=mode,
-        cache=cache, pos=pos, positions=positions, causal_skip=causal_skip)
+        cache=cache, pos=pos, positions=positions, causal_skip=causal_skip,
+        dist=dist)
     x = x + a
     h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    x = x + L.glu_mlp(h, lp["w1"], lp["w3"], lp["w2"], act=cfg.act)
+    x = x + L.glu_mlp(h, lp["w1"], lp["w3"], lp["w2"], act=cfg.act,
+                      dist=dist, width=cfg.d_ff)
     return x, new_cache
 
 
@@ -248,7 +377,7 @@ def moe_block(x, lp, cfg: ModelConfig, *, rope_sincos, mode="prefill",
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     a, new_cache = attn_sublayer(
         h, lp, cfg, rope_sincos=rope_sincos, mode=mode, cache=cache,
-        pos=pos, positions=positions, causal_skip=causal_skip)
+        pos=pos, positions=positions, causal_skip=causal_skip, dist=dist)
     x = x + a
     h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
     shared = None
@@ -279,7 +408,8 @@ def _run_stack(x, params, prefix: str, n: int, cfg: ModelConfig, caches,
 
 
 def dense_trunk(params, cfg: ModelConfig, x, *, mode="prefill", caches=None,
-                pos=0, positions=None, remat=False, causal_skip=False):
+                pos=0, positions=None, remat=False, causal_skip=False,
+                dist=None):
     """Runs the dense blocks over (B, S, D) ``x``: the uniform stack
     ``blocks_`` (every layer at ``cfg.window_size``), or with
     ``cfg.global_every > 1`` gemma3's pattern -- ``n_super`` super-blocks
@@ -296,7 +426,7 @@ def dense_trunk(params, cfg: ModelConfig, x, *, mode="prefill", caches=None,
     train = mode == "train"
     remat, causal_skip = remat and train, causal_skip and train
     kw = dict(mode=mode, pos=pos, positions=positions,
-              causal_skip=causal_skip)
+              causal_skip=causal_skip, dist=dist)
     caches_of = (lambda key: caches[key]) if caches is not None \
         else (lambda key: None)
     if cfg.global_every <= 1:
@@ -348,7 +478,7 @@ def moe_trunk(params, cfg: ModelConfig, x, *, mode="prefill", caches=None,
     remat, causal_skip = remat and train, causal_skip and train
     rope = _rope(cfg, S, pos0=pos, positions=positions, device=x.device)
     kw = dict(mode=mode, pos=pos, positions=positions,
-              causal_skip=causal_skip)
+              causal_skip=causal_skip, dist=dist)
     if cfg.first_dense_layers:
         x = _run_stack(x, params, "dense_", cfg.first_dense_layers, cfg,
                        caches["dense"] if caches is not None else None,
@@ -361,19 +491,19 @@ def moe_trunk(params, cfg: ModelConfig, x, *, mode="prefill", caches=None,
     for i, lp in enumerate(unstack(_sub(params, "blocks_"), n)):
         cache = (ck[i], cv[i]) if ck is not None else None
         x, aux, dropped = block(x, lp, cfg, rope_sincos=rope, cache=cache,
-                                dist=dist, **kw)
+                                **kw)
         aux_tot = aux_tot + aux
         drop_tot = drop_tot + dropped
     return x, caches, aux_tot, drop_tot
 
 
-def _rwkv_x(x, lp, cfg: ModelConfig):
+def _rwkv_x(x, lp, cfg: ModelConfig, dist=None):
     """One stateless RWKV6 block's output: the unit remat recomputes."""
-    return rwkv6_block(x, lp, cfg)[0]
+    return rwkv6_block(x, lp, cfg, dist=dist)[0]
 
 
 def rwkv_trunk(params, cfg: ModelConfig, x, *, mode="prefill", states=None,
-               remat=False):
+               remat=False, dist=None):
     """``ln_in``, then the RWKV6 layers over (B, S, D) ``x``.  ``states``:
     (wkv (L, B, H, P, P), shift_t (L, B, D), shift_c (L, B, D)) float32,
     each layer's seed, or None for zeros.  Returns (x, the new states as
@@ -386,7 +516,7 @@ def rwkv_trunk(params, cfg: ModelConfig, x, *, mode="prefill", states=None,
     if states is None:
         block = _maybe_remat(_rwkv_x, remat and mode == "train")
         for lp in layers:
-            x = block(x, lp, cfg)
+            x = block(x, lp, cfg, dist)
         return x, None
     new = []
     for i, lp in enumerate(layers):
@@ -406,22 +536,22 @@ def _mamba_pdict(lp: Dict) -> Dict:
 
 
 def _mamba_residual(x, lp, cfg: ModelConfig, state=None,
-                    single_step=False):
+                    single_step=False, dist=None):
     """x + one Mamba2 block of its norm: (x, the block's new state)."""
     h = L.rmsnorm(x, lp["m_ln"], cfg.norm_eps)
     y, ns = mamba2_block(h, _mamba_pdict(lp), cfg, state=state,
-                         single_step=single_step)
+                         single_step=single_step, dist=dist)
     return x + y, ns
 
 
-def _mamba_x(x, lp, cfg: ModelConfig):
+def _mamba_x(x, lp, cfg: ModelConfig, dist=None):
     """One stateless Mamba2 residual's output: the unit remat
     recomputes."""
-    return _mamba_residual(x, lp, cfg)[0]
+    return _mamba_residual(x, lp, cfg, dist=dist)[0]
 
 
 def hybrid_trunk(params, cfg: ModelConfig, x, *, mode="prefill",
-                 states=None, caches=None, pos=0, remat=False):
+                 states=None, caches=None, pos=0, remat=False, dist=None):
     """zamba2: the Mamba2 stack, with shared attention + MLP block ``i %
     num_shared_attn_blocks`` after the i-th run of ``attn_every`` Mamba2
     blocks.  ``states``: (ssm (L, B, H, N, P) f32, conv (L, B, cw - 1,
@@ -443,7 +573,7 @@ def hybrid_trunk(params, cfg: ModelConfig, x, *, mode="prefill",
     for app in range(cfg.num_layers // per):
         for i in range(app * per, (app + 1) * per):
             if states is None:
-                x = block(x, layers[i], cfg)
+                x = block(x, layers[i], cfg, dist)
                 continue
             x, ns = _mamba_residual(
                 x, layers[i], cfg,
@@ -455,10 +585,11 @@ def hybrid_trunk(params, cfg: ModelConfig, x, *, mode="prefill",
         cache = None if caches is None else (caches[0][app], caches[1][app])
         h = L.rmsnorm(x, sp["ln1"], cfg.norm_eps)
         a, _ = attn_sublayer(h, sp, cfg, rope_sincos=rope, mode=mode,
-                             cache=cache, pos=pos)
+                             cache=cache, pos=pos, dist=dist)
         x = x + a
         h = L.rmsnorm(x, sp["ln2"], cfg.norm_eps)
-        x = x + L.glu_mlp(h, sp["w1"], sp["w3"], sp["w2"], act=cfg.act)
+        x = x + L.glu_mlp(h, sp["w1"], sp["w3"], sp["w2"], act=cfg.act,
+                          dist=dist, width=cfg.d_ff)
     if states is None:
         return x, None, caches
     return x, (torch.stack(new_ssm), torch.stack(new_conv)), caches
@@ -468,22 +599,24 @@ def hybrid_trunk(params, cfg: ModelConfig, x, *, mode="prefill",
 # whisper's encoder-decoder (encdec)
 # ---------------------------------------------------------------------------
 
-def _gelu_mlp(x, lp):
+def _gelu_mlp(x, lp, cfg: ModelConfig, dist=None):
     return L.gelu_mlp(x, lp["mlp_w1"], lp["mlp_b1"], lp["mlp_w2"],
-                      lp["mlp_b2"])
+                      lp["mlp_b2"], dist=dist, width=cfg.d_ff)
 
 
 def _ln(x, lp, name, cfg: ModelConfig):
     return L.layernorm(x, lp[name], lp[name + "_b"], cfg.norm_eps)
 
 
-def _encoder_block(x, lp, cfg: ModelConfig):
-    o, _ = attn_sublayer(_ln(x, lp, "ln1", cfg), lp, cfg, causal=False)
+def _encoder_block(x, lp, cfg: ModelConfig, dist=None):
+    o, _ = attn_sublayer(_ln(x, lp, "ln1", cfg), lp, cfg, causal=False,
+                         dist=dist)
     x = x + o
-    return x + _gelu_mlp(_ln(x, lp, "ln2", cfg), lp)
+    return x + _gelu_mlp(_ln(x, lp, "ln2", cfg), lp, cfg, dist)
 
 
-def encoder_trunk(params, cfg: ModelConfig, frames, *, remat=False):
+def encoder_trunk(params, cfg: ModelConfig, frames, *, remat=False,
+                  dist=None):
     """frames: (B, S, frontend_dim) precomputed conv-frontend embeddings ->
     the memory (B, S, D): the linear adapter, sinusoid positions, pre-LN
     blocks of non-causal attention and a GELU MLP, the final LayerNorm.
@@ -495,7 +628,7 @@ def encoder_trunk(params, cfg: ModelConfig, frames, *, remat=False):
     x = x + L.sinusoid_positions(S, D, device=x.device).to(x.dtype)
     block = _maybe_remat(_encoder_block, remat)
     for lp in unstack(_sub(params, "e_"), cfg.encoder_layers):
-        x = block(x, lp, cfg)
+        x = block(x, lp, cfg, dist)
     return L.layernorm(x, params["enc_final_norm"],
                        params["enc_final_norm_b"], cfg.norm_eps)
 
@@ -524,19 +657,20 @@ def _dec_positions(params, T: int, pos, device) -> torch.Tensor:
     return table[start[:, None] + torch.arange(T, device=device)]
 
 
-def _decoder_block(x, lp, xp, memory, cfg: ModelConfig):
+def _decoder_block(x, lp, xp, memory, cfg: ModelConfig, dist=None):
     """One decoder block without caches: causal self-attention,
     cross-attention projecting k and v of ``memory``, the GELU MLP."""
-    o, _ = attn_sublayer(_ln(x, lp, "ln1", cfg), lp, cfg)
+    o, _ = attn_sublayer(_ln(x, lp, "ln1", cfg), lp, cfg, dist=dist)
     x = x + o
     o, _ = attn_sublayer(_ln(x, lp, "ln2", cfg), xp, cfg, causal=False,
-                         kv_src=memory)
+                         kv_src=memory, dist=dist)
     x = x + o
-    return x + _gelu_mlp(_ln(x, lp, "ln3", cfg), lp)
+    return x + _gelu_mlp(_ln(x, lp, "ln3", cfg), lp, cfg, dist)
 
 
 def decoder_trunk(params, cfg: ModelConfig, tokens, memory, *,
-                  mode: str = "prefill", caches=None, pos=0, remat=False):
+                  mode: str = "prefill", caches=None, pos=0, remat=False,
+                  dist=None):
     """tokens (B, T) -> (x (B, T, D) before the final norm, caches).
     Learned positions from ``pos``, then pre-LN blocks of causal
     self-attention, cross-attention and a GELU MLP.  Without ``caches``
@@ -547,7 +681,7 @@ def decoder_trunk(params, cfg: ModelConfig, tokens, memory, *,
     ``cross_kv``} it reads the cross K/V (``memory`` unused) and runs
     ``mode`` "prefill" or "decode" (one token at ``pos``, a scalar or
     (B,))."""
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, dist)
     B, T, _ = x.shape
     x = x + _dec_positions(params, T, pos, x.device)
     layers = list(zip(unstack(_sub(params, "d_"), cfg.decoder_layers),
@@ -555,7 +689,7 @@ def decoder_trunk(params, cfg: ModelConfig, tokens, memory, *,
     if caches is None:
         block = _maybe_remat(_decoder_block, remat)
         for lp, xp in layers:
-            x = block(x, lp, xp, memory, cfg)
+            x = block(x, lp, xp, memory, cfg, dist)
         return x, None
     H, Dh = cfg.num_heads, cfg.head_dim
     G = H // cfg.num_kv_heads
@@ -574,5 +708,5 @@ def decoder_trunk(params, cfg: ModelConfig, tokens, memory, *,
         else:
             o = L.blockwise_attention(q, xk, xv, causal=False)
         x = x + (L.mm(o.reshape(B, T, H * Dh), xp["wo"]) + xp["bo"])
-        x = x + _gelu_mlp(_ln(x, lp, "ln3", cfg), lp)
+        x = x + _gelu_mlp(_ln(x, lp, "ln3", cfg), lp, cfg)
     return x, caches

@@ -23,6 +23,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.tensor_parallel import (copy_to, reduce_from,
+                                                     split_dim)
+
 NEG_INF = -1e30
 
 
@@ -318,15 +321,27 @@ def activation(h: torch.Tensor, act: str = "silu") -> torch.Tensor:
 
 
 def glu_mlp(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
-            w2: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """SwiGLU / GeGLU: act(x@w1) * (x@w3) @ w2."""
+            w2: torch.Tensor, act: str = "silu", dist=None,
+            width: int = 0) -> torch.Tensor:
+    """SwiGLU / GeGLU: act(x@w1) * (x@w3) @ w2.  Over a model group
+    (``dist``) whose ranks hold w1 and w3 split on their last dim and w2
+    on its first -- ``width`` the whole hidden width -- each rank's
+    product is a partial sum, all-reduced."""
+    if dist is not None and split_dim(w1.shape[-1], width, dist):
+        return reduce_from(glu_mlp(copy_to(x, dist), w1, w3, w2, act), dist)
     return (activation(x @ w1, act) * (x @ w3)) @ w2
 
 
 def gelu_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-             w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+             w2: torch.Tensor, b2: torch.Tensor, dist=None,
+             width: int = 0) -> torch.Tensor:
     """The plain tanh-GELU MLP with biases (whisper), in jnp's promoted
-    dtype: float32 activations stay float32 against bfloat16 weights."""
+    dtype: float32 activations stay float32 against bfloat16 weights.
+    Over a model group, w1 and b1 split on their last dim and w2 on its
+    first as ``glu_mlp``'s; b2 is added after the all-reduce."""
+    if dist is not None and split_dim(w1.shape[-1], width, dist):
+        h = activation(mm(copy_to(x, dist), w1) + b1, "gelu")
+        return reduce_from(mm(h, w2), dist) + b2
     h = activation(mm(x, w1) + b1, "gelu")
     return mm(h, w2) + b2
 

@@ -19,6 +19,12 @@ written out where the JAX engine vmaps per-request scalars.  Every cache
 tensor has its batch on axis 1.  KV caches are written in place; the
 recurrent states (ssm, hybrid) come back as new tensors, which the caller
 carries to the next call (the caches passed seed the recurrence).
+
+``train_loss`` runs under a ``DistContext`` over a model axis above 1
+(tensor and expert parallelism, each rank on its model shard of the
+parameters); ``init_cache``, ``prefill`` and ``decode_step`` take one
+too and raise over a model axis above 1: serving over a model axis is
+A6e in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -37,6 +43,16 @@ from repro_torch.models.ssm import conv_dim
 def _families(cfg: ModelConfig) -> None:
     if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "encdec"):
         raise ValueError(f"unknown family {cfg.family}")
+
+
+def serving_dist(dist: Optional[DistContext]) -> None:
+    """Serving runs on one model rank: a context over a model axis above 1
+    raises (A6e)."""
+    if dist is not None and dist.tp > 1:
+        raise NotImplementedError(
+            f"serving over a model axis of {dist.tp}: cache placements, "
+            f"decode and the engine over a model axis come with A6e in "
+            f"ROADMAP.md")
 
 
 def input_specs(cfg: ModelConfig, cell: ShapeCell) -> Dict[str, torch.Tensor]:
@@ -103,23 +119,27 @@ def train_loss(params, cfg: ModelConfig, batch, *,
     moe_aux`` added to the loss.  vlm scores the text rows after the
     patches.  ``remat`` recomputes the JAX package's blocks in the
     backward pass; ``causal_skip`` reaches the full-attention layers.
-    With a mesh ``dist`` (the data-axis route) ``batch`` is this rank's
-    rows and the loss their mean; the MoE aux loss is the global batch's.
-    Differentiate it with ``torch.autograd``."""
+    With a mesh ``dist`` ``batch`` is this rank's rows and the loss their
+    mean, replicated over the model group; the MoE aux loss is the global
+    batch's.  Over a model axis above 1 ``params`` is this rank's model
+    shard (``Placement.gather_batch``).  Differentiate it with
+    ``torch.autograd``."""
     _families(cfg)
     metrics: Dict[str, torch.Tensor] = {}
     if cfg.family == "encdec":
-        memory = F.encoder_trunk(params, cfg, batch["frames"], remat=remat)
+        memory = F.encoder_trunk(params, cfg, batch["frames"], remat=remat,
+                                 dist=dist)
         x, _ = F.decoder_trunk(params, cfg, batch["tokens"], memory,
-                               mode="train", remat=remat)
+                               mode="train", remat=remat, dist=dist)
         x = L.layernorm(x, params["final_norm"], params["final_norm_b"],
                         cfg.norm_eps)
-        return F.chunked_ce(params, cfg, x, batch["labels"]), metrics
+        return F.chunked_ce(params, cfg, x, batch["labels"],
+                            dist=dist), metrics
 
-    x = F.shard_act(_front(params, cfg, batch), dist, None, None)
-    kw = dict(mode="train", remat=remat)
+    x = F.shard_act(_front(params, cfg, batch, dist), dist, None, None)
+    kw = dict(mode="train", remat=remat, dist=dist)
     if cfg.family == "moe":
-        x, _, aux, dropped = F.moe_trunk(params, cfg, x, dist=dist,
+        x, _, aux, dropped = F.moe_trunk(params, cfg, x,
                                          causal_skip=causal_skip, **kw)
         metrics["moe_aux"] = aux
         metrics["moe_dropped"] = dropped
@@ -132,7 +152,7 @@ def train_loss(params, cfg: ModelConfig, batch, *,
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if cfg.family == "vlm":
         x = x[:, -batch["tokens"].shape[1]:]
-    loss = F.chunked_ce(params, cfg, x, batch["labels"])
+    loss = F.chunked_ce(params, cfg, x, batch["labels"], dist=dist)
     if "moe_aux" in metrics:
         loss = loss + cfg.router_aux_coef * metrics["moe_aux"]
     return loss, metrics
@@ -160,15 +180,15 @@ def _trunk(params, cfg: ModelConfig, x, *, mode, caches, pos=0,
                          positions=positions)
 
 
-def _front(params, cfg: ModelConfig, batch) -> torch.Tensor:
+def _front(params, cfg: ModelConfig, batch, dist=None) -> torch.Tensor:
     if cfg.family == "vlm":
-        tok = F._embed(params, cfg, batch["tokens"])
+        tok = F._embed(params, cfg, batch["tokens"], dist)
         patches, w = batch["patches"], params["frontend_w"]
         # jnp's promotion: a float32 patch stream meets bf16 weights in f32
         dt = torch.promote_types(patches.dtype, w.dtype)
         patch = patches.to(dt) @ w.to(dt) + params["frontend_b"]
         return torch.cat([patch.to(tok.dtype), tok], dim=1)
-    return F._embed(params, cfg, batch["tokens"])
+    return F._embed(params, cfg, batch["tokens"], dist)
 
 
 def _encdec_logits(params, cfg: ModelConfig, x) -> torch.Tensor:
@@ -177,7 +197,8 @@ def _encdec_logits(params, cfg: ModelConfig, x) -> torch.Tensor:
     return F._unembed(params, cfg, x)
 
 
-def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None):
+def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None,
+               dist: Optional[DistContext] = None):
     """Zeroed caches for a serving session on ``device`` -- the CUDA card
     unless the caller passes one (``resolve_device``).  KV caches are (k,
     v) pairs of (L, B, Smax, KH, Dh) in ``cfg.kv_cache_dtype``:
@@ -197,8 +218,11 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None):
     * encdec (whisper): {"self": the decoder's KV pair of
       ``max_target_len`` whatever max_seq, "cross": a bfloat16 pair of
       max_seq (the encoder's length), which prefill replaces with the
-      memory's K/V, as the JAX package's}."""
+      memory's K/V, as the JAX package's}.
+
+    ``dist`` over a model axis above 1 raises (A6e)."""
     _families(cfg)
+    serving_dist(dist)
     dt = getattr(torch, cfg.kv_cache_dtype)
     device = resolve_device(device)
 
@@ -249,7 +273,7 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None):
 
 
 def prefill(params, cfg: ModelConfig, batch, caches, *, positions=None,
-            last_index=None):
+            last_index=None, dist: Optional[DistContext] = None):
     """Process the whole prompt, fill the caches, return the logits of the
     last row -- or of row ``last_index``: an RoI-packed prompt ends at its
     last KEPT row, not its last padded one.  ``positions`` reach the
@@ -258,8 +282,10 @@ def prefill(params, cfg: ModelConfig, batch, caches, *, positions=None,
     the JAX package does: the encoder over ``batch["frames"]``, its
     memory's cross K/V into ``caches["cross"]`` (a new pair in a new
     dict; the self caches are written in place), then the decoder over
-    ``batch["tokens"]`` from position 0 and the last row's logits."""
+    ``batch["tokens"]`` from position 0 and the last row's logits.
+    ``dist`` over a model axis above 1 raises (A6e)."""
     _families(cfg)
+    serving_dist(dist)
     if cfg.family == "encdec":
         memory = F.encoder_trunk(params, cfg, batch["frames"])
         caches = dict(caches, cross=F.cross_kv(params, cfg, memory))
@@ -278,11 +304,14 @@ def prefill(params, cfg: ModelConfig, batch, caches, *, positions=None,
     return F._unembed(params, cfg, xe), caches
 
 
-def decode_step(params, cfg: ModelConfig, tokens, caches, pos):
+def decode_step(params, cfg: ModelConfig, tokens, caches, pos, *,
+                dist: Optional[DistContext] = None):
     """tokens: (B, 1), each sequence's token at position ``pos`` (scalar
     or (B,)).  encdec reads its position's ``dec_pos`` row, clamped to
-    the table's last (``F._dec_positions``)."""
+    the table's last (``F._dec_positions``).  ``dist`` over a model axis
+    above 1 raises (A6e)."""
     _families(cfg)
+    serving_dist(dist)
     if cfg.family == "encdec":
         x, caches = F.decoder_trunk(params, cfg, tokens, None, mode="decode",
                                     caches=caches, pos=pos)

@@ -1,5 +1,4 @@
-"""Mixture-of-Experts layer, the port's copy of ``repro.models.moe`` on one
-device.
+"""Mixture-of-Experts layer, the port's copy of ``repro.models.moe``.
 
 The router and its top-k run in float32.  Each sequence gives every
 expert ``capacity`` slots, filled in token order (a cumsum over S); a
@@ -10,15 +9,20 @@ the slots, and each token sums its experts' rows, weighted by its
 renormalised router values, in ``x.dtype``.  The dropped share is
 returned as a metric, beside the Switch-style load-balance loss.
 
-The JAX package also runs the dispatch under a model-parallel
-``shard_map`` with E/tp experts a rank; that route comes with A6d in
-ROADMAP.md, and a ``DistContext`` over a model axis above 1 raises
-(``models.dist``), so ``moe_layer`` runs every expert locally.  On the
-data-axis route each rank routes its own rows; the load-balance loss is
-the global batch's, as under the JAX package's mesh: its per-expert
-shares and mean probabilities are averaged over the batch axes (through
-an all-reduce that autograd differentiates), and so is the dropped
-share.
+On a mesh each rank routes its own rows; the load-balance loss is the
+global batch's, as under the JAX package's mesh: its per-expert shares
+and mean probabilities are averaged over the batch axes (through an
+all-reduce that autograd differentiates), and so is the dropped share.
+
+Over a model axis whose ranks hold the experts split (E/tp each), the
+layer takes the JAX package's expert-parallel ``shard_map`` route
+written out: the router runs replicated, each rank dispatches its rows
+to its own experts at ``e_offset = rank * E/tp`` (the rest fall into the
+drop bin), and the partial outputs are summed over the model group.
+The dropped share is then, as the JAX route's, the mean over every rank
+of each rank's share of choices dropped from its own experts: 1/tp of
+the one-device share.  The port takes this route whatever ``auto_moe``
+says: it has no partitioner to defer to.
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.tensor_parallel import (copy_to, reduce_from,
+                                                     split_dim)
 from repro_torch.models.dist import DistContext
 from repro_torch.models.layers import activation, glu_mlp
 
@@ -74,41 +80,44 @@ def router_topk(x: torch.Tensor, router_w: torch.Tensor, k: int,
 
 
 def _dispatch_compute_combine(x, top_vals, top_idx, wg, wu, wd, *,
-                              cap: int, act: str):
-    """Dispatch -> grouped GLU -> gather-combine over all E experts.
+                              cap: int, act: str, e_offset: int = 0):
+    """Dispatch -> grouped GLU -> gather-combine over the E_local =
+    ``wg.shape[0]`` experts from ``e_offset`` (all E on one rank), every
+    other choice in the overflow bin.
 
-    x: (B, S, D); top_vals, top_idx: (B, S, K); wg, wu: (E, D, F); wd:
-    (E, F, D).  Returns (out (B, S, D), dropped share, a float32 scalar).
-    """
+    x: (B, S, D); top_vals, top_idx: (B, S, K); wg, wu: (E_local, D, F);
+    wd: (E_local, F, D).  Returns (the partial out (B, S, D), the share of
+    all choices that chose a local expert and were dropped, a float32
+    scalar).  Each (token, choice)'s slot is the count of tokens before
+    it in its sequence that chose the same expert; every kept (expert,
+    slot) is one token's, gathered through a zero sentinel row."""
     B, S, D = x.shape
     K = top_idx.shape[-1]
-    E = wg.shape[0]
+    El = wg.shape[0]
     dev = x.device
-    # each (token, choice)'s slot: the tokens before it in its sequence
-    # that chose the same expert
-    assign = F.one_hot(top_idx, E).sum(dim=2)                   # (B,S,E)
+    local = (top_idx >= e_offset) & (top_idx < e_offset + El)
+    li = torch.where(local, top_idx - e_offset, El)      # El: overflow bin
+    assign = F.one_hot(li, El + 1).sum(dim=2)                   # (B,S,El+1)
     pos_before = torch.cumsum(assign, dim=1) - assign
-    slot = torch.gather(pos_before, 2, top_idx)                  # (B,S,K)
-    ok = slot < cap
-    flat = torch.where(ok, top_idx * cap + slot, E * cap)        # drop bin
-    # slot -> token; every kept (expert, slot) is one token's, the drop
-    # bin's row E * cap takes the rest and is cut off
-    buf_tok = torch.full((B, E * cap + 1), S, dtype=torch.long, device=dev)
+    slot = torch.gather(pos_before, 2, li)                       # (B,S,K)
+    ok = local & (slot < cap)
+    flat = torch.where(ok, li * cap + slot, El * cap)
+    buf_tok = torch.full((B, El * cap + 1), S, dtype=torch.long, device=dev)
     tok = torch.arange(S, device=dev)[None, :, None].expand(B, S, K)
     buf_tok.scatter_(1, flat.reshape(B, S * K), tok.reshape(B, S * K))
-    buf_tok = buf_tok[:, :E * cap].reshape(B, E, cap)
+    buf_tok = buf_tok[:, :El * cap].reshape(B, El, cap)
     b = torch.arange(B, device=dev)
-    xpad = torch.cat([x, x.new_zeros((B, 1, D))], dim=1)         # sentinel
-    xe = xpad[b[:, None, None], buf_tok]                         # (B,E,C,D)
+    xpad = torch.cat([x, x.new_zeros((B, 1, D))], dim=1)
+    xe = xpad[b[:, None, None], buf_tok]                         # (B,El,C,D)
     h = activation(torch.einsum("becd,edf->becf", xe, wg), act)
     u = torch.einsum("becd,edf->becf", xe, wu)
     y = torch.einsum("becf,efd->becd", h * u, wd)
-    ypad = torch.cat([y.reshape(B, E * cap, D), y.new_zeros((B, 1, D))],
+    ypad = torch.cat([y.reshape(B, El * cap, D), y.new_zeros((B, 1, D))],
                      dim=1)
     yk = ypad[b[:, None, None], flat]                            # (B,S,K,D)
     w = torch.where(ok, top_vals, torch.zeros_like(top_vals)).to(yk.dtype)
     out = torch.einsum("bsk,bskd->bsd", w, yk)
-    dropped = (~ok).float().mean()
+    dropped = (local & ~ok).float().mean()
     return out, dropped
 
 
@@ -117,25 +126,36 @@ def moe_layer(x: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
               dist=None,
               shared: Optional[Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]] = None):
-    """Full MoE layer, every expert local.  Returns (y, aux_loss,
-    dropped_frac).
+    """Full MoE layer.  Returns (y, aux_loss, dropped_frac).
 
-    wg, wu: (E, D, F); wd: (E, F, D).  ``shared``: optional (wg, wu, wd)
-    of the always-on shared-expert MLP.  ``dist``: None or a
-    ``DistContext``; on a data-axis mesh the aux loss and the dropped
-    share are the global batch's.  The expert-parallel route over a model
-    axis comes with A6d."""
+    wg, wu: (E, D, F); wd: (E, F, D) -- this rank's E/tp experts where
+    the model group holds them split (the expert-parallel route).
+    ``shared``: optional (wg, wu, wd) of the always-on shared-expert MLP
+    (column- and row-split as ``glu_mlp`` takes them).  ``dist``: None or
+    a ``DistContext``; on a mesh the aux loss and the dropped share are
+    the global batch's."""
     if dist is not None and not isinstance(dist, DistContext):
-        raise NotImplementedError(
-            "expert parallelism over a model-parallel mesh comes with A6d "
-            "in ROADMAP.md")
+        raise TypeError(f"dist is a DistContext or None, not {dist!r}")
     top_vals, top_idx, aux = router_topk(x, router_w, cfg.experts_per_token,
                                          dist)
-    y, dropped = _dispatch_compute_combine(
-        x, top_vals.to(x.dtype), top_idx, wg, wu, wd,
-        cap=capacity(cfg, x.shape[1]), act=cfg.act)
-    dropped = _batch_mean(dropped, dist)
+    cap = capacity(cfg, x.shape[1])
+    if split_dim(wg.shape[0], cfg.num_experts, dist):
+        import torch.distributed as tdist
+        y, dropped = _dispatch_compute_combine(
+            copy_to(x, dist), copy_to(top_vals.to(x.dtype), dist), top_idx,
+            wg, wu, wd, cap=cap, act=cfg.act,
+            e_offset=dist.model_rank * wg.shape[0])
+        y = reduce_from(y, dist)
+        dropped = dropped.detach().clone()
+        tdist.all_reduce(dropped, group=dist.all_group())
+        dropped = dropped / (dist.dp * dist.tp)
+    else:
+        y, dropped = _dispatch_compute_combine(
+            x, top_vals.to(x.dtype), top_idx, wg, wu, wd, cap=cap,
+            act=cfg.act)
+        dropped = _batch_mean(dropped, dist)
     if shared is not None:
         sg, su, sd = shared
-        y = y + glu_mlp(x, sg, su, sd, act=cfg.act)
+        y = y + glu_mlp(x, sg, su, sd, act=cfg.act, dist=dist,
+                        width=cfg.shared_d_ff)
     return y, aux, dropped

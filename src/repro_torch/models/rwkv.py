@@ -18,6 +18,17 @@ Dtypes follow jnp's promotion, written out where torch would refuse or
 differ: the mix coefficients ``maa_x`` and ``maa_wkvrg`` are float32
 leaves, so in a bfloat16 model the five mixed streams, and r, k, v and g
 made from them, are float32 products.
+
+Over a model group (training) the roles are the JAX package's sharding
+rules: ``wr``/``wk``/``wv``/``wg`` and ``cmix_k``/``cmix_r`` split on
+their last dim, ``wo`` and ``cmix_v`` on their first, the mix and decay
+LoRAs' inner dims split between ``maa_w1``/``maa_w2`` and
+``decay_w1``/``decay_w2``.  A rank runs its H/tp heads of the WKV scan
+and the head norm, taking its slice of the replicated per-channel
+leaves; ``maa_w1``'s contiguous split does not line up with ``maa_w2``'s
+per-stream split, so the LoRA's hidden rows are gathered whole first,
+and ``cmix_r``'s split output is gathered to meet ``cmix_v``'s
+all-reduced one.
 """
 from __future__ import annotations
 
@@ -26,6 +37,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.tensor_parallel import (copy_to, gather_last,
+                                                     reduce_from, split_dim)
 from repro_torch.models.layers import activation, mm, rmsnorm
 
 LOG_DECAY_CLAMP = -5.0   # per step; chunk 16 -> max |exponent| 80 < 88 (f32)
@@ -49,15 +62,25 @@ def _shift(x: torch.Tensor, last: Optional[torch.Tensor]) -> torch.Tensor:
     return torch.cat([first, x[:, :-1]], dim=1)
 
 
-def _ddlerp(x, sx, p):
+def _ddlerp(x, sx, p, dist=None):
     """The data-dependent lerp: the five mixed streams (w, k, v, r, g)."""
     xx = x + sx * p["maa_x"]
-    delta = torch.tanh(mm(xx, p["maa_w1"]))            # (B, S, 5 * LORA)
+    w1, w2 = p["maa_w1"], p["maa_w2"]
+    if split_dim(w1.shape[-1], 5 * LORA_MIX, dist):
+        delta = gather_last(torch.tanh(mm(copy_to(xx, dist), w1)), dist)
+    else:
+        delta = torch.tanh(mm(xx, w1))                 # (B, S, 5 * LORA)
     B, S, _ = delta.shape
     delta = delta.reshape(B, S, 5, LORA_MIX)
-    w2 = p["maa_w2"]
+    lora_split = split_dim(w2.shape[1], LORA_MIX, dist)
+    if lora_split:                  # this rank's rows of each stream's LoRA
+        n = w2.shape[1]
+        delta = copy_to(delta, dist)[..., dist.model_rank * n:
+                                     (dist.model_rank + 1) * n]
     dt = torch.promote_types(delta.dtype, w2.dtype)
     deltas = torch.einsum("bsfl,fld->bsfd", delta.to(dt), w2.to(dt))
+    if lora_split:
+        deltas = reduce_from(deltas, dist)
     base = p["maa_wkvrg"]                                  # (5, D)
     mixed = x[:, :, None, :] + sx[:, :, None, :] * (base[None, None]
                                                      + deltas)
@@ -123,45 +146,71 @@ def wkv_step(state, r, k, v, lw, u):
     return out[:, None], state_new
 
 
+def _col(t: torch.Tensor, w: torch.Tensor, split: bool, dist):
+    """``mm(t, w)``; a replicated ``t`` meets a column-split ``w`` through
+    ``copy_to``."""
+    return mm(copy_to(t, dist) if split else t, w)
+
+
 def rwkv6_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
                 state: Optional[RWKVState] = None,
-                single_step: bool = False) -> Tuple[torch.Tensor, RWKVState]:
+                single_step: bool = False,
+                dist=None) -> Tuple[torch.Tensor, RWKVState]:
     """One RWKV6 layer (time mix, then channel mix), pre-norm residual.
     Returns (x, the new state); ``state`` seeds the shifts and the wkv
-    state (zeros without it)."""
+    state (zeros without it).  Over a model group (``dist``, training
+    only) the rank runs its heads as the module's docstring says."""
     B, S, D = x.shape
     H, P = cfg.ssm_num_heads, cfg.ssm_head_dim
+    heads = split_dim(p["wr"].shape[-1], D, dist)
+    if heads and H % dist.tp:
+        raise NotImplementedError(
+            f"{H} RWKV6 heads over a model group of {dist.tp}: the column "
+            f"split of wr cuts heads")
+    Hl = H // dist.tp if heads else H
+    c0, c1 = (dist.model_rank * Hl * P, (dist.model_rank + 1) * Hl * P) \
+        if heads else (0, D)
+
+    def own(t):
+        """This rank's channels of a replicated (..., D) tensor."""
+        return copy_to(t, dist)[..., c0:c1] if heads else t
 
     # ---- time mix ----------------------------------------------------------
     xn = rmsnorm(x, p["ln1_w"], cfg.norm_eps)
     last_t = state.shift_t if state is not None else None
     sx = _shift(xn, last_t) - xn
-    mw, mk, mv, mr, mg = _ddlerp(xn, sx, p)
+    mw, mk, mv, mr, mg = _ddlerp(xn, sx, p, dist)
 
-    lw = p["decay_base"].float() + torch.tanh(
-        mw.float() @ p["decay_w1"].float()) @ p["decay_w2"].float()
+    dw1, dw2 = p["decay_w1"], p["decay_w2"]
+    if split_dim(dw1.shape[-1], LORA_DECAY, dist):
+        lw = p["decay_base"].float() + reduce_from(torch.tanh(
+            copy_to(mw.float(), dist) @ dw1.float()) @ dw2.float(), dist)
+    else:
+        lw = p["decay_base"].float() + torch.tanh(
+            mw.float() @ dw1.float()) @ dw2.float()
     # decay = exp(-exp(lw)); log decay = -exp(lw), clamped for the chunks
     log_decay = torch.clamp(-torch.exp(lw), LOG_DECAY_CLAMP, 0.0)
-    log_decay = log_decay.reshape(B, S, H, P)
+    log_decay = own(log_decay).reshape(B, S, Hl, P)
 
-    r = mm(mr, p["wr"]).reshape(B, S, H, P)
-    k = mm(mk, p["wk"]).reshape(B, S, H, P)
-    v = mm(mv, p["wv"]).reshape(B, S, H, P)
-    g = activation(mm(mg, p["wg"]), "silu")
+    r = _col(mr, p["wr"], heads, dist).reshape(B, S, Hl, P)
+    k = _col(mk, p["wk"], heads, dist).reshape(B, S, Hl, P)
+    v = _col(mv, p["wv"], heads, dist).reshape(B, S, Hl, P)
+    g = activation(_col(mg, p["wg"], heads, dist), "silu")
+    u = copy_to(p["u"], dist)[c0 // P:c1 // P] if heads else p["u"]
 
     prev = state.wkv if state is not None else None
     if single_step:
         assert prev is not None
-        out, new_wkv = wkv_step(prev, r, k, v, log_decay, p["u"])
+        out, new_wkv = wkv_step(prev, r, k, v, log_decay, u)
     else:
-        out, new_wkv = wkv_chunked(r, k, v, log_decay, p["u"],
-                                   init_state=prev)
+        out, new_wkv = wkv_chunked(r, k, v, log_decay, u, init_state=prev)
     # per-head group norm, the population variance as jnp.var's
     mu = out.mean(dim=-1, keepdim=True)
     var = out.var(dim=-1, keepdim=True, correction=0)
-    out = ((out - mu) * torch.rsqrt(var + 64e-5)).reshape(B, S, D)
-    out = out * p["gn_w"].float()
-    x = x + ((out.to(x.dtype) * g.to(x.dtype)) @ p["wo"]).to(x.dtype)
+    out = ((out - mu) * torch.rsqrt(var + 64e-5)).reshape(B, S, Hl * P)
+    out = out * own(p["gn_w"].float())
+    y = (out.to(x.dtype) * g.to(x.dtype)) @ p["wo"]
+    x = x + (reduce_from(y, dist) if heads else y).to(x.dtype)
     new_shift_t = xn[:, -1, :].float()
 
     # ---- channel mix --------------------------------------------------------
@@ -170,8 +219,16 @@ def rwkv6_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
     sx2 = _shift(xn2, last_c) - xn2
     xk = (xn2 + sx2 * p["cmix_mu_k"]).to(x.dtype)
     xr = (xn2 + sx2 * p["cmix_mu_r"]).to(x.dtype)
-    kc = torch.square(torch.relu(xk @ p["cmix_k"]))
-    out_c = torch.sigmoid(xr @ p["cmix_r"]) * (kc @ p["cmix_v"])
+    k_split = split_dim(p["cmix_k"].shape[-1], cfg.d_ff, dist)
+    kc = torch.square(torch.relu(_col(xk, p["cmix_k"], k_split, dist)))
+    vc = kc @ p["cmix_v"]
+    if k_split:
+        vc = reduce_from(vc, dist)
+    rc = _col(xr, p["cmix_r"], split_dim(p["cmix_r"].shape[-1], D, dist),
+              dist)
+    if rc.shape[-1] != D:
+        rc = gather_last(rc, dist)
+    out_c = torch.sigmoid(rc) * vc
     x = x + out_c.to(x.dtype)
     new_shift_c = xn2[:, -1, :].float()
 

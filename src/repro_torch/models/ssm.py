@@ -13,6 +13,13 @@ before ``exp``, since masked pairs have positive exponents), and the
 chunks; here every chunk's own terms run at once and only the carry is a
 loop (one multiply-add a chunk), in the scan's order.  All SSD math runs
 in float32.
+
+Over a model group (training) ``in_proj`` is split on its last dim and
+``out_proj`` on its first, as the JAX package's sharding rules split
+them.  The contiguous split of ``in_proj``'s ``[z | x | B | C | dt]``
+does not line up with those segments, and B and C are shared by every
+head, so the product is gathered whole and the block runs replicated up
+to ``out_proj``, whose rank takes its rows of the gated output.
 """
 from __future__ import annotations
 
@@ -21,6 +28,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.tensor_parallel import (copy_to, gather_last,
+                                                     reduce_from,
+                                                     scatter_last, split_dim)
 from repro_torch.models.layers import activation, rmsnorm
 
 
@@ -127,16 +137,20 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 def mamba2_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
                  state: Optional[MambaState] = None,
-                 single_step: bool = False):
+                 single_step: bool = False, dist=None):
     """x: (B, S, D).  p keys: in_proj (D, 2 inner + 2N + H), conv_w (cw,
     inner + 2N), conv_b, A_log (H,), D_skip (H,), dt_bias (H,), norm_w
     (inner,), out_proj (inner, D).  Returns (y, the new state); ``state``
-    seeds the conv tail and the SSD state (zeros without it)."""
+    seeds the conv tail and the SSD state (zeros without it).  Over a
+    model group (``dist``) as the module's docstring says."""
     B, S, _ = x.shape
     inner, N, H = cfg.ssm_inner, cfg.ssm_state_dim, cfg.ssm_num_heads
     P = cfg.ssm_head_dim
 
-    zxbcdt = x @ p["in_proj"]
+    if split_dim(p["in_proj"].shape[-1], 2 * inner + 2 * N + H, dist):
+        zxbcdt = gather_last(copy_to(x, dist) @ p["in_proj"], dist)
+    else:
+        zxbcdt = x @ p["in_proj"]
     z = zxbcdt[..., :inner]
     xbc = zxbcdt[..., inner:2 * inner + 2 * N]
     dt_raw = zxbcdt[..., 2 * inner + 2 * N:]
@@ -161,4 +175,7 @@ def mamba2_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
     y = y.reshape(B, S, inner).to(x.dtype)
     y = y * activation(z, "silu")
     y = rmsnorm(y, p["norm_w"], cfg.norm_eps)
+    if split_dim(p["out_proj"].shape[0], inner, dist):
+        return reduce_from(scatter_last(y, dist) @ p["out_proj"], dist), \
+            MambaState(new_ssm, new_tail)
     return y @ p["out_proj"], MambaState(new_ssm, new_tail)

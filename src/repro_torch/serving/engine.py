@@ -107,9 +107,12 @@ def _write_slot(slot, new) -> None:
 
 class ServingEngine:
     """``params`` live on the device the engine serves from (the card in
-    production; tests pass CPU parameters)."""
+    production; tests pass CPU parameters).  ``dist``: the JAX engine's
+    ``DistContext``; one over a model axis above 1 raises (A6e)."""
 
-    def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params: Dict):
+    def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params: Dict,
+                 dist=None):
+        M.serving_dist(dist)        # one model rank: A6e in ROADMAP.md
         self.cfg = cfg
         self.scfg = scfg
         self.params = params

@@ -10,21 +10,24 @@ loop: checkpoint cadence, straggler monitoring, fault injection,
 restore-and-continue on failure, deterministic data replay from the
 restored step counter.
 
-With a training mesh (``launch.mesh.TrainMesh``) the step runs the
-data-axis route over ``torch.distributed``, where the JAX package runs
-GSPMD: every rank draws the global batch and keeps its rows as the JAX
-placement gives them (the batch split into microbatches first, each
-microbatch then over the batch axes); each microbatch's gradients are
-mean-reduced over the batch axes into the optimizer moments' shards
-(ZeRO-1: reduce-scatter, or all-reduce where a leaf is not split); the
-global norm sums the shards' squares in one all-reduce; AdamW runs on
-the shards and the parameters are all-gathered back where their spec
-replicates them.  On a one-rank group every piece reduces to the
-``mesh=None`` step bit for bit.  A model axis above 1 outside
-``dp_only`` raises (tensor parallelism comes with A6d in ROADMAP.md).
-Under a mesh rank 0 writes the checkpoints, of the full arrays; every
-rank restores full arrays and keeps its shard, so a checkpoint restores
-onto any rank count.
+With a training mesh (``launch.mesh.TrainMesh``) the step runs over
+``torch.distributed``, where the JAX package runs GSPMD: every rank
+draws the global batch and keeps its rows as the JAX placement gives
+them (the batch split into microbatches first, each microbatch then
+over the batch axes; the ranks of a model group share their rows).  The
+parameters are gathered over the batch axes into each rank's model
+shard, which the model code runs on (tensor and expert parallelism over
+a model axis above 1, ``models.forward``).  Each microbatch's gradients
+are mean-reduced over the batch axes alone into the optimizer moments'
+shards (ZeRO-1: reduce-scatter, or all-reduce where a leaf is not split
+over them); the global norm sums the shards' squares in one all-reduce
+over every rank, each shard counted once; AdamW runs on the shards and
+the parameters are all-gathered back over the batch axes where their
+spec replicates them there.  On a one-rank group every piece reduces to
+the ``mesh=None`` step bit for bit.  Under a mesh rank 0 writes the
+checkpoints, of the full arrays; every rank restores full arrays and
+keeps its shard, so a checkpoint restores onto any (data, model)
+shape.
 """
 from __future__ import annotations
 
@@ -66,7 +69,8 @@ def _qdq(g: torch.Tensor, absmax: Optional[torch.Tensor] = None):
 def qdq_(g: torch.Tensor, group=None) -> torch.Tensor:
     """``g`` quantized to int8 and back (``_qdq``), in place, in slices of
     whole rows.  ``group``: the ranks that hold the rest of each row (the
-    last dim split over them), whose absmax the scale takes."""
+    last dim split over them, by the model or the batch axes), whose
+    absmax the scale takes."""
     if g.ndim < 2:
         return g.copy_(_qdq(g))
     rows = g.view(-1, g.shape[-1])
@@ -145,6 +149,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
         parts, index = 1, 0
 
     def grad_fn(params, mbatch):
+        """(loss, the gradients of ``params`` -- this rank's model
+        shard)."""
         names = sorted(params)
         for p in params.values():
             p.requires_grad_(True)
@@ -157,8 +163,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
         return loss.detach(), dict(zip(names, grads))
 
     def reduce(grads):
-        """The microbatch's gradients, mean-reduced over the batch axes
-        into the moments' shards (themselves on one device)."""
+        """The microbatch's model-shard gradients, mean-reduced over the
+        batch axes into the moments' shards (themselves on one
+        device)."""
         if mesh is None:
             return grads
         return {n: opl[n].reduce_mean(g, axes) for n, g in grads.items()}
@@ -189,10 +196,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
         out = {}
         for n, g in grads.items():
             g = g.contiguous()
-            row_split = mesh is not None and opl[n].split \
-                and opl[n].dim == g.ndim - 1
-            out[n] = qdq_(g, mesh.group(opl[n].axes) if row_split
-                          else None)
+            row = opl[n].row_axes(g.ndim) if mesh is not None else None
+            out[n] = qdq_(g, mesh.group(row) if row is not None else None)
         return out
 
     def grads_only(state: TrainState, batch: Dict) -> Tuple[torch.Tensor,
@@ -203,8 +208,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
         if mesh is None:
             params = state.params
             device = next(iter(params.values())).device
-        else:                   # the full parameters, gathered where split
-            params = {n: ppl[n].gather(p) for n, p in state.params.items()}
+        else:       # the model shards, gathered over the batch axes
+            params = {n: ppl[n].gather_batch(p)
+                      for n, p in state.params.items()}
             device = mesh.device
         loss, grads = gradients(params, batch, device)
         return loss, compress(grads)
@@ -217,27 +223,31 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
             mets["loss"] = loss
             return TrainState(params, opt), mets
         import torch.distributed as tdist
-        # the global norm: each shard's sum of squares (a leaf held whole
-        # on several ranks counted on one), one all-reduce, then
-        # ``_global_norm``'s ordered sum
+        # the global norm: each shard's sum of squares (a shard held on
+        # several ranks -- replicated over batch or model axes -- counted
+        # on one), one all-reduce over every rank, then ``_global_norm``'s
+        # ordered sum
         sq = []
         for n in sorted(grads):
             s = grads[n].to(torch.float32, copy=True).square_().sum()
-            rest = tuple(a for a in axes if a not in opl[n].axes)
+            rest = tuple(a for a in mesh.axis_names
+                         if a not in opl[n].axes)
             sq.append(s if mesh.index(rest) == 0 else torch.zeros_like(s))
         sq = torch.stack(sq)
-        tdist.all_reduce(sq, group=group)
+        tdist.all_reduce(sq, group=mesh.group(mesh.axis_names))
         tot = None
         for s in sq.unbind(0):
             tot = s if tot is None else tot + s
-        # AdamW on the moments' shards of the parameters
-        own = {n: p if ppl[n] == opl[n] else opl[n].shard(ppl[n].gather(p))
+        # AdamW on the moments' shards of the parameters (the model
+        # split is the same: only the batch split differs)
+        own = {n: p if ppl[n] == opl[n]
+               else opl[n].shard_batch(ppl[n].gather_batch(p))
                for n, p in state.params.items()}
         own, opt, mets = adamw_update(own, grads, state.opt, tcfg,
                                       gnorm=torch.sqrt(tot))
         del grads
         params = {n: own[n] if ppl[n] == opl[n]
-                  else ppl[n].shard(opl[n].gather(own[n]))
+                  else ppl[n].shard_batch(opl[n].gather_batch(own[n]))
                   for n in state.params}
         loss = loss.reshape(1).clone()
         tdist.all_reduce(loss, group=group)
@@ -261,17 +271,10 @@ def init_state(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
         return TrainState(params, adamw_init(params, dev))
     pl = named(mesh, state_pspecs(cfg, tcfg, multi_pod, mesh))
     params = {n: pl.params[n].shard(p) for n, p in params.items()}
-    shard_shapes = {n: torch.empty(_local_shape(p.shape, pl.opt.m[n]),
+    shard_shapes = {n: torch.empty(pl.opt.m[n].local_shape(p.shape),
                                    device="meta")
                     for n, p in param_specs(cfg).items()}
     return TrainState(params, adamw_init(shard_shapes, dev))
-
-
-def _local_shape(shape, placement) -> Tuple[int, ...]:
-    shape = list(shape)
-    if placement.split:
-        shape[placement.dim] //= placement.parts
-    return tuple(shape)
 
 
 def _barrier(mesh):

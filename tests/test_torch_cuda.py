@@ -1376,3 +1376,75 @@ def test_cuda_train_step_matches_cpu(cuda, arch):
             qc, sc = quantize_int8(g)
             qd, sd = quantize_int8(g.to(cuda))
             assert torch.equal(qd.cpu(), qc) and torch.equal(sd.cpu(), sc)
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_parallel_collectives_one_rank(cuda, tmp_path):
+    """On a one-rank NCCL (1, 1) mesh the four autograd collectives
+    return their CUDA input itself, and a two-dim placement's shard,
+    gather and batch gather are the full tensor."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import tensor_parallel as T
+    from repro_torch.distributed.shardings import P, Placement, make_dist
+    from repro_torch.launch.mesh import make_train_mesh
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_train_mesh((1, 1), device=cuda)
+        d = make_dist(mesh)
+        x = torch.randn(3, 8, device=cuda, requires_grad=True)
+        for fn in (T.copy_to, T.reduce_from, T.gather_last,
+                   T.scatter_last):
+            assert fn(x, d) is x
+        pl = Placement(mesh, P(None, "data", "model"))
+        full = torch.randn(2, 4, 8, device=cuda)
+        assert pl.shard(full) is full and pl.gather(full) is full
+        assert pl.gather_batch(full) is full
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "rwkv6-7b",
+                                  "zamba2-2.7b"])
+def test_cuda_one_rank_model_axis_route_equals_no_mesh(cuda, tmp_path,
+                                                       arch):
+    """The SMOKE MoE, RWKV6 and Mamba2 families under tp and fsdp with
+    int8 over 2 microbatches on a one-rank NCCL mesh: 2 steps == 2 steps
+    with ``mesh=None``, bitwise, under deterministic algorithms."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.lm import SyntheticLM
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.train.loop import init_state, make_train_step
+    cfg = get_config(arch, smoke=True)
+    data = SyntheticLM(cfg.vocab_size, 64, 4, seed=0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mesh = make_train_mesh((1, 1), device=cuda)
+        for mode in ("tp", "fsdp"):
+            tcfg = TrainConfig(microbatch=2, grad_compression="int8",
+                               sharding_mode=mode, warmup_steps=2)
+            runs = []
+            for m in (None, mesh):
+                st = init_state(cfg, tcfg, m, device=cuda)
+                step = make_train_step(cfg, tcfg, m)
+                mets = []
+                for s in range(2):
+                    st, met = step(st, data.batch(s, device=cuda))
+                    mets.append(met)
+                runs.append((st, mets))
+            (a, am), (b, bm) = runs
+            for n in a.params:
+                assert torch.equal(a.params[n], b.params[n]), (mode, n)
+                assert torch.equal(a.opt.v[n], b.opt.v[n]), (mode, n)
+            for x, y in zip(am, bm):
+                assert all(torch.equal(x[k], y[k]) for k in x)
+    finally:
+        torch.use_deterministic_algorithms(was)
+        dist.destroy_process_group()

@@ -122,10 +122,24 @@ def test_moe_layer_matches_jax(cf, shared, act):
 
 
 def test_moe_layer_needs_no_mesh():
-    cfg = get_config("qwen3-moe-235b-a22b", smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TMoE.moe_layer(*(torch.zeros(1) for _ in range(5)), cfg,
-                       dist=object())
+    """A context on a model axis of 1 (every expert local) gives
+    ``dist=None``'s layer bitwise; a ``dist`` that is no ``DistContext``
+    raises.  The expert-parallel route over a model axis above 1 is in
+    ``test_torch_tp_moe.py``."""
+    from types import SimpleNamespace
+
+    from repro_torch.models.dist import DistContext
+    cfg = get_config("qwen3-moe-235b-a22b", smoke=True).replace(**F32)
+    x, (rw, wg, wu, wd), _ = _layer_inputs(3, 2, 24, cfg.d_model,
+                                           cfg.num_experts, cfg.moe_d_ff,
+                                           False)
+    args = [torch.from_numpy(a) for a in (x, rw, wg, wu, wd)]
+    want = TMoE.moe_layer(*args, cfg)
+    one = DistContext(mesh=SimpleNamespace(shape={"data": 1, "model": 1}))
+    got = TMoE.moe_layer(*args, cfg, dist=one)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(TypeError, match="DistContext"):
+        TMoE.moe_layer(*args, cfg, dist=object())
 
 
 @pytest.mark.parametrize("arch", ARCHS)

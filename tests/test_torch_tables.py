@@ -143,7 +143,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.optim", "repro_torch.optim.adamw",
             "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
             "repro_torch.distributed.fault",
-            "repro_torch.distributed.compression", "repro_torch.train",
+            "repro_torch.distributed.compression",
+            "repro_torch.distributed.tensor_parallel", "repro_torch.train",
             "repro_torch.train.loop", "repro_torch.launch.train"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
