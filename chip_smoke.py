@@ -280,7 +280,27 @@ is non-zero:
    steps' losses and grad norms within 1e-5 relative, the leaves
    replicated over the model axis bitwise equal on both ranks, ms a step
    and each rank's peak; a failure inside the route fails the run; the
-   phase launches none of the kernels;
+   phase launches none of the kernels, counted in this process and in
+   each rank process;
+3o. the model axis in serving, after 3n: (d) h2o-danube3-4b at full
+   width, 2 layers, bf16: prefill past the window and a decode step on
+   a one-rank NCCL group == ``dist=None`` bitwise; then rank processes
+   on the card over gloo (``--serve-rank``), each probing the
+   collectives first: (a) on two, h2o-danube3-4b at full width and
+   depth in bf16 served by ``ServingEngine`` at tp 2 (phase 3i's four
+   prompts, 16 greedy steps; rank 0 first alone as the one-rank
+   engine): prefill ms a request, decode ms a step, each rank's peak
+   and tokens, both ranks' tokens equal; (b) on the same two,
+   h2o-danube3-4b (a window ring), internvl2-26b (the fleet frame's
+   patch stream packed by CrossRoI's keep-list) and deepseek-moe-16b
+   (the expert-parallel route) at full width, 2 layers, float32:
+   prefill and 6 teacher-forced decode steps at tp 2 within 1e-5 of the
+   largest |logit| of the one-rank path; (c) on four, h2o-danube3-4b
+   and gemma3-27b at SMOKE in float32 at tp 4, where KV heads 2 do not
+   divide and the caches split their sequence (flash decoding): the
+   same bar, and every rank's engine tokens equal to the one-rank
+   engine's; a failed rank fails the run; the phase launches none of
+   the kernels, counted in this process and in each rank process;
 4. a ``kernels`` JSON line with each kernel's launches on its path (B1-B5
    on the fleet path of phases 3 and 3b, B10 and B11 on the rate-control
    loop, B6-B9 on phase 3d's paths, B12 on the engine's tensors in 3f),
@@ -4663,15 +4683,40 @@ def tp_rank_main(rank: int, out_dir: str) -> int:
     res = {"probe": _tp_probe(torch, dist, dev, rank, 2), "routes": []}
     try:
         if all(r[1] == "ok" for r in res["probe"]):
+            zero_counts()
             with deterministic(torch):
                 for arch in TP_ARCHS:
                     res["routes"].append(_tp_route(torch, dist, dev, rank,
                                                    arch))
+            write_counts(out_dir, rank)
     finally:
         if rank == 0:
             Path(out_dir, "result.json").write_text(json.dumps(res))
         dist.destroy_process_group()
     return 0
+
+
+def zero_counts():
+    """A rank process's kernel launch and dispatch counts set to 0, just
+    before its path."""
+    from repro_torch.kernels import _build, ops
+    ops.KERNEL_COUNTS.clear()
+    _build.LAUNCHES.clear()
+
+
+def write_counts(out_dir: str, rank: int):
+    """A rank process's counts since ``zero_counts``, read just after its
+    path, into ``counts<rank>.json`` in ``out_dir``."""
+    from repro_torch.kernels import _build, ops
+    Path(out_dir, f"counts{rank}.json").write_text(json.dumps(
+        {"launches": dict(_build.LAUNCHES),
+         "dispatches": dict(ops.KERNEL_COUNTS)}))
+
+
+def read_counts(out_dir: str, world: int):
+    """Every rank process's counts (``write_counts``), by rank."""
+    return [json.loads(Path(out_dir, f"counts{r}.json").read_text())
+            for r in range(world)]
 
 
 def tp_two_ranks(torch, smi):
@@ -4703,6 +4748,7 @@ def tp_two_ranks(torch, smi):
         return res
     assert all(p.returncode == 0 for p in procs), \
         [p.returncode for p in procs]
+    res["counts"] = read_counts(d, 2)
     for r in res["routes"]:
         say(f"[3n] (b) {r['arch']} full width, {TP_LAYERS} layers "
             f"({r['params_b']:.3f} B parameters), float32, batch "
@@ -4733,9 +4779,441 @@ def tp_phase(torch, dev):
     gc.collect()
     torch.cuda.empty_cache()
     ta = time.perf_counter() - t0
-    tp_two_ranks(torch, smi)
+    res = tp_two_ranks(torch, smi)
     say(f"[3n] (a) {ta:.1f} s, (b) {time.perf_counter() - t0 - ta:.1f} s "
         f"({smi})")
+    return {"(b)": res["counts"]} if "counts" in res else {}
+
+
+# ---------------------------------------------------------------------------
+# phase 3o: the model axis in serving
+# ---------------------------------------------------------------------------
+
+SERVE_TP_ARCH = "h2o-danube3-4b"     # (a): full width and depth, bf16
+SERVE_TP_LEN = 4608                   # (a)'s dense prompts, past the window
+SERVE_ID_ARCHS = ("h2o-danube3-4b", "internvl2-26b", "deepseek-moe-16b")
+SERVE_ID_LAYERS = 2                   # (b): full width, float32
+SERVE_ID_LEN = {"h2o-danube3-4b": 4608, "deepseek-moe-16b": 1024}
+SERVE_SEQ_ARCHS = ("h2o-danube3-4b", "gemma3-27b")   # (c): SMOKE, tp 4
+SERVE_SEQ_LEN = 40                    # (c)'s prompt, past SMOKE's window 32
+SERVE_ID_STEPS = 6                    # teacher-forced steps of (b), (c)
+SERVE_ID_TOL = 1e-5                   # of the largest |logit|
+SERVE_TP_TIMEOUT = 480                # s, each set of rank processes
+
+
+def f32(cfg):
+    """``cfg`` with float32 weights and caches."""
+    return cfg.replace(dtype="float32", kv_cache_dtype="float32")
+
+
+def shard_params(cfg, full, mesh):
+    """This rank's model shard of the full parameters (``param_pspecs``'
+    tp mode, as training cuts them)."""
+    from repro_torch.distributed.shardings import named, param_pspecs
+    from repro_torch.models.params import param_specs
+    pl = named(mesh, param_pspecs(cfg, param_specs(cfg), "tp", mesh=mesh))
+    return {n: pl[n].shard(v) for n, v in full.items()}
+
+
+def timed_serve(torch, engine, reqs, steps):
+    """``engine.serve(reqs)`` with each request's prefill and each group
+    decode step timed on the host clock, each ending in a synchronize:
+    (tokens {rid: list}, prefill ms, decode ms per step, wall ms)."""
+    prefill_ms, decode_ms = [], []
+
+    def timed(fn, into):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            into.append(round((time.perf_counter() - t) * 1e3, 3))
+            return out
+        return run
+
+    engine.prefill = timed(engine.prefill, prefill_ms)
+    engine.roi_prefill = timed(engine.roi_prefill, prefill_ms)
+    engine._decode_group = timed(engine._decode_group, decode_ms)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.serve(reqs, greedy_steps=steps)
+    wall = (time.perf_counter() - t0) * 1e3
+    return ({int(k): v.tolist() for k, v in out.items()}, prefill_ms,
+            decode_ms, wall)
+
+
+def _serve_full(torch, dist, dev, rank, mesh, d, cfg, prompts, steps):
+    """(a): ``cfg``'s engine serving ``prompts`` at the mesh's tp, rank 0
+    first alone on the full parameters (the one-rank engine); each
+    rank's tokens, times and peak memory."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    def reqs():
+        return [Request(i, tokens=t, keep=k, max_new_tokens=steps)
+                for i, (t, k) in enumerate(prompts)]
+
+    scfg = ServeConfig(max_batch=4, roi_sparsity=True)
+    full = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       dev)
+    one = None
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        one = timed_serve(torch, ServingEngine(cfg, scfg, full), reqs(),
+                          steps)
+        one += (torch.cuda.max_memory_allocated() / 2 ** 30,)
+    params = shard_params(cfg, full, mesh)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    got = timed_serve(torch, ServingEngine(cfg, scfg, params, dist=d),
+                      reqs(), steps)
+    got += (torch.cuda.max_memory_allocated() / 2 ** 30,)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    every = [None] * mesh.size("model")
+    dist.all_gather_object(every, got)
+    keys = ("tokens", "prefill_ms", "decode_ms", "wall_ms", "peak_gib")
+    return None if rank else {
+        "one": dict(zip(keys, one)),
+        "ranks": [dict(zip(keys, g)) for g in every]}
+
+
+def _identity_inputs(torch, cfg, dev, length):
+    """(b), (c)'s prompt: ``length`` token ids, or for vlm the fleet
+    frame's patch stream packed by its RoI keep-list (CrossRoI's kept
+    tokens, ``fleet_keep``); the teacher-forced tokens: (batch, prefill
+    keywords, decode tokens (1, SERVE_ID_STEPS), start position,
+    max_seq)."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng((SEED, 340))
+    teach = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                         (1, SERVE_ID_STEPS)), device=dev)
+    if cfg.family == "vlm":
+        keep = torch.as_tensor(fleet_keep(fleet_grids(
+            np.random.default_rng(SEED))), device=dev)
+        x = torch.as_tensor(rng.standard_normal(
+            (keep.shape[0], cfg.frontend_dim)), dtype=torch.float32,
+            device=dev)
+        packed, positions, n = ops.pack_tokens(x, keep)
+        batch = {"tokens": torch.zeros((1, 0), dtype=torch.long,
+                                       device=dev),
+                 "patches": packed[None]}
+        kw = {"positions": positions[None], "last_index": n - 1}
+        return batch, kw, teach, n, packed.shape[0] + SERVE_ID_STEPS
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, length)),
+                           device=dev)
+    return {"tokens": toks}, {}, teach, length, length + SERVE_ID_STEPS
+
+
+def teacher_forced(torch, M, params, cfg, dev, inputs, d=None):
+    """Prefill and SERVE_ID_STEPS teacher-forced decode steps: each
+    call's last-row logits (float32, on the host) and its ms."""
+    batch, kw, teach, start, max_seq = inputs
+    caches = M.init_cache(cfg, 1, max_seq, dev, dist=d)
+    out, ms = [], []
+    for i in range(-1, SERVE_ID_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if i < 0:
+            logits, caches = M.prefill(params, cfg, batch, caches, dist=d,
+                                       **kw)
+        else:
+            logits, caches = M.decode_step(params, cfg, teach[:, i:i + 1],
+                                           caches, start + i, dist=d)
+        torch.cuda.synchronize()
+        ms.append(round((time.perf_counter() - t) * 1e3, 3))
+        out.append(logits[0, -1].float().cpu())
+    return out, ms
+
+
+def _serve_identity(torch, dist, dev, rank, mesh, d, cfg, length):
+    """(b), (c): rank 0's one-rank teacher-forced run on the full
+    parameters, then every rank's on its shard: each call's largest
+    |logit| error as a share of the one-rank call's largest |logit|."""
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    full = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       dev)
+    inputs = _identity_inputs(torch, cfg, dev, length)
+    with torch.no_grad():
+        ref = teacher_forced(torch, M, full, cfg, dev, inputs) \
+            if rank == 0 else None
+        params = shard_params(cfg, full, mesh)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        got = teacher_forced(torch, M, params, cfg, dev, inputs, d)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    every = [None] * mesh.size("model")
+    dist.all_gather_object(every, got[0])
+    if rank:
+        return None
+    want = ref[0]
+    shares = [max(float((g[i] - w).abs().max()) / float(w.abs().max())
+                  for g in every) for i, w in enumerate(want)]
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "params_b": cfg.param_count() / 1e9, "shares": shares,
+            "scale": max(float(w.abs().max()) for w in want),
+            "ms_one": ref[1], "ms_tp": got[1], "start": inputs[3],
+            "kv_heads": cfg.num_kv_heads}
+
+
+def _serve_seq(torch, dist, dev, rank, mesh, d, cfg):
+    """(c): ``_serve_identity`` of a SMOKE config whose KV heads do not
+    divide over the mesh (the sequence split), then its engine's tokens
+    on every rank against the one-rank engine's."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import Request, ServingEngine
+    res = _serve_identity(torch, dist, dev, rank, mesh, d, cfg,
+                          SERVE_SEQ_LEN)
+    rng = np.random.default_rng((SEED, 341))
+    prompts = [(rng.integers(0, cfg.vocab_size, SERVE_SEQ_LEN - 3 * i)
+                .astype(np.int32), None) for i in range(3)]
+    reqs = [Request(i, tokens=t, max_new_tokens=SERVE_ID_STEPS)
+            for i, (t, _) in enumerate(prompts)]
+    full = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                       dev)
+    scfg = ServeConfig(max_batch=4)
+    one = ServingEngine(cfg, scfg, full).serve(
+        reqs, greedy_steps=SERVE_ID_STEPS) if rank == 0 else None
+    eng = ServingEngine(cfg, scfg, shard_params(cfg, full, mesh), dist=d)
+    got = eng.serve(reqs, greedy_steps=SERVE_ID_STEPS)
+    every = [None] * mesh.size("model")
+    dist.all_gather_object(every, {k: v.tolist() for k, v in got.items()})
+    if rank:
+        return None
+    res["tokens_one"] = {k: v.tolist() for k, v in one.items()}
+    res["tokens_ranks"] = every
+    res["cache"] = {k: tuple(v[0].shape) for k, v in eng._ring.items()}
+    return res
+
+
+def _bf16_probe(torch, dist, dev, rank, world):
+    """The bfloat16 collectives of (a)'s route over the gloo group on
+    CUDA tensors: [(name, "ok" or the error)]."""
+    rows = []
+    for name in ("all_reduce(SUM) bf16", "all_gather_into_tensor bf16"):
+        try:
+            t = torch.full((8,), rank + 1, dtype=torch.bfloat16, device=dev)
+            if name.startswith("all_reduce"):
+                dist.all_reduce(t)
+                ok = bool((t == world * (world + 1) // 2).all())
+            else:
+                out = torch.empty(8 * world, dtype=torch.bfloat16,
+                                  device=dev)
+                dist.all_gather_into_tensor(out, t)
+                ok = torch.equal(out.cpu(), torch.arange(
+                    1, world + 1, dtype=torch.bfloat16).repeat_interleave(8))
+            torch.cuda.synchronize()
+            rows.append((name, "ok" if ok else "wrong result"))
+        except Exception as e:              # the probe's answer
+            rows.append((name, f"{type(e).__name__}: "
+                               f"{str(e).splitlines()[0][:300]}"))
+    return rows
+
+
+def serve_rank_main(rank: int, world: int, out_dir: str) -> int:
+    """One of phase 3o's rank processes on the card, on a (1, world) mesh
+    over gloo: the probes, then with 2 ranks (a) and (b), with 4 (c);
+    rank 0 writes ``result.json`` in ``out_dir``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.distributed.shardings import make_dist
+    from repro_torch.launch.mesh import make_train_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/pg",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    res = {"probe": _tp_probe(torch, dist, dev, rank, world)
+           + _bf16_probe(torch, dist, dev, rank, world)}
+    try:
+        if all(r[1] == "ok" for r in res["probe"]):
+            from repro_torch.configs import get_config
+            mesh = make_train_mesh((1, world), device=dev)
+            args = (torch, dist, dev, rank, mesh, make_dist(mesh))
+            zero_counts()
+            with deterministic(torch):
+                if world == 2:
+                    cfg = get_config(SERVE_TP_ARCH)
+                    res["full"] = _serve_full(
+                        *args, cfg, decoder_prompts(cfg, SERVE_TP_LEN),
+                        DECODER_STEPS)
+                    res["identities"] = [_serve_identity(
+                        *args, f32(get_config(a).replace(
+                            num_layers=SERVE_ID_LAYERS)),
+                        SERVE_ID_LEN.get(a, 0)) for a in SERVE_ID_ARCHS]
+                else:
+                    res["seq"] = [_serve_seq(
+                        *args, f32(get_config(a, smoke=True)))
+                        for a in SERVE_SEQ_ARCHS]
+            write_counts(out_dir, rank)
+        res["done"] = True
+    finally:
+        if rank == 0:
+            Path(out_dir, "result.json").write_text(json.dumps(res))
+        dist.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(world: int):
+    """``world`` rank processes of ``serve_rank_main`` on the card, waited
+    on with SERVE_TP_TIMEOUT and killed past it; rank 0's result."""
+    import tempfile
+    BUILD.mkdir(parents=True, exist_ok=True)
+    d = tempfile.mkdtemp(dir=BUILD, prefix=f"serve{world}_")
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--serve-rank", str(r), str(world), d])
+             for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, SERVE_TP_TIMEOUT
+                               - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), \
+        [p.returncode for p in procs]
+    res = json.loads(Path(d, "result.json").read_text())
+    for name, verdict in res["probe"]:
+        say(f"[3o] probe on {world} processes: {name} over gloo on CUDA "
+            f"tensors: {verdict}")
+    assert all(r[1] == "ok" for r in res["probe"]) and res.get("done"), res
+    res["counts"] = read_counts(d, world)
+    return res
+
+
+def say_identity(tag, r, smi):
+    say(f"{tag} {r['arch']} ({r['layers']} layers, {r['params_b']:.3f} B "
+        f"parameters, KV heads {r['kv_heads']}), float32: prefill and "
+        f"{SERVE_ID_STEPS} teacher-forced decode steps from position "
+        f"{r['start']} against the one-rank path: error per call as a "
+        f"share of the largest |logit| ({r['scale']:.4f}) {fmt(r['shares'])}"
+        f" (bar {SERVE_ID_TOL}); ms per call one rank {r['ms_one']}, tp "
+        f"{r['ms_tp']} ({smi})")
+    assert max(r["shares"]) <= SERVE_ID_TOL, r["shares"]
+
+
+def serve_one_rank(torch, dev, smi):
+    """The route on one rank: h2o-danube3-4b at full width, 2 layers,
+    bf16, prefill of a prompt past the window and one decode step on a
+    one-rank NCCL group's (1, 1) mesh, against ``dist=None``: the logits
+    and every cache tensor bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.shardings import make_dist
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.params import init_params
+    cfg = get_config(SERVE_TP_ARCH).replace(num_layers=2)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    toks = torch.as_tensor(decoder_prompts(cfg, SERVE_TP_LEN)[0][0],
+                           device=dev)[None]
+
+    def run(d):
+        caches = M.init_cache(cfg, 1, SERVE_TP_LEN + 1, dev, dist=d)
+        lp, caches = M.prefill(params, cfg, {"tokens": toks}, caches,
+                               dist=d)
+        ld, caches = M.decode_step(params, cfg, lp[:, -1].argmax(-1)[:, None],
+                                   caches, SERVE_TP_LEN, dist=d)
+        return [lp, ld, *caches["blocks"]]
+
+    with torch.no_grad(), deterministic(torch):
+        want = run(None)
+        with one_rank_group(torch, "nccl"):
+            got = run(make_dist(make_train_mesh((1, 1), device=dev)))
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    say(f"[3o] (d) {cfg.name} full width, 2 layers, bf16: prefill of "
+        f"{SERVE_TP_LEN} tokens and a decode step on the one-rank NCCL "
+        f"mesh == dist=None bitwise (logits and caches): {same} ({smi})")
+    assert same
+
+
+def serve_tp_phase(torch, dev):
+    """Phase 3o: (d) ``serve_one_rank``; (a) and (b) on two rank
+    processes, (c) on four (``spawn_ranks``)."""
+    from repro_torch.configs import get_config
+    smi = " | ".join(nvidia_smi())
+    t0 = time.perf_counter()
+    serve_one_rank(torch, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    td = time.perf_counter() - t0
+    res = spawn_ranks(2)
+    counts = {"(a)+(b)": res["counts"]}
+    f = res["full"]
+    lens = [len(t) for t, _ in decoder_prompts(get_config(SERVE_TP_ARCH),
+                                               SERVE_TP_LEN)]
+    say(f"[3o] (a) {SERVE_TP_ARCH} full width and depth, bf16, served at "
+        f"tp=2 on two processes: prompts of {lens} tokens (two "
+        f"keep-lists), {DECODER_STEPS} greedy steps")
+    one = f["one"]
+    say(f"[3o] (a) one rank: prefill ms {one['prefill_ms']}; decode ms per "
+        f"step {one['decode_ms']} (median "
+        f"{statistics.median(one['decode_ms']):.3f}); wall "
+        f"{one['wall_ms']:.1f} ms; peak {one['peak_gib']:.2f} GiB; tokens "
+        f"{one['tokens']} ({smi})")
+    for r, g in enumerate(f["ranks"]):
+        say(f"[3o] (a) tp=2 rank {r}: prefill ms {g['prefill_ms']}; decode "
+            f"ms per step {g['decode_ms']} (median "
+            f"{statistics.median(g['decode_ms']):.3f}); wall "
+            f"{g['wall_ms']:.1f} ms; peak {g['peak_gib']:.2f} GiB; tokens "
+            f"{g['tokens']} ({smi})")
+    same = [g["tokens"] == f["ranks"][0]["tokens"] for g in f["ranks"]]
+    agree = sum(a == b for rid in one["tokens"] for a, b in
+                zip(one["tokens"][rid], f["ranks"][0]["tokens"][rid]))
+    total = sum(len(v) for v in one["tokens"].values())
+    say(f"[3o] (a) both ranks' tokens equal: {all(same)}; {agree} of {total}"
+        f" tokens equal to the one-rank engine's (bf16 on random weights "
+        f"flips near-ties: printed, not asserted)")
+    assert all(same) and len(f["ranks"]) == 2
+    assert all(len(v) == DECODER_STEPS for v in f["ranks"][0]["tokens"]
+               .values())
+    for r in res["identities"]:
+        say_identity("[3o] (b) tp=2:", r, smi)
+    ta = time.perf_counter() - t0 - td
+    res = spawn_ranks(4)
+    counts["(c)"] = res["counts"]
+    for r in res["seq"]:
+        say_identity("[3o] (c) tp=4 (the sequence split):", r, smi)
+        same = all(t == r["tokens_one"] for t in r["tokens_ranks"])
+        say(f"[3o] (c) {r['arch']} engine: ring caches per rank "
+            f"{r['cache']}; every rank's greedy tokens equal the one-rank "
+            f"engine's: {same} ({r['tokens_one']})")
+        assert same
+    say(f"[3o] (d) {td:.1f} s, (a)+(b) {ta:.1f} s, (c) "
+        f"{time.perf_counter() - t0 - td - ta:.1f} s ({smi})")
+    return counts
+
+
+def say_rank_counts(tag: str, ranks):
+    """Print each rank process's launches and dispatches (``ranks``: part
+    -> each rank's counts, set to 0 just before the part's path and read
+    just after) and fail unless every one is empty."""
+    for part, every in ranks.items():
+        say(f"{tag} {part}, read in each of its {len(every)} rank "
+            f"processes: kernel launches "
+            f"{[c['launches'] for c in every]}, dispatches "
+            f"{[c['dispatches'] for c in every]}")
+        assert every and all(c["launches"] == {} and c["dispatches"] == {}
+                             for c in every), (part, every)
 
 
 def run_path(torch, fn, *args):
@@ -4907,13 +5385,25 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    _, launches["train_tp"], disp, peak = run_path(torch, tp_phase, torch,
-                                                   dev)
+    ranks, launches["train_tp"], disp, peak = run_path(torch, tp_phase,
+                                                       torch, dev)
     say(f"[main] phase 3n, the model axis in training: kernel launches "
         f"{launches['train_tp']}, dispatches {disp} (none of the twelve "
         f"kernels lies on this path); peak memory {peak:.2f} GiB; "
         f"{time.perf_counter() - t0:.1f} s")
     assert launches["train_tp"] == {} and disp == {}
+    say_rank_counts("[main] phase 3n", ranks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks, launches["serve_tp"], disp, peak = run_path(
+        torch, serve_tp_phase, torch, dev)
+    say(f"[main] phase 3o, the model axis in serving: kernel launches "
+        f"{launches['serve_tp']}, dispatches {disp} (none of the twelve "
+        f"kernels lies on this path); peak memory {peak:.2f} GiB; "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert launches["serve_tp"] == {} and disp == {}
+    say_rank_counts("[main] phase 3o", ranks)
 
     rows = []
     for kname, (source, replaces) in KERNELS.items():
@@ -4936,4 +5426,7 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--tp-rank":
         sys.exit(tp_rank_main(int(sys.argv[2]), sys.argv[3]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--serve-rank":
+        sys.exit(serve_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                 sys.argv[4]))
     sys.exit(main())

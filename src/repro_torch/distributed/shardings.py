@@ -192,8 +192,12 @@ def cache_pspecs(cache, mesh, multi_pod: bool = False,
 
     kv (L, B, S, KH, Dh): B over data when divisible (else S takes data:
     sequence parallelism at batch 1); KH over model when divisible, else S
-    over model.  The port computes these placements but runs none of
-    them until A6e (serving over a model axis, ROADMAP.md)."""
+    over model.  ``model.init_cache`` builds a rank's shard of each KV
+    cache as ``cache_placements`` cuts it (``models.cache_layout``: under
+    the sequence split max_seq rounded up to a multiple of the model
+    axis), and keeps the recurrent states where their route computes
+    them, not by the last rule here (ROADMAP.md, deliberate
+    differences)."""
     b = ("pod", "data") if multi_pod else ("data",)
     dp = _axis_size(mesh, b)
     tp = _axis_size(mesh, "model")
@@ -230,6 +234,56 @@ def cache_pspecs(cache, mesh, multi_pod: bool = False,
         return P()
 
     return tree_map(one, cache)
+
+
+def cache_placements(cfg, cache, mesh: TrainMesh, multi_pod: bool = False,
+                     kv_seq_shard: bool = False):
+    """The ``Placement`` of every leaf of ``cfg``'s cache tree as
+    ``models.cache_layout`` lays it out: ``shard`` cuts a whole cache
+    into this rank's shard.  The KV caches take ``named`` of
+    ``cache_pspecs``; the recurrent states take their route's placement
+    (rwkv6's wkv state by its heads where ``rwkv_heads`` splits them,
+    its shifts and zamba2's states over the batch rows alone).  A KV
+    cache whose sequence takes a batch axis (``kv_seq_shard``, or a
+    batch that does not divide) raises: that split comes with A6c in
+    ROADMAP.md."""
+    from repro_torch.models.cache_layout import rwkv_heads
+    b = ("pod", "data") if multi_pod else ("data",)
+    rows = P(None, b)
+
+    def kv(tree):
+        specs = cache_pspecs(tree, mesh, multi_pod, kv_seq_shard)
+
+        def one(leaf, spec):
+            seq = spec[2]
+            axes = () if seq is None else ((seq,) if isinstance(seq, str)
+                                           else tuple(seq))
+            if any(a in b for a in axes) and mesh.size(b) > 1:
+                raise NotImplementedError(
+                    f"a KV cache {tuple(leaf.shape)} placed {spec}: the "
+                    f"sequence split over the batch axes comes with A6c "
+                    f"in ROADMAP.md")
+            return Placement(mesh, spec)
+
+        return _zip_map(one, tree, specs)
+
+    if cfg.family == "ssm":
+        split = rwkv_heads(cfg, mesh.size("model")) < cfg.ssm_num_heads
+        wkv = P(None, b, "model") if split else rows
+        return tuple(Placement(mesh, s) for s in (wkv, rows, rows))
+    if cfg.family == "hybrid":
+        return {"states": (Placement(mesh, rows),) * 2,
+                "attn": kv(cache["attn"])}
+    return kv(cache)
+
+
+def _zip_map(fn, tree, other):
+    """``fn(leaf, other's leaf)`` over a tree of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, tree[k], other[k]) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_map(fn, x, y) for x, y in zip(tree, other))
+    return fn(tree, other)
 
 
 def make_dist(mesh: Optional[TrainMesh], auto_moe: bool = False,
@@ -444,5 +498,6 @@ def put_fleet_state(mesh: FleetMesh, tree):
 
 
 __all__ = ["P", "param_pspecs", "batch_pspec", "batch_pspecs_for",
-           "cache_pspecs", "make_dist", "named", "Placement", "tree_map",
-           "FleetStateSharding", "fleet_state_sharding", "put_fleet_state"]
+           "cache_pspecs", "cache_placements", "make_dist", "named",
+           "Placement", "tree_map", "FleetStateSharding",
+           "fleet_state_sharding", "put_fleet_state"]

@@ -18,10 +18,11 @@ gradient of its slice).  The four collectives move between the two:
   scatter_last this rank's slice forward, all-gather backward: a
                replicated tensor split on its last dim.
 
-Each takes the model code's ``DistContext``; on one rank (no mesh, or a
-model axis of 1) each is the identity in both directions and returns
-its input.  ``split_dim`` reads from a leaf's local width whether the
-leaf is split over the model group.
+``max_from`` (forward only) reduces flash decoding's running max in
+serving.  Each takes the model code's ``DistContext``; on one rank (no
+mesh, or a model axis of 1) each is the identity in both directions and
+returns its input.  ``split_dim`` reads from a leaf's local width
+whether the leaf is split over the model group.
 """
 from __future__ import annotations
 
@@ -119,6 +120,16 @@ def reduce_from(x: torch.Tensor, ctx) -> torch.Tensor:
     return _Reduce.apply(x, ctx.model_group())
 
 
+def max_from(x: torch.Tensor, ctx) -> torch.Tensor:
+    """The elementwise max of ``x`` over the model group, forward only
+    (flash decoding's running max in serving); ``x`` on one rank."""
+    if tp_size(ctx) == 1:
+        return x
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=ctx.model_group())
+    return out
+
+
 def gather_last(x: torch.Tensor, ctx) -> torch.Tensor:
     if tp_size(ctx) == 1:
         return x
@@ -131,5 +142,5 @@ def scatter_last(x: torch.Tensor, ctx) -> torch.Tensor:
     return _Scatter.apply(x, ctx.model_group(), ctx.tp, ctx.model_rank)
 
 
-__all__ = ["tp_size", "split_dim", "copy_to", "reduce_from", "gather_last",
-           "scatter_last"]
+__all__ = ["tp_size", "split_dim", "copy_to", "reduce_from", "max_from",
+           "gather_last", "scatter_last"]

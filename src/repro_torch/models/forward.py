@@ -5,12 +5,15 @@ Mamba2 hybrid trunk, and whisper's encoder and decoder trunks with the
 decoder's cross-attention K/V (``encdec``); and the chunked
 cross-entropy of the training loss.
 
-Over a model axis above 1 (``dist``, training only) each rank runs its
-model shard: query heads and KV heads of column-split ``wq``/``wk``/
-``wv`` (K and V gathered whole where the split cuts KV heads) and the
-row-split ``wo``, the MLPs' column and row halves, its vocabulary slice
-of the embedding and the cross-entropy, its experts, and RWKV6's heads;
-the collectives are ``distributed.tensor_parallel``'s.
+Over a model axis above 1 (``dist``) each rank runs its model shard:
+query heads and KV heads of column-split ``wq``/``wk``/``wv`` (K and V
+gathered whole where the split cuts KV heads) and the row-split ``wo``,
+the MLPs' column and row halves, its vocabulary slice of the embedding,
+the cross-entropy and the logits (gathered whole), its experts, and
+RWKV6's heads; the collectives are ``distributed.tensor_parallel``'s.
+In prefill and decode each rank holds its shard of the KV caches: its
+KV heads, or where KH % tp != 0 its slice of the sequence, attended
+through flash decoding (``cache_layout``, ``_attn_tp``).
 
 Modes: ``train`` (the whole sequence, no caches; with ``remat`` each
 block the JAX package wraps in ``jax.checkpoint`` is recomputed in the
@@ -40,9 +43,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.tensor_parallel import (copy_to, gather_last,
-                                                     reduce_from, split_dim,
-                                                     tp_size)
+                                                     max_from, reduce_from,
+                                                     split_dim, tp_size)
 from repro_torch.models import layers as L
+from repro_torch.models.cache_layout import KVSlice, kv_layout
 from repro_torch.models.dist import DistContext
 from repro_torch.models.moe import moe_layer
 from repro_torch.models.rwkv import RWKVState, rwkv6_block
@@ -109,6 +113,17 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
 def _unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     w = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return x @ w.T
+
+
+def logits(params, cfg: ModelConfig, x: torch.Tensor,
+           dist=None) -> torch.Tensor:
+    """The whole logits of ``x`` on every rank: over a model group whose
+    ranks hold the vocabulary split, each rank's slice gathered, as the
+    JAX package's partitioner returns them."""
+    w = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    if not split_dim(w.shape[0], cfg.vocab_size, dist):
+        return _unembed(params, cfg, x)
+    return gather_last(_unembed(params, cfg, copy_to(x, dist)), dist)
 
 
 def _vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor,
@@ -203,15 +218,90 @@ def project_qkv(x: torch.Tensor, lp: Dict, cfg: ModelConfig, rope_sincos,
     return q, k, v
 
 
+def _write_prompt(cache, k, v, sl: KVSlice, window: int) -> None:
+    """Prefill's cache write of k, v (B, S, KH, Dh) into a rank's slots
+    (``sl``) of a cache: rows [0, S), or in a ring the last min(window,
+    S) rows at their row index mod window (padding rows of a packed
+    prompt included, as in the JAX package); a slice of the sequence
+    takes the rows of its own slots."""
+    S, n = k.shape[1], cache[0].shape[1]
+    cap = min(S, window) if sl.ring else S
+    lo = sl.offset
+    hi = max(lo, min(lo + n, cap))
+    if sl.ring:         # slot s: the last row r < S with r = s mod window
+        slots = torch.arange(lo, hi, device=k.device)
+        rows = S - 1 - (S - 1 - slots) % window
+    else:
+        rows = slice(lo, hi)
+    for c, x in zip(cache, (k, v)):
+        c[:, :hi - lo] = x[:, rows].to(c.dtype)
+
+
+def _decode(q, k, v, cache, pos, window: int, cfg: ModelConfig,
+            sl: KVSlice, dist=None):
+    """Decode against a rank's slots (``sl``) of a cache: each row writes
+    its token's k, v (B, 1, KH, Dh) at slot ``pos`` (a ring's pos mod
+    window) where the rank holds it, and q (B, 1, H, Dh) attends the
+    slots below the row's length -- over a slice of the sequence
+    through ``L.flash_decode``, every rank's partial stats combined over
+    the model group.  Returns (B, 1, H, Dh)."""
+    k_cache, v_cache = cache
+    B, n = q.shape[0], k_cache.shape[1]
+    pos = torch.as_tensor(pos, device=q.device).reshape(-1).expand(B)
+    if sl.ring:
+        # each row writes slot pos mod window.  Slot s holds position
+        # pos - ((pos - s) mod window), valid once >= 0: that is s <=
+        # pos, or every slot once pos >= window - 1 -- the slots below
+        # a length of pos + 1, each inside the window already
+        at, clen, win = pos % window, pos + 1, 0
+    else:
+        # one row per sequence; like dynamic_update_slice, a start
+        # past the end is clamped to the last row
+        at = pos.clamp(0, sl.length - 1)
+        clen, win = at + 1, window
+    rows = torch.arange(B, device=q.device)
+    if sl.split:
+        # every row writes its slot on its owner and its own value back
+        # elsewhere: no host sync to select the rows
+        mine = ((at >= sl.offset) & (at < sl.offset + n))[:, None, None]
+        at = (at - sl.offset).clamp(0, n - 1)
+        for c, new in ((k_cache, k), (v_cache, v)):
+            c[rows, at] = torch.where(mine, new[:, 0].to(c.dtype),
+                                      c[rows, at])
+        return L.flash_decode(
+            q, k_cache, v_cache, clen, offset=sl.offset, window=win,
+            softcap=cfg.logit_softcap, grouped=cfg.decode_grouped_attn,
+            all_max=functools.partial(max_from, ctx=dist),
+            all_sum=functools.partial(reduce_from, ctx=dist))
+    k_cache[rows, at] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, at] = v[:, 0].to(v_cache.dtype)
+    if cfg.decode_grouped_attn:
+        return L.decode_attention_grouped(
+            q, k_cache, v_cache, clen, window=win, softcap=cfg.logit_softcap)
+    G = q.shape[2] // k_cache.shape[2]
+    return L.decode_attention(
+        q, L.repeat_kv(k_cache, G), L.repeat_kv(v_cache, G), clen,
+        window=win, softcap=cfg.logit_softcap)
+
+
 def _attn_tp(x, lp: Dict, cfg: ModelConfig, dist, *, window, rope_sincos,
-             causal, kv_src, positions, causal_skip, prefix):
-    """``attn_sublayer``'s train route over a model group.  A rank whose
-    ``wq`` is column-split runs its H/tp query heads (``qnorm`` per head)
-    and its rows of the row-split ``wo``, all-reduced.  Its K and V: its
-    own KV heads where the split of ``wk``/``wv`` keeps them whole, else
-    K and V gathered whole (or projected whole, where they are not split)
-    and the KV heads its query heads map to taken from them.  Where ``wq``
-    is not split the attention runs whole on every rank."""
+             mode, cache, pos, causal, kv_src, positions, causal_skip,
+             prefix):
+    """``attn_sublayer`` over a model group.  A rank whose ``wq`` is
+    column-split runs its H/tp query heads (``qnorm`` per head) and its
+    rows of the row-split ``wo``, all-reduced.  Its K and V: its own KV
+    heads where the split of ``wk``/``wv`` keeps them whole, else K and V
+    gathered whole (or projected whole, where they are not split) and the
+    KV heads its query heads map to taken from them.  Where ``wq`` is not
+    split the attention runs whole on every rank.
+
+    The cache follows ``cache_layout.kv_layout``: the rank's own KV
+    heads, which prefill and decode write and decode attends as on one
+    rank; or, under the sequence split, the rank's slots of every KV
+    head, into which prefill writes the gathered K and V and decode the
+    token on the slot's owner, and which decode attends with q gathered
+    whole (``_decode``), each rank then taking its own query heads' rows
+    into ``wo``."""
     B, S, _ = x.shape
     H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G, tp = H // KH, dist.tp
@@ -224,7 +314,8 @@ def _attn_tp(x, lp: Dict, cfg: ModelConfig, dist, *, window, rope_sincos,
             f"{H} query heads over a model group of {tp}: the column split "
             f"of wq cuts heads")
     Hl = H // tp if q_split else H
-    own_kv = kv_split and KH % tp == 0        # the split keeps KV heads whole
+    lay = kv_layout(cfg, dist)
+    own_kv = kv_split and not lay.seq     # the split keeps KV heads whole
 
     def proj(name, inp):
         y = L.mm(inp, lp[prefix + "w" + name])
@@ -248,16 +339,31 @@ def _attn_tp(x, lp: Dict, cfg: ModelConfig, dist, *, window, rope_sincos,
         sin_q, cos_q, sin_k, cos_k = rope_sincos
         q = L.apply_rope(q, sin_q, cos_q)
         k = L.apply_rope(k, sin_k, cos_k)
-    if own_kv or not q_split:
-        k, v = L.repeat_kv(k, G), L.repeat_kv(v, G)
-    else:                   # the KV head of each of this rank's query heads
-        h0 = dist.model_rank * Hl
-        idx = torch.arange(h0, h0 + Hl, device=x.device) // G
-        k, v = copy_to(k, dist)[:, :, idx], copy_to(v, dist)[:, :, idx]
-    o = L.blockwise_attention(
-        q, k, v, causal=causal, window=window, softcap=cfg.logit_softcap,
-        q_positions=positions, kv_positions=positions,
-        causal_skip=causal_skip)
+    sl = None if cache is None else lay.slice(cache[0].shape[1], window)
+    if mode == "decode":
+        if own_kv:
+            o = _decode(q, k, v, cache, pos, window, cfg, sl)
+        else:
+            h0 = dist.model_rank * Hl
+            qa = gather_last(q.reshape(B, 1, Hl * Dh), dist).reshape(
+                B, 1, H, Dh) if q_split else q
+            o = _decode(qa, k, v, cache, pos, window, cfg, sl, dist)
+            o = o[:, :, h0:h0 + Hl] if q_split else o
+    elif mode in ("prefill", "train"):       # train writes no cache
+        if mode == "prefill" and cache is not None:
+            _write_prompt(cache, k, v, sl, window)
+        if own_kv or not q_split:
+            k, v = L.repeat_kv(k, G), L.repeat_kv(v, G)
+        else:               # the KV head of each of this rank's query heads
+            h0 = dist.model_rank * Hl
+            idx = torch.arange(h0, h0 + Hl, device=x.device) // G
+            k, v = copy_to(k, dist)[:, :, idx], copy_to(v, dist)[:, :, idx]
+        o = L.blockwise_attention(
+            q, k, v, causal=causal, window=window, softcap=cfg.logit_softcap,
+            q_positions=positions, kv_positions=positions,
+            causal_skip=causal_skip)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
     out = L.mm(o.reshape(B, S, Hl * Dh), lp[prefix + "wo"])
     if q_split:
         out = reduce_from(out, dist)
@@ -279,62 +385,26 @@ def attn_sublayer(x, lp: Dict, cfg: ModelConfig, *, window: int = 0,
     cache written, ``causal_skip`` passed to ``blockwise_attention``.
     Prefill and train attention is causal unless ``causal`` is False;
     with ``kv_src`` (B, S_kv, D) k and v are its projections
-    (cross-attention).  Over a model axis above 1 (``dist``) attention
-    without a cache takes ``_attn_tp``; decode and the caches raise (A6e
-    in ROADMAP.md)."""
+    (cross-attention).  Over a model axis above 1 (``dist``) the rank
+    runs ``_attn_tp`` on its shard of the parameters and of the cache
+    (``cache_layout.kv_layout``)."""
     if tp_size(dist) > 1:
-        if mode == "decode" or cache is not None:
-            raise NotImplementedError(
-                f"attention in {mode!r} mode over a model axis of "
-                f"{dist.tp}: serving over a model axis comes with A6e in "
-                f"ROADMAP.md")
         return _attn_tp(x, lp, cfg, dist, window=window,
-                        rope_sincos=rope_sincos, causal=causal,
-                        kv_src=kv_src, positions=positions,
-                        causal_skip=causal_skip, prefix=prefix), None
+                        rope_sincos=rope_sincos, mode=mode, cache=cache,
+                        pos=pos, causal=causal, kv_src=kv_src,
+                        positions=positions, causal_skip=causal_skip,
+                        prefix=prefix), cache
     B, S, _ = x.shape
     H, Dh = cfg.num_heads, cfg.head_dim
     G = H // cfg.num_kv_heads
     q, k, v = project_qkv(x, lp, cfg, rope_sincos, prefix, kv_src)
-    ring = cache is not None and window > 0 and cache[0].shape[1] == window
-
+    sl = None if cache is None else \
+        kv_layout(cfg, None).slice(cache[0].shape[1], window)
     if mode == "decode":
-        k_cache, v_cache = cache
-        Smax = k_cache.shape[1]
-        pos = torch.as_tensor(pos, device=x.device).reshape(-1).expand(B)
-        if ring:
-            # each row writes slot pos mod window.  Slot s holds position
-            # pos - ((pos - s) mod window), valid once >= 0: that is s <=
-            # pos, or every slot once pos >= window - 1 -- the slots below
-            # a length of pos + 1, each inside the window already
-            at, clen, win = pos % Smax, pos + 1, 0
-        else:
-            # one row per sequence; like dynamic_update_slice, a start
-            # past the end is clamped to the last row
-            at = pos.clamp(0, Smax - 1)
-            clen, win = at + 1, window
-        rows = torch.arange(B, device=x.device)
-        k_cache[rows, at] = k[:, 0].to(k_cache.dtype)
-        v_cache[rows, at] = v[:, 0].to(v_cache.dtype)
-        if cfg.decode_grouped_attn:
-            o = L.decode_attention_grouped(
-                q, k_cache, v_cache, clen, window=win,
-                softcap=cfg.logit_softcap)
-        else:
-            o = L.decode_attention(
-                q, L.repeat_kv(k_cache, G), L.repeat_kv(v_cache, G),
-                clen, window=win, softcap=cfg.logit_softcap)
+        o = _decode(q, k, v, cache, pos, window, cfg, sl)
     elif mode in ("prefill", "train"):       # train writes no cache
-        if mode == "prefill" and ring:
-            # the last rows, each at its row index mod window (padding
-            # rows of a packed prompt included, as in the JAX package)
-            take = min(window, S)
-            idx = (torch.arange(take, device=x.device) + (S - take)) % window
-            cache[0][:, idx] = k[:, S - take:].to(cache[0].dtype)
-            cache[1][:, idx] = v[:, S - take:].to(cache[1].dtype)
-        elif mode == "prefill" and cache is not None:
-            cache[0][:, :S] = k.to(cache[0].dtype)
-            cache[1][:, :S] = v.to(cache[1].dtype)
+        if mode == "prefill" and cache is not None:
+            _write_prompt(cache, k, v, sl, window)
         o = L.blockwise_attention(
             q, L.repeat_kv(k, G), L.repeat_kv(v, G), causal=causal,
             window=window, softcap=cfg.logit_softcap, q_positions=positions,
@@ -522,7 +592,7 @@ def rwkv_trunk(params, cfg: ModelConfig, x, *, mode="prefill", states=None,
     for i, lp in enumerate(layers):
         x, ns = rwkv6_block(x, lp, cfg,
                             state=RWKVState(*(s[i] for s in states)),
-                            single_step=mode == "decode")
+                            single_step=mode == "decode", dist=dist)
         new.append(ns)
     return x, tuple(torch.stack(parts) for parts in zip(*new))
 
@@ -578,7 +648,7 @@ def hybrid_trunk(params, cfg: ModelConfig, x, *, mode="prefill",
             x, ns = _mamba_residual(
                 x, layers[i], cfg,
                 state=MambaState(states[0][i], states[1][i]),
-                single_step=mode == "decode")
+                single_step=mode == "decode", dist=dist)
             new_ssm.append(ns.ssm)
             new_conv.append(ns.conv)
         sp = shared[app % cfg.num_shared_attn_blocks]
@@ -633,15 +703,24 @@ def encoder_trunk(params, cfg: ModelConfig, frames, *, remat=False,
                        params["enc_final_norm_b"], cfg.norm_eps)
 
 
-def cross_kv(params, cfg: ModelConfig, memory):
+def cross_kv(params, cfg: ModelConfig, memory, dist=None):
     """Every decoder layer's cross-attention K and V of ``memory``: (L, B,
-    S_enc, KH, Dh) each, in the memory's promoted dtype (no k bias)."""
+    S_enc, KH, Dh) each, in the memory's promoted dtype (no k bias).
+    Over a model group, the KV heads ``cache_layout.kv_layout`` holds:
+    the rank's where KH % tp == 0, else all of them (gathered, where the
+    ranks hold ``wk``/``wv`` column-split)."""
     xs = _sub(params, "x_")
     B, S, _ = memory.shape
-    shape = (B, S, cfg.num_kv_heads, cfg.head_dim)
-    ks = [L.mm(memory, xs["wk"][i]).reshape(shape)
+    split = split_dim(xs["wk"].shape[-1], cfg.kv_dim, dist)
+    whole = split and kv_layout(cfg, dist).seq
+
+    def heads(y):
+        y = gather_last(y, dist) if whole else y
+        return y.reshape(B, S, -1, cfg.head_dim)
+
+    ks = [heads(L.mm(memory, xs["wk"][i]))
           for i in range(cfg.decoder_layers)]
-    vs = [(L.mm(memory, xs["wv"][i]) + xs["bv"][i]).reshape(shape)
+    vs = [heads(L.mm(memory, xs["wv"][i]) + xs["bv"][i])
           for i in range(cfg.decoder_layers)]
     return torch.stack(ks), torch.stack(vs)
 
@@ -691,22 +770,42 @@ def decoder_trunk(params, cfg: ModelConfig, tokens, memory, *,
         for lp, xp in layers:
             x = block(x, lp, xp, memory, cfg, dist)
         return x, None
-    H, Dh = cfg.num_heads, cfg.head_dim
-    G = H // cfg.num_kv_heads
     sk, sv = caches["self"]
     for i, (lp, xp) in enumerate(layers):
         o, _ = attn_sublayer(_ln(x, lp, "ln1", cfg), lp, cfg, mode=mode,
-                             cache=(sk[i], sv[i]), pos=pos)
+                             cache=(sk[i], sv[i]), pos=pos, dist=dist)
         x = x + o
-        # cross-attention against the precomputed K/V
-        h = _ln(x, lp, "ln2", cfg)
-        q = (L.mm(h, xp["wq"]) + xp["bq"]).reshape(B, T, H, Dh)
-        xk = L.repeat_kv(caches["cross"][0][i], G)
-        xv = L.repeat_kv(caches["cross"][1][i], G)
-        if mode == "decode":
-            o = L.decode_attention(q, xk, xv, xk.shape[1])
-        else:
-            o = L.blockwise_attention(q, xk, xv, causal=False)
-        x = x + (L.mm(o.reshape(B, T, H * Dh), xp["wo"]) + xp["bo"])
-        x = x + _gelu_mlp(_ln(x, lp, "ln3", cfg), lp, cfg)
+        x = x + _cross_cached(_ln(x, lp, "ln2", cfg), xp, cfg,
+                              caches["cross"][0][i], caches["cross"][1][i],
+                              mode, dist)
+        x = x + _gelu_mlp(_ln(x, lp, "ln3", cfg), lp, cfg, dist)
     return x, caches
+
+
+def _cross_cached(h, xp, cfg: ModelConfig, ck, cv, mode: str, dist=None):
+    """The decoder's cross-attention of (B, T, D) ``h`` against the
+    precomputed K/V (B, S_enc, KH, Dh) of ``cross_kv``.  Over a model
+    group whose ranks hold ``wq`` column-split: the rank's query heads
+    against its KV heads (or, where the layout holds all KV heads, the
+    one each query head maps to), its rows of the row-split ``wo``,
+    all-reduced."""
+    B, T, _ = h.shape
+    H, Dh = cfg.num_heads, cfg.head_dim
+    G = H // cfg.num_kv_heads
+    q_split = split_dim(xp["wq"].shape[-1], cfg.q_dim, dist)
+    Hl = H // dist.tp if q_split else H
+    q = (L.mm(h, xp["wq"]) + xp["bq"]).reshape(B, T, Hl, Dh)
+    if Hl == H or not kv_layout(cfg, dist).seq:
+        xk, xv = L.repeat_kv(ck, G), L.repeat_kv(cv, G)
+    else:                   # the KV head of each of this rank's query heads
+        h0 = dist.model_rank * Hl
+        idx = torch.arange(h0, h0 + Hl, device=h.device) // G
+        xk, xv = ck[:, :, idx], cv[:, :, idx]
+    if mode == "decode":
+        o = L.decode_attention(q, xk, xv, xk.shape[1])
+    else:
+        o = L.blockwise_attention(q, xk, xv, causal=False)
+    out = L.mm(o.reshape(B, T, Hl * Dh), xp["wo"])
+    if q_split:
+        out = reduce_from(out, dist)
+    return out + xp["bo"]

@@ -249,12 +249,13 @@ def _banded_attention(q, k, v, window, softcap, q_block, q_offset,
     return out
 
 
-def _decode_valid(cache_len, Smax: int, device, window: int = 0
-                  ) -> torch.Tensor:
+def _decode_valid(cache_len, Smax: int, device, window: int = 0,
+                  offset: int = 0) -> torch.Tensor:
     """(B or 1, Smax) bool: the cache slots below each sequence's length
-    and, with a window, above its length - 1 - window."""
+    and, with a window, above its length - 1 - window; the slots of a
+    slice of a cache are ``offset`` + 0..Smax-1."""
     clen = torch.as_tensor(cache_len, device=device).reshape(-1, 1)
-    kpos = torch.arange(Smax, device=device)[None, :]
+    kpos = torch.arange(offset, offset + Smax, device=device)[None, :]
     valid = kpos < clen
     if window > 0:
         valid = valid & (kpos > clen - 1 - window)
@@ -299,6 +300,70 @@ def decode_attention_grouped(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.matmul(p, v_cache.float().permute(0, 2, 1, 3))    # (B,KH,G,D)
     return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+def decode_partial(q: torch.Tensor, k_slice: torch.Tensor,
+                   v_slice: torch.Tensor, cache_len, *, offset: int = 0,
+                   window: int = 0, softcap: float = 0.0,
+                   grouped: bool = False):
+    """Flash-decoding's partial stats of one slice of a cache: the slots
+    ``offset`` + 0..n-1 of the whole cache, masked as ``decode_attention``
+    masks them there.  q: (B, 1, H, D), every query head; k_slice,
+    v_slice: (B, n, KH, D), KH dividing H; ``grouped`` contracts q
+    regrouped to (B, KH, G, D) against the KH heads, else the slice is
+    repeated to H heads.  Returns float32 (m (B, H), l (B, H), o (B, H,
+    D)): the largest softcapped score of the slice's valid slots
+    (``NEG_INF`` where none is valid), the sum of exp(s - m) over them
+    and the sum of exp(s - m) v -- both 0 without a valid slot."""
+    B, _, H, D = q.shape
+    n, KH = k_slice.shape[1], k_slice.shape[2]
+    G = H // KH
+    scale = 1.0 / (D ** 0.5)
+    valid = _decode_valid(cache_len, n, q.device, window, offset)[:, None]
+    if grouped:
+        qg = (q.float() * scale).reshape(B, KH, G, D)
+        s = torch.matmul(qg, k_slice.float().permute(0, 2, 3, 1))
+        s = s.reshape(B, H, n)
+    else:
+        qf = (q.float() * scale).permute(0, 2, 1, 3)            # (B,H,1,D)
+        kf = repeat_kv(k_slice, G).float().permute(0, 2, 3, 1)
+        s = torch.matmul(qf, kf)[:, :, 0]                       # (B,H,n)
+    s = torch.where(valid, _softcap(s, softcap), NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    if grouped:
+        o = torch.matmul(p.reshape(B, KH, G, n),
+                         v_slice.float().permute(0, 2, 1, 3))   # (B,KH,G,D)
+        o = o.reshape(B, H, D)
+    else:
+        o = torch.matmul(p[:, :, None],
+                         repeat_kv(v_slice, G).float().permute(0, 2, 1, 3))
+        o = o[:, :, 0]
+    return m, p.sum(dim=-1), o
+
+
+def flash_decode(q: torch.Tensor, k_slice: torch.Tensor,
+                 v_slice: torch.Tensor, cache_len, *, offset: int = 0,
+                 window: int = 0, softcap: float = 0.0,
+                 grouped: bool = False, all_max=None,
+                 all_sum=None) -> torch.Tensor:
+    """Decode attention over a cache whose sequence is split over ranks
+    (the JAX package's flash-decoding layout): this rank's
+    ``decode_partial`` of its slice, then the running max reduced over
+    the ranks by ``all_max`` to m, and l and o each reduced by
+    ``all_sum`` as the sum of x_r exp(m_r - m) (one call over both),
+    giving o / l.  A slice without a valid slot weighs exp(NEG_INF - m)
+    = 0 exactly.  Without the reductions (one slice) it is
+    ``decode_attention`` over the whole cache, up to the rounding of the
+    split sums.  Returns (B, 1, H, D) in q's dtype."""
+    m, l, o = decode_partial(q, k_slice, v_slice, cache_len, offset=offset,
+                             window=window, softcap=softcap, grouped=grouped)
+    if all_max is not None:
+        w = torch.exp(m - all_max(m))
+        lo = all_sum(torch.cat([o * w[..., None], (l * w)[..., None]],
+                               dim=-1))
+        o, l = lo[..., :-1], lo[..., -1]
+    return (o / l[..., None])[:, None].to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -20,11 +20,12 @@ tensor has its batch on axis 1.  KV caches are written in place; the
 recurrent states (ssm, hybrid) come back as new tensors, which the caller
 carries to the next call (the caches passed seed the recurrence).
 
-``train_loss`` runs under a ``DistContext`` over a model axis above 1
-(tensor and expert parallelism, each rank on its model shard of the
-parameters); ``init_cache``, ``prefill`` and ``decode_step`` take one
-too and raise over a model axis above 1: serving over a model axis is
-A6e in ROADMAP.md.
+Every entry point runs under a ``DistContext`` over a model axis above
+1 (tensor and expert parallelism, each rank on its model shard of the
+parameters, ``Placement.shard`` of ``param_pspecs``' tp mode):
+``init_cache`` gives the rank's shard of the caches, ``prefill`` and
+``decode_step`` take the rank's batch rows and its cache shard, and
+every rank returns the whole logits.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.models import forward as F
 from repro_torch.models import layers as L
+from repro_torch.models.cache_layout import batch_rows, kv_layout, rwkv_heads
 from repro_torch.models.dist import DistContext
 from repro_torch.models.ssm import conv_dim
 
@@ -43,16 +45,6 @@ from repro_torch.models.ssm import conv_dim
 def _families(cfg: ModelConfig) -> None:
     if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "encdec"):
         raise ValueError(f"unknown family {cfg.family}")
-
-
-def serving_dist(dist: Optional[DistContext]) -> None:
-    """Serving runs on one model rank: a context over a model axis above 1
-    raises (A6e)."""
-    if dist is not None and dist.tp > 1:
-        raise NotImplementedError(
-            f"serving over a model axis of {dist.tp}: cache placements, "
-            f"decode and the engine over a model axis come with A6e in "
-            f"ROADMAP.md")
 
 
 def input_specs(cfg: ModelConfig, cell: ShapeCell) -> Dict[str, torch.Tensor]:
@@ -159,25 +151,27 @@ def train_loss(params, cfg: ModelConfig, batch, *,
 
 
 def _trunk(params, cfg: ModelConfig, x, *, mode, caches, pos=0,
-           positions=None):
+           positions=None, dist=None):
     if cfg.family == "moe":
         x, caches, _, _ = F.moe_trunk(params, cfg, x, mode=mode,
                                       caches=caches, pos=pos,
-                                      positions=positions)
+                                      positions=positions, dist=dist)
         return x, caches
     # the recurrent families take no positions, as the JAX package's
     # (ROADMAP C-R5); the hybrid's prefill starts at position 0
     if cfg.family == "ssm":
-        return F.rwkv_trunk(params, cfg, x, mode=mode, states=caches)
+        return F.rwkv_trunk(params, cfg, x, mode=mode, states=caches,
+                            dist=dist)
     if cfg.family == "hybrid":
         if caches is None:
-            return F.hybrid_trunk(params, cfg, x, mode=mode, pos=pos)[0], None
+            return F.hybrid_trunk(params, cfg, x, mode=mode, pos=pos,
+                                  dist=dist)[0], None
         x, states, attn = F.hybrid_trunk(
             params, cfg, x, mode=mode, states=caches["states"],
-            caches=caches["attn"], pos=pos)
+            caches=caches["attn"], pos=pos, dist=dist)
         return x, {"states": states, "attn": attn}
     return F.dense_trunk(params, cfg, x, mode=mode, caches=caches, pos=pos,
-                         positions=positions)
+                         positions=positions, dist=dist)
 
 
 def _front(params, cfg: ModelConfig, batch, dist=None) -> torch.Tensor:
@@ -191,10 +185,10 @@ def _front(params, cfg: ModelConfig, batch, dist=None) -> torch.Tensor:
     return F._embed(params, cfg, batch["tokens"], dist)
 
 
-def _encdec_logits(params, cfg: ModelConfig, x) -> torch.Tensor:
+def _encdec_logits(params, cfg: ModelConfig, x, dist=None) -> torch.Tensor:
     x = L.layernorm(x, params["final_norm"], params["final_norm_b"],
                     cfg.norm_eps)
-    return F._unembed(params, cfg, x)
+    return F.logits(params, cfg, x, dist)
 
 
 def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None,
@@ -220,14 +214,21 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None,
       max_seq (the encoder's length), which prefill replaces with the
       memory's K/V, as the JAX package's}.
 
-    ``dist`` over a model axis above 1 raises (A6e)."""
+    Under a ``dist`` the tree is this rank's shard of it, built at its
+    size as ``cache_layout`` lays it out: B / dp rows of every tensor
+    and, over a model axis above 1, KH / tp KV heads of each KV cache
+    where KH % tp == 0, else its slice of the sequence (max_seq rounded
+    up to a multiple of tp), whisper's cross K/V by its KV heads or
+    whole, rwkv6's wkv state by its heads, its shifts and zamba2's
+    states whole."""
     _families(cfg)
-    serving_dist(dist)
     dt = getattr(torch, cfg.kv_cache_dtype)
     device = resolve_device(device)
+    B = batch_rows(B, dist)
+    lay = kv_layout(cfg, dist)
 
-    def kv(n, Smax):
-        shape = (n, B, Smax, cfg.num_kv_heads, cfg.head_dim)
+    def kv(n, seq, window=0):
+        shape = (n, B, lay.slots(seq, window), lay.heads, cfg.head_dim)
         return (torch.zeros(shape, dtype=dt, device=device),
                 torch.zeros(shape, dtype=dt, device=device))
 
@@ -236,13 +237,12 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None,
 
     Lc, f32 = cfg.num_layers, torch.float32
     if cfg.family == "encdec":
-        shape = (cfg.decoder_layers, B, max_seq, cfg.num_kv_heads,
-                 cfg.head_dim)
+        shape = (cfg.decoder_layers, B, max_seq, lay.heads, cfg.head_dim)
         return {"self": kv(cfg.decoder_layers, cfg.max_target_len),
                 "cross": (zeros(torch.bfloat16, *shape),
                           zeros(torch.bfloat16, *shape))}
     if cfg.family == "ssm":
-        H, P, D = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.d_model
+        H, P, D = rwkv_heads(cfg, lay.tp), cfg.ssm_head_dim, cfg.d_model
         return (zeros(f32, Lc, B, H, P, P), zeros(f32, Lc, B, D),
                 zeros(f32, Lc, B, D))
     if cfg.family == "hybrid":
@@ -262,14 +262,13 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None,
     if cfg.global_every > 1:
         n_super = cfg.num_layers // cfg.global_every
         n_trail = cfg.num_layers - n_super * cfg.global_every
-        W = min(cfg.window_size, max_seq)
-        caches = {"local": kv(n_super * (cfg.global_every - 1), W),
+        W = cfg.window_size
+        caches = {"local": kv(n_super * (cfg.global_every - 1), max_seq, W),
                   "global": kv(n_super, max_seq)}
         if n_trail:
-            caches["trail"] = kv(n_trail, W)
+            caches["trail"] = kv(n_trail, max_seq, W)
         return caches
-    Smax = min(cfg.window_size, max_seq) if cfg.window_size else max_seq
-    return {"blocks": kv(cfg.num_layers, Smax)}
+    return {"blocks": kv(cfg.num_layers, max_seq, cfg.window_size)}
 
 
 def prefill(params, cfg: ModelConfig, batch, caches, *, positions=None,
@@ -283,40 +282,40 @@ def prefill(params, cfg: ModelConfig, batch, caches, *, positions=None,
     memory's cross K/V into ``caches["cross"]`` (a new pair in a new
     dict; the self caches are written in place), then the decoder over
     ``batch["tokens"]`` from position 0 and the last row's logits.
-    ``dist`` over a model axis above 1 raises (A6e)."""
+    Under a ``dist`` ``batch`` and ``caches`` are this rank's rows and
+    shard (``init_cache``); the logits are whole on every rank."""
     _families(cfg)
-    serving_dist(dist)
     if cfg.family == "encdec":
-        memory = F.encoder_trunk(params, cfg, batch["frames"])
-        caches = dict(caches, cross=F.cross_kv(params, cfg, memory))
+        memory = F.encoder_trunk(params, cfg, batch["frames"], dist=dist)
+        caches = dict(caches, cross=F.cross_kv(params, cfg, memory, dist))
         x, caches = F.decoder_trunk(params, cfg, batch["tokens"], memory,
-                                    mode="prefill", caches=caches)
-        return _encdec_logits(params, cfg, x[:, -1:]), caches
-    x = _front(params, cfg, batch)
+                                    mode="prefill", caches=caches, dist=dist)
+        return _encdec_logits(params, cfg, x[:, -1:], dist), caches
+    x = _front(params, cfg, batch, dist)
     x, caches = _trunk(params, cfg, x, mode="prefill", caches=caches,
-                       positions=positions)
+                       positions=positions, dist=dist)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if last_index is None:
         xe = x[:, -1:]
     else:                             # clamped, as dynamic_slice clamps
         i = min(max(int(last_index), 0), x.shape[1] - 1)
         xe = x[:, i:i + 1]
-    return F._unembed(params, cfg, xe), caches
+    return F.logits(params, cfg, xe, dist), caches
 
 
 def decode_step(params, cfg: ModelConfig, tokens, caches, pos, *,
                 dist: Optional[DistContext] = None):
     """tokens: (B, 1), each sequence's token at position ``pos`` (scalar
     or (B,)).  encdec reads its position's ``dec_pos`` row, clamped to
-    the table's last (``F._dec_positions``).  ``dist`` over a model axis
-    above 1 raises (A6e)."""
+    the table's last (``F._dec_positions``).  Under a ``dist`` as
+    ``prefill``."""
     _families(cfg)
-    serving_dist(dist)
     if cfg.family == "encdec":
         x, caches = F.decoder_trunk(params, cfg, tokens, None, mode="decode",
-                                    caches=caches, pos=pos)
-        return _encdec_logits(params, cfg, x), caches
-    x = F._embed(params, cfg, tokens)
-    x, caches = _trunk(params, cfg, x, mode="decode", caches=caches, pos=pos)
+                                    caches=caches, pos=pos, dist=dist)
+        return _encdec_logits(params, cfg, x, dist), caches
+    x = F._embed(params, cfg, tokens, dist)
+    x, caches = _trunk(params, cfg, x, mode="decode", caches=caches, pos=pos,
+                       dist=dist)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return F._unembed(params, cfg, x), caches
+    return F.logits(params, cfg, x, dist), caches

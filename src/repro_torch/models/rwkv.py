@@ -38,7 +38,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.tensor_parallel import (copy_to, gather_last,
-                                                     reduce_from, split_dim)
+                                                     reduce_from, split_dim,
+                                                     tp_size)
+from repro_torch.models.cache_layout import rwkv_heads
 from repro_torch.models.layers import activation, mm, rmsnorm
 
 LOG_DECAY_CLAMP = -5.0   # per step; chunk 16 -> max |exponent| 80 < 88 (f32)
@@ -163,11 +165,7 @@ def rwkv6_block(x: torch.Tensor, p: dict, cfg: ModelConfig,
     B, S, D = x.shape
     H, P = cfg.ssm_num_heads, cfg.ssm_head_dim
     heads = split_dim(p["wr"].shape[-1], D, dist)
-    if heads and H % dist.tp:
-        raise NotImplementedError(
-            f"{H} RWKV6 heads over a model group of {dist.tp}: the column "
-            f"split of wr cuts heads")
-    Hl = H // dist.tp if heads else H
+    Hl = rwkv_heads(cfg, tp_size(dist), heads)
     c0, c1 = (dist.model_rank * Hl * P, (dist.model_rank + 1) * Hl * P) \
         if heads else (0, D)
 

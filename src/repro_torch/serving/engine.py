@@ -26,10 +26,17 @@ keeps the decoded caches, so a recurrent slot seeds its next request's
 prefill with the last request's state (ROADMAP C-R6).  The prefill runs
 the layers' ``blockwise_attention``, as the JAX engine does, not the B12
 kernel (``kernels.ops.roi_attention``).
+
+Over a model axis above 1 (``dist`` on a ``launch.mesh.TrainMesh``)
+each rank serves on its model shard of the parameters and of the ring
+(``model.init_cache``), and every rank runs the same requests and
+returns the same tokens.  The batch axes split nothing: the JAX engine
+places nothing on them, so each batch rank serves the whole group, the
+ring's batch rows whole (only the model split cuts the ring).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -108,14 +115,18 @@ def _write_slot(slot, new) -> None:
 class ServingEngine:
     """``params`` live on the device the engine serves from (the card in
     production; tests pass CPU parameters).  ``dist``: the JAX engine's
-    ``DistContext``; one over a model axis above 1 raises (A6e)."""
+    ``DistContext``; over a model axis above 1 ``params`` is this rank's
+    model shard (``Placement.shard`` of ``param_pspecs(cfg, specs,
+    "tp")``), and the group is replicated over the batch axes."""
 
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params: Dict,
                  dist=None):
-        M.serving_dist(dist)        # one model rank: A6e in ROADMAP.md
         self.cfg = cfg
         self.scfg = scfg
         self.params = params
+        # every batch rank serves the whole group: no batch axis splits
+        self.dist = None if dist is None or dist.mesh is None \
+            else replace(dist, batch_axes=())
         self.device = params["embed"].device
         # the persistent group cache ring: ``init_cache``'s tree at batch
         # G, one batch row a request, reused across flushes.  Stale KV rows
@@ -130,7 +141,8 @@ class ServingEngine:
     def _decode_group(self, tokens, caches, pos):
         """The group decode step: one batched dispatch for the whole
         group, ``pos`` a (G,) vector."""
-        return M.decode_step(self.params, self.cfg, tokens, caches, pos)
+        return M.decode_step(self.params, self.cfg, tokens, caches, pos,
+                             dist=self.dist)
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
@@ -144,8 +156,10 @@ class ServingEngine:
         B = next(iter(batch.values())).shape[0]
         max_seq = max_seq or self.scfg.max_seq
         if caches is None:
-            caches = M.init_cache(self.cfg, B, max_seq, self.device)
-        return M.prefill(self.params, self.cfg, batch, caches)
+            caches = M.init_cache(self.cfg, B, max_seq, self.device,
+                                  dist=self.dist)
+        return M.prefill(self.params, self.cfg, batch, caches,
+                         dist=self.dist)
 
     # -- RoI-packed prefill --------------------------------------------------
     def roi_prefill(self, tokens, keep, block: int = 128,
@@ -169,10 +183,10 @@ class ServingEngine:
                      "patches": packed[None]}
         if caches is None:
             caches = M.init_cache(self.cfg, 1, max(max_seq or Sp, Sp, 1),
-                                  self.device)
+                                  self.device, dist=self.dist)
         logits, caches = M.prefill(self.params, self.cfg, batch, caches,
                                    positions=positions[None],
-                                   last_index=n_kept - 1)
+                                   last_index=n_kept - 1, dist=self.dist)
         return RoIPrefillResult(logits, caches, n_kept, S)
 
     # -- decode ---------------------------------------------------------------
@@ -183,7 +197,7 @@ class ServingEngine:
         tok = first_token.reshape(B, 1)
         for i in range(n_steps):
             logits, caches = M.decode_step(self.params, self.cfg, tok, caches,
-                                           start_pos + i)
+                                           start_pos + i, dist=self.dist)
             tok = torch.argmax(logits[:, -1], dim=-1).reshape(B, 1)
             out.append(tok.to(torch.int32).cpu().numpy())
         return np.concatenate(out, axis=1), caches
@@ -221,7 +235,8 @@ class ServingEngine:
         if (self._ring is None or self._ring_sig[0] != G
                 or self._ring_sig[1] < max_seq):
             self._ring = None           # free the old ring first
-            self._ring = M.init_cache(self.cfg, G, max_seq, self.device)
+            self._ring = M.init_cache(self.cfg, G, max_seq, self.device,
+                                      dist=self.dist)
             self._ring_sig = (G, max_seq)
             self.ring_rebuilds += 1
         return self._ring

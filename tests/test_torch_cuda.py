@@ -1448,3 +1448,74 @@ def test_cuda_one_rank_model_axis_route_equals_no_mesh(cuda, tmp_path,
     finally:
         torch.use_deterministic_algorithms(was)
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grouped", [False, True])
+def test_cuda_flash_decode_combine_matches_cpu(cuda, grouped):
+    """The flash-decoding combine on the card: a cache split into 4
+    slices, each slice's ``decode_partial`` combined by hand (a fully
+    masked slice weighs exactly 0), within 1e-6 of the card's
+    ``decode_attention`` on the whole cache and within 1e-5 of the CPU's;
+    ``flash_decode`` on one rank the same."""
+    from repro_torch.models import layers as L
+    g = torch.Generator().manual_seed(3)
+    B, H, KH, D, S, n = 3, 8, 2, 64, 256, 4
+    q = torch.randn((B, 1, H, D), generator=g)
+    k, v = (torch.randn((B, S, KH, D), generator=g) for _ in range(2))
+    clen = torch.tensor([40, 256, 200])
+    kw = dict(window=100, softcap=30.0)
+
+    def whole(q, k, v, c):
+        if grouped:
+            return L.decode_attention_grouped(q, k, v, c, **kw)
+        return L.decode_attention(q, L.repeat_kv(k, H // KH),
+                                  L.repeat_kv(v, H // KH), c, **kw)
+
+    want = whole(q, k, v, clen)
+    qc, kc, vc, cc = (t.to(cuda) for t in (q, k, v, clen))
+    w = S // n
+    parts = [L.decode_partial(qc, kc[:, r * w:(r + 1) * w],
+                              vc[:, r * w:(r + 1) * w], cc, offset=r * w,
+                              grouped=grouped, **kw) for r in range(n)]
+    m_r = torch.stack([p[0] for p in parts])
+    wt = torch.exp(m_r - m_r.amax(dim=0))
+    assert bool((wt[0, 1] == 0).all()) and bool((wt[3, 0] == 0).all())
+    l = sum(p[1] * wt[r] for r, p in enumerate(parts))
+    o = sum(p[2] * wt[r][..., None] for r, p in enumerate(parts))
+    got = (o / l[..., None])[:, None]
+    assert bool(torch.isfinite(got).all())
+    assert float((got - whole(qc, kc, vc, cc)).abs().max()) <= 1e-6
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+    one = L.flash_decode(qc, kc, vc, cc, grouped=grouped, **kw)
+    assert float((one.cpu() - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_tp2_serving_matches_one_rank_cpu(cuda, tmp_path):
+    """Serving at tp = 2 on the card: two gloo rank processes on the one
+    card (``tests/torch_dist_worker.py``'s ``serve`` case on CUDA
+    tensors), h2o-danube3-4b (own KV heads; a window ring) and
+    gemma3-27b at SMOKE in float32 on a (1, 2) mesh: prefill's and every
+    teacher-forced decode step's logits, the cache shards and the
+    engine's tokens against the one-rank path on the CPU, with the bars
+    of ``tests/torch_tp_serve_cases.py``."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_tp_serve_cases as C
+    cases = ["h2o-danube3-4b", "gemma3-27b"]
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "torch_dist_worker.py")
+    r = subprocess.run([sys.executable, worker, "serve", str(tmp_path),
+                        json.dumps({"world": 2, "cases": cases,
+                                    "device": "cuda"})],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    res = C.results_by_case(torch.load(tmp_path / "result.pt"))
+    for case in cases:
+        for what in ("logits", "caches", "tokens"):
+            C.check_case(res, case, 2, what)

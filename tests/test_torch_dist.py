@@ -143,16 +143,21 @@ def test_param_pspecs_indivisible_vocab_replicates():
 
 def test_model_axis_raises_and_names_a6d():
     """A model axis above 1 no longer raises in ``DistContext`` or
-    ``make_dist`` (tensor and expert parallelism, A6d); serving under it
-    raises and names A6e, the serving half; dp_only joins the model axis
-    to the batch axes; ``ElasticMesh`` shapes as the JAX package's."""
+    ``make_dist`` (tensor and expert parallelism, A6d), nor in serving
+    (A6e: the cache holds the rank's KV heads); a serving batch that does
+    not divide over the batch axes raises and names A6c; dp_only joins
+    the model axis to the batch axes; ``ElasticMesh`` shapes as the JAX
+    package's."""
     mesh = SimpleNamespace(shape={"data": 1, "model": 2})
     assert DistContext(mesh=mesh).tp == 2
     d = TS.make_dist(mesh)
     assert d.tp == 2 and d.dp == 1 and d.batch_axes == ("data",)
     cfg = get_config(ARCH, smoke=True)
-    with pytest.raises(NotImplementedError, match="A6e"):
-        TM.init_cache(cfg, 1, 8, "cpu", dist=d)
+    k, _ = TM.init_cache(cfg, 1, 8, "cpu", dist=d)["blocks"]
+    assert k.shape[2:4] == (8, cfg.num_kv_heads // 2)
+    with pytest.raises(NotImplementedError, match="A6c"):
+        TM.init_cache(cfg, 1, 8, "cpu", dist=TS.make_dist(SimpleNamespace(
+            shape={"data": 2, "model": 2})))
     d = TS.make_dist(mesh, dp_only=True)
     assert d.tp == 1 and d.dp == 2 and d.batch_axes == ("data", "model")
     d = TS.make_dist(SimpleNamespace(shape={"data": 4, "model": 1}))

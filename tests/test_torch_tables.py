@@ -139,7 +139,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.distributed.shardings",
             "repro_torch.models.moe", "repro_torch.launch.serve",
             "repro_torch.models.rwkv", "repro_torch.models.ssm",
-            "repro_torch.models.dist", "repro_torch.data.lm",
+            "repro_torch.models.dist", "repro_torch.models.cache_layout",
+            "repro_torch.data.lm",
             "repro_torch.optim", "repro_torch.optim.adamw",
             "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
             "repro_torch.distributed.fault",

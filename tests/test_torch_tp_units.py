@@ -1,9 +1,10 @@
 """Units of the model-axis route on the CPU: the four autograd collectives
 of ``distributed.tensor_parallel`` on 2 and 4 gloo ranks (and the
 identity on one), two-dim ``Placement``s against the JAX package's
-``param_pspecs`` for every arch and mode, the serving entry points'
-A6e raise, an indivisible vocabulary at tp 4, and an elastic restore
-from a (2, 2) fsdp checkpoint onto a (1, 4) tp mesh.  The multi-rank
+``param_pspecs`` for every arch and mode, the serving entry points
+over a model axis and their one raise (A6c), an indivisible vocabulary
+at tp 4, and an elastic restore from a (2, 2) fsdp checkpoint onto a
+(1, 4) tp mesh.  The multi-rank
 cases run through ``tests/torch_dist_worker.py``; the bars of the route
 are ``tests/torch_tp_cases.py``'s.
 """
@@ -153,26 +154,46 @@ def test_two_dim_placement_shards_the_coordinates_block():
 
 
 def test_serving_entry_points_raise_naming_a6e():
-    """``init_cache``, ``prefill``, ``decode_step`` and ``ServingEngine``
-    under a context over a model axis of 2 raise and name A6e; a model
-    axis of 1 serves."""
+    """Serving over a model axis (A6e) no longer raises: under a context
+    over a model axis of 2, ``init_cache`` gives the rank's KV heads and
+    ``ServingEngine`` builds, its group replicated over the batch axes;
+    at tp 4 with KH 2 the cache holds a quarter of the sequence, max_seq
+    rounded up to a multiple of 4; a model axis of 1 serves as one
+    device.  The one
+    raise left is the sequence split over the batch axes, which names
+    A6c: a serving batch that does not divide over them, and
+    ``cache_placements`` under ``kv_seq_shard``."""
+    from repro_torch.models.cache_layout import kv_layout
     cfg = get_config("h2o-danube3-4b", smoke=True)
-    d = DistContext(mesh=SimpleNamespace(shape={"data": 1, "model": 2}))
+    L, Dh = cfg.num_layers, cfg.head_dim
+    d2 = DistContext(mesh=_Mesh({"data": 1, "model": 2},
+                                {"data": 0, "model": 1}))
+    k, v = TM.init_cache(cfg, 1, 8, "cpu", dist=d2)["blocks"]
+    assert k.shape == v.shape == (L, 1, 8, 1, Dh)
+    d4 = DistContext(mesh=_Mesh({"data": 1, "model": 4},
+                                {"data": 0, "model": 3}))
+    k, _ = TM.init_cache(cfg, 1, 10, "cpu", dist=d4)["blocks"]
+    assert k.shape == (L, 1, 3, 2, Dh)
+    assert kv_layout(cfg, d4).slice(3) == (9, 12, False, True)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    eng = ServingEngine(cfg, ServeConfig(), params, dist=DistContext(
+        mesh=_Mesh({"data": 2, "model": 2}, {"data": 1, "model": 0})))
+    assert eng.dist.tp == 2 and eng.dist.dp == 1
     caches = TM.init_cache(cfg, 1, 8, "cpu")
     tok = torch.zeros((1, 4), dtype=torch.int32)
-    calls = [lambda: TM.init_cache(cfg, 1, 8, "cpu", dist=d),
-             lambda: TM.prefill(params, cfg, {"tokens": tok}, caches,
-                                dist=d),
-             lambda: TM.decode_step(params, cfg, tok[:, :1], caches, 4,
-                                    dist=d),
-             lambda: ServingEngine(cfg, ServeConfig(), params, dist=d)]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="A6e"):
-            call()
     one = DistContext(mesh=SimpleNamespace(shape={"data": 2, "model": 1}))
     logits, _ = TM.prefill(params, cfg, {"tokens": tok}, caches, dist=one)
     assert logits.shape == (1, 1, cfg.vocab_size)
+    mesh = _Mesh({"data": 2, "model": 2}, {"data": 1, "model": 1})
+    dp2 = DistContext(mesh=mesh)
+    with pytest.raises(NotImplementedError, match="A6c"):
+        TM.init_cache(cfg, 3, 8, "cpu", dist=dp2)
+    whole = TM.init_cache(cfg, 2, 8, "cpu")
+    with pytest.raises(NotImplementedError, match="A6c"):
+        TS.cache_placements(cfg, whole, mesh, kv_seq_shard=True)
+    pl = TS.cache_placements(cfg, whole, mesh)["blocks"][0]
+    assert pl.shard(whole["blocks"][0]).shape == \
+        TM.init_cache(cfg, 2, 8, "cpu", dist=dp2)["blocks"][0].shape
 
 
 def test_indivisible_vocabulary_stays_replicated(tmp_path):

@@ -251,14 +251,15 @@ def test_one_device_context():
     """``LOCAL`` and ``DistContext()`` are one device (tp = dp = 1, no
     expert parallelism) and leave the loss as ``dist=None`` does; a mesh
     with a model axis above 1 is tensor parallelism (tp 2, A6d), under
-    which serving raises and names A6e."""
+    which a serving cache holds each rank's KV heads (A6e)."""
     assert LOCAL.mesh is None and LOCAL.tp == 1 and LOCAL.dp == 1
     assert not DistContext(auto_moe=True).manual_moe
     tp2 = DistContext(mesh=SimpleNamespace(shape={"data": 1, "model": 2}))
     assert tp2.tp == 2 and tp2.dp == 1
-    with pytest.raises(NotImplementedError, match="A6e"):
-        TM.decode_step({}, get_config("h2o-danube3-4b", smoke=True),
-                       None, None, 0, dist=tp2)
+    kcfg = get_config("h2o-danube3-4b", smoke=True)
+    k, _ = TM.init_cache(kcfg, 1, 8, "cpu", dist=tp2)["blocks"]
+    assert k.shape == (kcfg.num_layers, 1, 8, kcfg.num_kv_heads // 2,
+                       kcfg.head_dim)
     _, cfg, _, npp = pair("deepseek-moe-16b")
     b = {k: torch.from_numpy(v) for k, v in batch(cfg, seed=6).items()}
     params = port_params(npp)

@@ -15,8 +15,9 @@ also through ``train()``), ``int8`` (``int8_allreduce_mean`` of per-rank inputs)
 ``elastic`` (``train()`` with checkpoints on one (data, model) shape,
 then restored onto another through an injected fault), ``model_axis``
 (a (1, world) mesh: ``tp`` and ``dp_only`` one step each), ``ep`` (the
-expert-parallel ``moe_layer`` forward) and ``collectives`` (the autograd
-collectives of ``distributed.tensor_parallel``).  Imports no JAX.
+expert-parallel ``moe_layer`` forward), ``collectives`` (the autograd
+collectives of ``distributed.tensor_parallel``) and ``serve`` (serving
+over a model axis, ``tests/torch_tp_serve_cases.py``).  Imports no JAX.
 """
 import datetime
 import json
@@ -241,9 +242,19 @@ def _collectives(rank, world, a, out):
         torch.save(every, out)
 
 
+def _serve(rank, world, a, out):
+    """Serving over a model axis: ``torch_tp_serve_cases.serve_ranks``,
+    every rank's results."""
+    from torch_tp_serve_cases import serve_ranks
+    every = [None] * world
+    dist.all_gather_object(every, serve_ranks(rank, world, a))
+    if rank == 0:
+        torch.save(every, out)
+
+
 CASES = {"route": _route, "variants": _variants, "int8": _int8,
          "train": _train, "elastic": _elastic, "model_axis": _model_axis,
-         "ep": _ep, "collectives": _collectives}
+         "ep": _ep, "collectives": _collectives, "serve": _serve}
 
 
 def _rank(rank, world, case, out_dir, a):
