@@ -301,6 +301,26 @@ is non-zero:
    same bar, and every rank's engine tokens equal to the one-rank
    engine's; a failed rank fails the run; the phase launches none of
    the kernels, counted in this process and in each rank process;
+3p. the sequence split over the batch axes and the launch tools, after
+   3o: (c)'s host processes start first (no card): the dry run of
+   h2o-danube3-4b's train_4k, prefill_32k, decode_32k and long_500k
+   cells and of one multi-pod cell on the production mesh, and
+   ``perf --exp C``, each line printed, each run to its end; (a) rank
+   processes on the card over gloo (``--seq-rank``) under
+   ``kv_seq_shard`` at B = 1, float32: gemma3-27b at 6 layers and
+   zamba2-2.7b at 6 blocks on the long_500k cell's 524,288-slot cache,
+   filled by seeded slot blocks (each rank draws only its slice, and its
+   parameter shard in pieces, ``piece_params``), on (2, 1) and (2, 2);
+   h2o-danube3-4b FULL, a 4,608-token prefill into its 4,096-slot ring,
+   on (2, 1); 4 greedy steps each, every rank's tokens equal, and after
+   the ranks exit the one-rank path on the whole cache within 1e-5 of
+   the largest |logit|; ms a call and peak per rank and for one rank;
+   (b) the launch tools' counts of phase 3l's training step and 3i's
+   h2o-danube3-4b decode step on ``meta``: FLOPs, bytes, their bound on
+   the H100's peaks beside the phase's measured ms, the counter's peak
+   and ``estimate_cell`` beside 3l's peak (findings, not asserts); the
+   phase launches none of the kernels, counted in this process and in
+   each rank process;
 4. a ``kernels`` JSON line with each kernel's launches on its path (B1-B5
    on the fleet path of phases 3 and 3b, B10 and B11 on the rate-control
    loop, B6-B9 on phase 3d's paths, B12 on the engine's tensors in 3f),
@@ -3241,12 +3261,14 @@ def decoder_phase(torch, dev):
     identities (``moe_identity_bf16``, ``moe_identity_f32``) over
     DECODER_STEPS teacher-forced steps; the MoE layers' dropped shares
     and aux losses at the served capacity factor; peak memory per
-    model."""
+    model.  Returns h2o-danube3-4b's median decode ms a step, its group
+    caches' shapes and its dense prompts' length (phase 3p (b))."""
     from repro_torch.configs import ServeConfig, get_config
     from repro_torch.models import forward as F, model as M
     from repro_torch.models.params import count_params, init_params
     from repro_torch.serving.engine import Request, ServingEngine
 
+    measured = {}
     for arch, depth, dense_len in DECODERS:
         cfg = get_config(arch)
         cut = ""
@@ -3326,6 +3348,9 @@ def decoder_phase(torch, dev):
             f"{ {k: v.tolist() for k, v in out.items()} }")
         assert sorted(out) == [0, 1, 2, 3] and len(prefill_ms) == 4
         assert len(decode_ms) == DECODER_STEPS
+        if arch == TRAIN_ARCH:
+            measured = {"ms": statistics.median(decode_ms), "ring": ring,
+                        "pos": dense_len}
         assert all(t.shape == (DECODER_STEPS,) and (t >= 0).all()
                    and (t < cfg.vocab_size).all() for t in out.values())
         if cfg.window_size:
@@ -3384,6 +3409,7 @@ def decoder_phase(torch, dev):
             f"GiB")
     gc.collect()
     torch.cuda.empty_cache()
+    return measured
 
 
 # ---------------------------------------------------------------------------
@@ -5203,6 +5229,493 @@ def serve_tp_phase(torch, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 3p: the sequence split over the batch axes, and the launch tools
+# ---------------------------------------------------------------------------
+
+SEQ_CELL = "long_500k"                # B = 1, a 524,288-slot cache
+SEQ_ARCHS = ("gemma3-27b", "zamba2-2.7b")   # cut to calib_depths()[0]
+SEQ_FULL = "h2o-danube3-4b"           # FULL, its 4,096-slot ring
+SEQ_FULL_LEN = 4608                   # its prompt, past the window
+SEQ_MESHES = {2: (2, 1), 4: (2, 2)}   # world -> (data, model)
+SEQ_STEPS = 4                         # greedy decode steps
+SEQ_TOL = 1e-5                        # of the largest |logit|
+SEQ_BLOCK = 8192                      # cache slots a generator fills
+PIECES = 2                            # parameter pieces along the model split
+SEQ_TIMEOUT = 420                     # s, each set of rank processes
+# (c): the dry run's cells of h2o-danube3-4b on the production mesh, one
+# multi-pod cell, and perf's experiment C, each a process of its own
+DRYRUN = ([["-m", "repro_torch.launch.dryrun", "--arch", "h2o-danube3-4b",
+            "--shape", s] for s in ("train_4k", "prefill_32k",
+                                    "decode_32k", "long_500k")]
+          + [["-m", "repro_torch.launch.dryrun", "--arch", "h2o-danube3-4b",
+              "--shape", "decode_32k", "--multi-pod"],
+             ["-m", "repro_torch.launch.perf", "--exp", "C"]])
+DRYRUN_TIMEOUT = 300                  # s
+
+
+def seq_config(arch):
+    """(b)'s configs in float32: gemma3-27b and zamba2-2.7b cut to their
+    first calibration depth (one gemma3 pattern of 5 local layers and a
+    global one; zamba2's 6 Mamba2 blocks and one shared-attention
+    application), h2o-danube3-4b whole."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.roofline import calib_depths, with_depth
+    cfg = get_config(arch)
+    if arch != SEQ_FULL:
+        cfg = with_depth(cfg, calib_depths(cfg)[0])
+    return f32(cfg)
+
+
+def piece_params(torch, cfg, dev, mesh=None):
+    """Parameters drawn without the whole on any rank: each leaf in
+    PIECES pieces along the dim that ``param_pspecs``' tp mode splits
+    over a model axis of PIECES (one piece where it splits none), each
+    piece from its own generator; a rank of ``mesh`` draws only the
+    pieces of its model shard, one rank (no mesh) all of them.  Norms
+    are ones and zero-scale leaves zeros, as ``init_params`` makes
+    them; the rest truncated normal of std 1/sqrt(fan-in)."""
+    import math
+    from types import SimpleNamespace
+
+    from repro_torch.distributed.shardings import param_pspecs
+    tp = 1 if mesh is None else mesh.size("model")
+    mine = range(PIECES) if tp == 1 else \
+        range(mesh.index("model") * PIECES // tp,
+              (mesh.index("model") + 1) * PIECES // tp)
+    unit = SimpleNamespace(shape={"data": 1, "model": PIECES})
+    calls = [0]
+
+    def mk(name, shape, dtype, scale):
+        calls[0] += 1
+        if scale in (-1, 0):
+            fill = torch.ones if scale == -1 else torch.zeros
+            return fill(shape, dtype=dtype, device=dev)
+        spec = param_pspecs(cfg, {name: torch.empty(shape, device="meta")},
+                            "tp", mesh=unit)[name]
+        dim = next((i for i, e in enumerate(spec) if e == "model"), None)
+        std = 1.0 / math.sqrt(max(scale, 1.0)) if scale > 1 else 0.02
+        parts = []
+        for p in (mine if dim is not None else [0]):
+            shp = list(shape)
+            if dim is not None:
+                shp[dim] //= PIECES
+            g = torch.Generator(device=dev).manual_seed(
+                SEED * 1_000_003 + calls[0] * 101 + p)
+            t = torch.empty(shp, dtype=torch.float32, device=dev)
+            if scale == -2 and name == "m_A_log":     # log U[1, 16]
+                t = torch.log(t.uniform_(1.0, 16.0, generator=g))
+            elif scale == -2 and name == "decay_base":
+                ramp = torch.arange(shp[-1], dtype=torch.float32,
+                                    device=dev) / max(shp[-1] - 1, 1)
+                t = (-6.0 + 5.0 * ramp).expand(shp).contiguous()
+            elif scale == -2:
+                t.zero_()
+            else:
+                torch.nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                            generator=g)
+            parts.append(t.to(dtype))
+        return torch.cat(parts, dim) if len(parts) > 1 else parts[0]
+
+    from repro_torch.models.params import param_tree
+    return param_tree(cfg, mk)
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _tree_leaves(t)]
+    return [tree]
+
+
+def _kv_roles(cfg, tree):
+    """Each leaf of a cache tree (``_tree_leaves`` order): True for a KV
+    cache, False for a recurrent state."""
+    def mark(t, v):
+        return [v] * len(_tree_leaves(t))
+    if cfg.family == "ssm":
+        return mark(tree, False)
+    if cfg.family == "hybrid":
+        return mark(tree["attn"], True) + mark(tree["states"], False)
+    return mark(tree, True)
+
+
+def filled_cache(torch, cfg, S, dev, d=None, mesh=None):
+    """``init_cache(cfg, 1, S, dev, dist=d)`` filled from seeded
+    generators without the whole cache on any rank: each KV cache by
+    blocks of SEQ_BLOCK slots (a block's generator seeded by the leaf and
+    the block; a rank draws only the blocks over its slots, all of their
+    KV heads, and keeps its heads), each recurrent state whole at 0.1 of
+    a standard normal and cut by its placement."""
+    from repro_torch.distributed.shardings import cache_placements
+    from repro_torch.models import model as M
+    caches = M.init_cache(cfg, 1, S, dev, dist=d)
+    whole = M.init_cache(cfg, 1, S, "meta")
+    pls = _tree_leaves(cache_placements(cfg, whole, mesh,
+                                        kv_seq_shard=True)) \
+        if d is not None else [None] * len(_tree_leaves(whole))
+    for i, (leaf, full, pl, kv) in enumerate(zip(
+            _tree_leaves(caches), _tree_leaves(whole), pls,
+            _kv_roles(cfg, caches))):
+        seed = SEED * 7_919 + i * 100_003
+        if not kv:
+            g = torch.Generator(device=dev).manual_seed(seed)
+            t = 0.1 * torch.randn(full.shape, generator=g, device=dev)
+            leaf.copy_(t if pl is None else pl.shard(t))
+            continue
+        starts = [0, 0]          # the rank's first slot and KV head
+        for s in (() if pl is None else (pl.model, pl.batch)):
+            if s is not None:
+                starts[s[0] - 2] = mesh.index(s[1]) * leaf.shape[s[0]]
+        s0, h0 = starts
+        n, nh = leaf.shape[2], leaf.shape[3]
+        for b0 in range(s0 // SEQ_BLOCK * SEQ_BLOCK, s0 + n, SEQ_BLOCK):
+            rows = min(SEQ_BLOCK, full.shape[2] - b0)
+            g = torch.Generator(device=dev).manual_seed(seed + b0 // SEQ_BLOCK)
+            blk = torch.randn(full.shape[:2] + (rows,) + full.shape[3:],
+                              generator=g, device=dev)
+            lo, hi = max(b0, s0), min(b0 + rows, s0 + n)
+            leaf[:, :, lo - s0:hi - s0] = blk[:, :, lo - b0:hi - b0,
+                                              h0:h0 + nh].to(leaf.dtype)
+            del blk
+    return caches
+
+
+def seq_inputs(cfg):
+    """A case's cache length, prompt (None: the filled cache instead of
+    a prefill) and first token."""
+    from repro_torch.configs import SHAPES
+    rng = np.random.default_rng((SEED, 350))
+    if cfg.name == SEQ_FULL:
+        prompt = rng.integers(0, cfg.vocab_size, SEQ_FULL_LEN)
+        return SEQ_FULL_LEN + SEQ_STEPS, prompt, None
+    return SHAPES[SEQ_CELL].seq_len, None, int(rng.integers(cfg.vocab_size))
+
+
+def seq_decode(torch, cfg, params, dev, d=None, mesh=None, forced=None):
+    """A case's decode: the filled cache (or the prompt's prefill), then
+    SEQ_STEPS steps -- greedy, or the ``forced`` tokens: (each step's
+    float32 logits on the host, the tokens fed, ms per call)."""
+    from repro_torch.models import model as M
+    S, prompt, first = seq_inputs(cfg)
+    out, toks, ms = [], [], []
+    with torch.no_grad():
+        if prompt is None:
+            caches = filled_cache(torch, cfg, S, dev, d, mesh)
+            start, tok = S - SEQ_STEPS, first
+        else:
+            caches = M.init_cache(cfg, 1, S, dev, dist=d)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lg, caches = M.prefill(params, cfg, {"tokens": torch.as_tensor(
+                prompt, device=dev)[None]}, caches, dist=d)
+            torch.cuda.synchronize()
+            ms.append(round((time.perf_counter() - t) * 1e3, 3))
+            start, tok = len(prompt), int(lg[0, -1].argmax())
+        for i in range(SEQ_STEPS):
+            tok = forced[i] if forced is not None else tok
+            toks.append(tok)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lg, caches = M.decode_step(
+                params, cfg, torch.tensor([[tok]], device=dev), caches,
+                start + i, dist=d)
+            torch.cuda.synchronize()
+            ms.append(round((time.perf_counter() - t) * 1e3, 3))
+            out.append(lg[0, -1].float().cpu())
+            tok = int(out[-1].argmax())
+    del caches
+    return out, toks, ms
+
+
+def seq_rank_main(rank: int, world: int, out_dir: str) -> int:
+    """One of phase 3p (a)'s rank processes on the card, on a (2, world //
+    2) mesh over gloo under ``kv_seq_shard``: each case of
+    ``seq_cases(world)`` -- its parameter shard (``piece_params``), its
+    slice of the filled cache, SEQ_STEPS greedy steps; its logits in
+    ``<case>_<rank>.pt``, rank 0's summary in ``result.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch.distributed.shardings import make_dist
+    from repro_torch.launch.mesh import make_train_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/pg",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    res = {"cases": []}
+    try:
+        mesh = make_train_mesh(SEQ_MESHES[world], device=dev)
+        d = make_dist(mesh, kv_seq_shard=True)
+        zero_counts()
+        for arch in seq_cases(world):
+            cfg = seq_config(arch)
+            torch.cuda.reset_peak_memory_stats()
+            params = piece_params(torch, cfg, dev, mesh)
+            logits, toks, ms = seq_decode(torch, cfg, params, dev, d, mesh)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.save(logits, Path(out_dir, f"{arch}_{rank}.pt"))
+            every = [None] * world
+            dist.all_gather_object(every, {"tokens": toks, "ms": ms,
+                                           "peak_gib": peak})
+            res["cases"].append({"arch": arch, "ranks": every})
+            dist.barrier()
+        write_counts(out_dir, rank)
+        res["done"] = True
+    finally:
+        if rank == 0:
+            Path(out_dir, "result.json").write_text(json.dumps(res))
+        dist.destroy_process_group()
+    return 0
+
+
+def seq_cases(world):
+    """The archs each mesh runs: both cut archs on (2, 1) and (2, 2),
+    h2o-danube3-4b FULL on (2, 1)."""
+    return SEQ_ARCHS + ((SEQ_FULL,) if world == 2 else ())
+
+
+def spawn_seq_ranks(world: int):
+    """``world`` rank processes of ``seq_rank_main`` on the card, waited on
+    with SEQ_TIMEOUT and killed past it: (rank 0's result, the
+    directory of every rank's logits)."""
+    import tempfile
+    BUILD.mkdir(parents=True, exist_ok=True)
+    d = tempfile.mkdtemp(dir=BUILD, prefix=f"seq{world}_")
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--seq-rank", str(r), str(world), d])
+             for r in range(world)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, SEQ_TIMEOUT
+                               - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), \
+        [p.returncode for p in procs]
+    res = json.loads(Path(d, "result.json").read_text())
+    assert res.get("done"), res
+    res["counts"] = read_counts(d, world)
+    return res, d
+
+
+def seq_split_phase(torch, dev, smi):
+    """(a): the rank processes on (2, 1), then on (2, 2); after each set
+    has exited, the one-rank reference of each case on the whole cache
+    (teacher-forced on rank 0's tokens) against every rank's logits."""
+    from repro_torch.configs import SHAPES
+    counts, refs = {}, {}
+    for world in (2, 4):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res, d = spawn_seq_ranks(world)
+        counts[f"(a) {SEQ_MESHES[world]}"] = res["counts"]
+        t_ranks = time.perf_counter() - t0
+        for case in res["cases"]:
+            arch, ranks = case["arch"], case["ranks"]
+            cfg = seq_config(arch)
+            toks = ranks[0]["tokens"]
+            same = all(r["tokens"] == toks for r in ranks)
+            key = (arch, tuple(toks))
+            if key not in refs:
+                params = piece_params(torch, cfg, dev)
+                torch.cuda.reset_peak_memory_stats()
+                refs[key] = seq_decode(torch, cfg, params, dev,
+                                       forced=toks) + (
+                    torch.cuda.max_memory_allocated() / 2 ** 30,)
+                del params
+                gc.collect()
+                torch.cuda.empty_cache()
+            want, _, ms_one, peak_one = refs[key]
+            scale = max(float(w.abs().max()) for w in want)
+            every = [torch.load(Path(d, f"{arch}_{r}.pt"))
+                     for r in range(world)]
+            shares = [max(float((got[i] - w).abs().max()) for got in every)
+                      / scale for i, w in enumerate(want)]
+            S, prompt, _ = seq_inputs(cfg)
+            what = (f"prefill of {len(prompt)} tokens into a "
+                    f"{cfg.window_size}-slot ring" if prompt is not None
+                    else f"the {SEQ_CELL} cell's {S}-slot cache filled by "
+                    f"{SEQ_BLOCK}-slot blocks")
+            say(f"[3p] (a) {arch} ({cfg.num_layers} layers, "
+                f"{cfg.param_count() / 1e9:.3f} B parameters, KV heads "
+                f"{cfg.num_kv_heads}), float32, B = 1 on "
+                f"{SEQ_MESHES[world]} under kv_seq_shard: {what}, "
+                f"{SEQ_STEPS} greedy steps; error per step against the "
+                f"one-rank path as a share of the largest |logit| "
+                f"({scale:.4f}) {fmt(shares)} (bar {SEQ_TOL}); every rank's "
+                f"tokens equal: {same} ({toks}); ms per call ranks "
+                f"{[r['ms'] for r in ranks]}, one rank {ms_one}; peak GiB "
+                f"ranks {[round(r['peak_gib'], 2) for r in ranks]}, one "
+                f"rank {peak_one:.2f} ({smi})")
+            assert same and max(shares) <= SEQ_TOL, (arch, shares, toks)
+        say(f"[3p] (a) {SEQ_MESHES[world]}: rank processes "
+            f"{t_ranks:.1f} s, references "
+            f"{time.perf_counter() - t0 - t_ranks:.1f} s")
+    return counts
+
+
+def start_dryruns():
+    """(c)'s processes, started together on the host (no card): [(args,
+    Popen, out file)]."""
+    import os
+    import tempfile
+    BUILD.mkdir(parents=True, exist_ok=True)
+    d = tempfile.mkdtemp(dir=BUILD, prefix="dryrun_")
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    runs = []
+    for i, args in enumerate(DRYRUN):
+        out = Path(d, f"run{i}.json")
+        log = open(Path(d, f"run{i}.log"), "w")
+        runs.append((args, subprocess.Popen(
+            [sys.executable, "-W", "ignore", *args, "--out", str(out)],
+            env=env, cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT),
+            out, log))
+    return runs
+
+
+def finish_dryruns(runs, smi):
+    """(c): each process waited on (all within DRYRUN_TIMEOUT of the
+    first wait, killed past it), its record lines printed, each ran to
+    its end: exit 0 and every record ``ok``."""
+    t0 = time.perf_counter()
+    try:
+        for _, p, _, _ in runs:
+            p.wait(timeout=max(1.0, DRYRUN_TIMEOUT
+                               - (time.perf_counter() - t0)))
+    finally:
+        for _, p, _, log in runs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    for args, p, out, log in runs:
+        text = Path(log.name).read_text()
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith(("[", "  ", "=="))]
+        for ln in lines:
+            say(f"[3p] (c) {' '.join(args[1:])}: {ln.strip()}")
+        recs = json.loads(out.read_text()) if out.exists() else []
+        say(f"[3p] (c) {' '.join(args[1:])}: exit {p.returncode}, "
+            f"{len(recs)} records, all ok: "
+            f"{bool(recs) and all(r['ok'] for r in recs)} (host only; "
+            f"{smi})")
+        assert p.returncode == 0 and recs and all(r["ok"] for r in recs), \
+            (args, text[-3000:])
+
+
+def tools_on_card_steps(torch, smi, measured):
+    """(b): 3l's one-rank h2o-danube3-4b training step (TRAIN_BATCH x
+    4,096, remat on) and 3i's 4-request h2o-danube3-4b decode step
+    counted on ``meta``: FLOPs, HBM bytes, their bound on the H100's
+    peaks beside the time the phase measured (``measured``: "3l_ms",
+    "3l_peak_gib", "3i_decode"; absent when the phases did not run), and
+    the counter's peak and ``estimate_cell`` (a (1, 1) mesh) beside the
+    card's peak.  Findings: nothing here is asserted but that the counts
+    ran."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import SHAPES, ShapeCell, TrainConfig, \
+        get_config
+    from repro_torch.launch.counter import count
+    from repro_torch.launch.memory import estimate_cell
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    from repro_torch.models import model as M
+    from repro_torch.models.params import param_specs
+    from repro_torch.optim.adamw import adamw_abstract
+    from repro_torch.train.loop import TrainState, make_train_step
+
+    def line(what, c, ms):
+        b = max(c.flops / PEAK_FLOPS_BF16, c.hbm_bytes / HBM_BW) * 1e3
+        share = f"{b / ms:.4f}" if ms else "not measured in this run"
+        say(f"[3p] (b) {what}: counted {c.flops:.4e} FLOP, "
+            f"{c.hbm_bytes:.4e} HBM bytes, {c.ops} ops ({c.seconds:.1f} s "
+            f"on the host); bound max(FLOP / 989e12, bytes / 3.35e12) "
+            f"{b:.3f} ms; measured {ms if ms else 'not measured'} ms; share "
+            f"{share}; counter's peak {c.peak_bytes / 2 ** 30:.2f} GiB "
+            f"({smi})")
+        return b
+
+    cfg, cell = get_config(TRAIN_ARCH), SHAPES["train_4k"]
+    specs = param_specs(cfg)
+    state = TrainState(specs, adamw_abstract(specs))
+    batch = M.input_specs(cfg, ShapeCell(cell.name, cell.seq_len,
+                                         TRAIN_BATCH, "train"))
+    c = count(make_train_step(cfg, TrainConfig()), state, batch)
+    ms = measured.get("3l_ms")
+    line(f"3l's {cfg.name} training step ({TRAIN_BATCH} x {cell.seq_len}, "
+         f"remat on, one rank)", c, ms)
+    est = estimate_cell(cfg, ShapeCell(cell.name, cell.seq_len, TRAIN_BATCH,
+                                       "train"),
+                        SimpleNamespace(shape={"data": 1, "model": 1}))
+    card = measured.get("3l_peak_gib")
+    parts = {k: round(v / 2 ** 30, 2) for k, v in est.items()
+             if k not in ("total", "fits")}
+    say(f"[3p] (b) 3l's step memory: counter's peak "
+        f"{c.peak_bytes / 2 ** 30:.2f} GiB; estimate_cell on a (1, 1) mesh "
+        f"{est['total'] / 2 ** 30:.2f} GiB ({parts}); "
+        f"the card's max_memory_allocated "
+        f"{'%.2f GiB' % card if card else 'not measured in this run'}")
+    dec = measured.get("3i_decode") or {}
+    ring = dec.get("ring", {"blocks": (cfg.num_layers, 4, cfg.window_size,
+                                       cfg.num_kv_heads, cfg.head_dim)})
+    kvdt = getattr(torch, cfg.kv_cache_dtype)
+    caches = {k: tuple(torch.empty(s, dtype=kvdt, device="meta")
+                       for _ in range(2)) for k, s in ring.items()}
+    B = next(iter(ring.values()))[1]
+    pos = torch.full((B,), dec.get("pos", cfg.window_size),
+                     dtype=torch.int64, device="meta")
+    tok = torch.empty((B, 1), dtype=torch.int32, device="meta")
+    def decode(p, t, cc, q):
+        with torch.no_grad():       # the engine's weights take no grad
+            return M.decode_step(p, cfg, t, cc, q)
+
+    c = count(decode, param_specs(cfg), tok, caches, pos)
+    line(f"3i's {cfg.name} {B}-request decode step (group caches {ring})",
+         c, dec.get("ms"))
+
+
+def launch_tools_phase(torch, dev, measured=None):
+    """Phase 3p: (c)'s host processes started first, (a) the sequence
+    split over the batch axes on rank processes, (b) the tools on the
+    card's own steps (``tools_on_card_steps``' ``measured``), then (c)
+    waited on."""
+    smi = " | ".join(nvidia_smi())
+    t0 = time.perf_counter()
+    runs = start_dryruns()
+    try:
+        counts = seq_split_phase(torch, dev, smi)
+        ta = time.perf_counter() - t0
+        tools_on_card_steps(torch, smi, measured or {})
+        tb = time.perf_counter() - t0 - ta
+    except BaseException:
+        for _, p, _, log in runs:
+            p.kill()
+            p.wait()
+            log.close()
+        raise
+    finish_dryruns(runs, smi)
+    say(f"[3p] (a) {ta:.1f} s, (b) {tb:.1f} s, (c) waited "
+        f"{time.perf_counter() - t0 - ta - tb:.1f} s more; phase "
+        f"{time.perf_counter() - t0:.1f} s ({smi})")
+    return counts
+
+
 def say_rank_counts(tag: str, ranks):
     """Print each rank process's launches and dispatches (``ranks``: part
     -> each rank's counts, set to 0 just before the part's path and read
@@ -5342,8 +5855,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     say(f"[3i] after phase 3f: {torch.cuda.memory_allocated() / 2 ** 30:.2f}"
         f" GiB allocated")
-    _, launches["decoders"], disp, _ = run_path(torch, decoder_phase, torch,
-                                                dev)
+    decode_3i, launches["decoders"], disp, _ = run_path(
+        torch, decoder_phase, torch, dev)
     say(f"[main] phase 3i, the windowed, local/global and MoE decoders: "
         f"kernel launches {launches['decoders']}, dispatches {disp} (none of "
         f"the twelve kernels lies on this path)")
@@ -5365,8 +5878,10 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     assert launches["encdec"] == {} and disp == {}
     t0 = time.perf_counter()
-    _, launches["train"], disp, peak = run_path(torch, train_phase, torch,
-                                                dev)
+    (rows, _), launches["train"], disp, peak = run_path(
+        torch, train_phase, torch, dev)
+    measured = {"3i_decode": decode_3i, "3l_ms": statistics.median(rows),
+                "3l_peak_gib": peak}
     say(f"[main] phase 3l, the one-device training step: kernel launches "
         f"{launches['train']}, dispatches {disp} (none of the twelve "
         f"kernels lies on this path); peak memory {peak:.2f} GiB; "
@@ -5404,6 +5919,17 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     assert launches["serve_tp"] == {} and disp == {}
     say_rank_counts("[main] phase 3o", ranks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks, launches["launch_tools"], disp, peak = run_path(
+        torch, launch_tools_phase, torch, dev, measured)
+    say(f"[main] phase 3p, the sequence split over the batch axes and the "
+        f"launch tools: kernel launches {launches['launch_tools']}, "
+        f"dispatches {disp} (none of the twelve kernels lies on this path); "
+        f"peak memory {peak:.2f} GiB; {time.perf_counter() - t0:.1f} s")
+    assert launches["launch_tools"] == {} and disp == {}
+    say_rank_counts("[main] phase 3p", ranks)
 
     rows = []
     for kname, (source, replaces) in KERNELS.items():
@@ -5429,4 +5955,7 @@ if __name__ == "__main__":
     if len(sys.argv) == 5 and sys.argv[1] == "--serve-rank":
         sys.exit(serve_rank_main(int(sys.argv[2]), int(sys.argv[3]),
                                  sys.argv[4]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--seq-rank":
+        sys.exit(seq_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                               sys.argv[4]))
     sys.exit(main())

@@ -241,56 +241,52 @@ def cache_placements(cfg, cache, mesh: TrainMesh, multi_pod: bool = False,
     """The ``Placement`` of every leaf of ``cfg``'s cache tree as
     ``models.cache_layout`` lays it out: ``shard`` cuts a whole cache
     into this rank's shard.  The KV caches take ``named`` of
-    ``cache_pspecs``; the recurrent states take their route's placement
-    (rwkv6's wkv state by its heads where ``rwkv_heads`` splits them,
-    its shifts and zamba2's states over the batch rows alone).  A KV
-    cache whose sequence takes a batch axis (``kv_seq_shard``, or a
-    batch that does not divide) raises: that split comes with A6c in
-    ROADMAP.md."""
+    ``cache_pspecs``: under the sequence split over the batch axes
+    (``kv_seq_shard``, or a batch that does not divide over them) their
+    rows whole and their sequence over the batch axes, joined with the
+    model axis where KH % tp != 0.  The recurrent states take their
+    route's placement (rwkv6's wkv state by its heads where
+    ``rwkv_heads`` splits them, its shifts and zamba2's states over the
+    batch rows alone -- whole under the split), whisper's cross K/V its
+    rows and KV heads (where KH % tp == 0), its sequence whole."""
     from repro_torch.models.cache_layout import rwkv_heads
     b = ("pod", "data") if multi_pod else ("data",)
-    rows = P(None, b)
+    B = _first_leaf(cache).shape[1]
+    split = kv_seq_shard or B % mesh.size(b) != 0
+    rows = P(None, None) if split else P(None, b)
 
     def kv(tree):
-        specs = cache_pspecs(tree, mesh, multi_pod, kv_seq_shard)
-
-        def one(leaf, spec):
-            seq = spec[2]
-            axes = () if seq is None else ((seq,) if isinstance(seq, str)
-                                           else tuple(seq))
-            if any(a in b for a in axes) and mesh.size(b) > 1:
-                raise NotImplementedError(
-                    f"a KV cache {tuple(leaf.shape)} placed {spec}: the "
-                    f"sequence split over the batch axes comes with A6c "
-                    f"in ROADMAP.md")
-            return Placement(mesh, spec)
-
-        return _zip_map(one, tree, specs)
+        return named(mesh, cache_pspecs(tree, mesh, multi_pod, kv_seq_shard))
 
     if cfg.family == "ssm":
         split = rwkv_heads(cfg, mesh.size("model")) < cfg.ssm_num_heads
-        wkv = P(None, b, "model") if split else rows
+        wkv = P(*rows, "model") if split else rows
         return tuple(Placement(mesh, s) for s in (wkv, rows, rows))
     if cfg.family == "hybrid":
         return {"states": (Placement(mesh, rows),) * 2,
                 "attn": kv(cache["attn"])}
+    if cfg.family == "encdec":
+        heads = "model" if cfg.num_kv_heads % mesh.size("model") == 0 \
+            else None
+        cross = Placement(mesh, P(*rows, None, heads, None))
+        return {"self": kv(cache["self"]), "cross": (cross, cross)}
     return kv(cache)
 
 
-def _zip_map(fn, tree, other):
-    """``fn(leaf, other's leaf)`` over a tree of dicts, lists and tuples."""
-    if isinstance(tree, dict):
-        return {k: _zip_map(fn, tree[k], other[k]) for k in tree}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_zip_map(fn, x, y) for x, y in zip(tree, other))
-    return fn(tree, other)
+def _first_leaf(tree):
+    """The first tensor of a tree of dicts, lists and tuples."""
+    while isinstance(tree, (dict, list, tuple)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) \
+            else tree[0]
+    return tree
 
 
 def make_dist(mesh: Optional[TrainMesh], auto_moe: bool = False,
-              dp_only: bool = False):
+              dp_only: bool = False, kv_seq_shard: bool = False):
     """The model code's ``DistContext`` on ``mesh`` (one device without
     one): the batch axes, and the model axis -- joined to the batch axes
-    under ``dp_only``."""
+    under ``dp_only``; ``kv_seq_shard`` puts a serving cache's sequence
+    over the batch axes (``models.cache_layout``)."""
     from repro_torch.models.dist import DistContext
     if mesh is None:
         return DistContext(mesh=None)
@@ -298,7 +294,7 @@ def make_dist(mesh: Optional[TrainMesh], auto_moe: bool = False,
     batch_axes = tuple(a for a in axes if a in mesh.shape)
     return DistContext(mesh=mesh, batch_axes=batch_axes,
                        model_axis="model" if not dp_only else "__none__",
-                       auto_moe=auto_moe)
+                       auto_moe=auto_moe, kv_seq_shard=kv_seq_shard)
 
 
 def _lead(t: torch.Tensor, dim: int) -> torch.Tensor:

@@ -18,9 +18,10 @@ gradient of its slice).  The four collectives move between the two:
   scatter_last this rank's slice forward, all-gather backward: a
                replicated tensor split on its last dim.
 
-``max_from`` (forward only) reduces flash decoding's running max in
-serving.  Each takes the model code's ``DistContext``; on one rank (no
-mesh, or a model axis of 1) each is the identity in both directions and
+``reduce_over`` (forward only) reduces flash decoding's running max
+and sums in serving over the axes of a sequence split.  Each takes the
+model code's ``DistContext``; on one rank (no mesh, or a model axis of
+1) each is the identity in both directions and
 returns its input.  ``split_dim`` reads from a leaf's local width
 whether the leaf is split over the model group.
 """
@@ -120,13 +121,16 @@ def reduce_from(x: torch.Tensor, ctx) -> torch.Tensor:
     return _Reduce.apply(x, ctx.model_group())
 
 
-def max_from(x: torch.Tensor, ctx) -> torch.Tensor:
-    """The elementwise max of ``x`` over the model group, forward only
-    (flash decoding's running max in serving); ``x`` on one rank."""
-    if tp_size(ctx) == 1:
+def reduce_over(x: torch.Tensor, ctx, axes, op: str = "sum"
+                ) -> torch.Tensor:
+    """The elementwise sum (or ``op="max"``) of ``x`` over the ranks of
+    the mesh ``axes``, forward only (flash decoding's combine over a
+    sequence split); ``x`` itself over one rank."""
+    if ctx is None or ctx.mesh is None or ctx.mesh.size(axes) == 1:
         return x
     out = x.contiguous().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=ctx.model_group())
+    dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
+                    else dist.ReduceOp.SUM, group=ctx.mesh.group(axes))
     return out
 
 
@@ -142,5 +146,5 @@ def scatter_last(x: torch.Tensor, ctx) -> torch.Tensor:
     return _Scatter.apply(x, ctx.model_group(), ctx.tp, ctx.model_rank)
 
 
-__all__ = ["tp_size", "split_dim", "copy_to", "reduce_from", "max_from",
+__all__ = ["tp_size", "split_dim", "copy_to", "reduce_from", "reduce_over",
            "gather_last", "scatter_last"]

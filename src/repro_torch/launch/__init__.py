@@ -1,2 +1,7 @@
-"""Launchers: the fleet mesh the sharded runtime places its shards on
-(``launch.mesh``) and the serving launcher (``launch.serve``)."""
+"""Launchers and launch tools: the meshes (``launch.mesh``: the fleet
+mesh, the training mesh, the production and debug meshes and the H100's
+constants), the serving and training launchers (``launch.serve``,
+``launch.train``), and the dry run of the production meshes with its
+roofline tools (``launch.steps``, ``launch.counter``, ``launch.dryrun``,
+``launch.memory``, ``launch.roofline``, ``launch.roofline_run``,
+``launch.perf``)."""

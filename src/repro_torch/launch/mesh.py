@@ -13,9 +13,18 @@ process group row-major over the JAX package's axes, ``("data",
 "model")`` or ``("pod", "data", "model")``, one device a rank: the card
 of the rank's local index under NCCL, the CPU under gloo.  It gives the
 process group of any set of axes -- the model group, the batch axes'
-group beside a live model axis -- and this rank's coordinate.  The
-production and debug meshes of the JAX package's ``launch/mesh.py`` are
-not ported yet (A6c in ROADMAP.md).
+group beside a live model axis -- and this rank's coordinate.
+
+The production meshes are the JAX package's: (16, 16) over ("data",
+"model"), 256 ranks, or (2, 16, 16) over ("pod", "data", "model"), 512
+ranks, the pod axis the slow one; the batch splits over ("pod", "data").
+``make_debug_mesh`` lays out a small one.  Both are ``TrainMesh``es over
+the initialized process group, which must have the mesh's world size:
+the dry run (``launch.dryrun``) initializes PyTorch's fake process group
+at that size, where the JAX package forces a host device count.
+
+The hardware constants are the NVIDIA H100 SXM's, per card, for the
+roofline (``launch.roofline``).
 """
 from __future__ import annotations
 
@@ -184,5 +193,42 @@ def make_train_mesh(shape: Sequence[int], axes: Optional[Sequence[str]]
     return TrainMesh(shape, axes, device)
 
 
+def make_production_mesh(*, multi_pod: bool = False,
+                         device=None) -> TrainMesh:
+    """(16, 16) over ("data", "model"), or with ``multi_pod`` (2, 16, 16)
+    over ("pod", "data", "model"), over the initialized process group
+    (256 or 512 ranks; another size raises); ``device`` as
+    ``make_train_mesh`` takes it."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    return make_train_mesh(shape, device=device)
+
+
+def make_debug_mesh(data: int = 2, model: int = 2, pod: int = 1,
+                    device=None) -> TrainMesh:
+    """A small mesh: (data, model), or (pod, data, model) with ``pod`` >
+    1, over the initialized process group of that many ranks."""
+    shape = (pod, data, model) if pod > 1 else (data, model)
+    return make_train_mesh(shape, device=device)
+
+
+# NVIDIA H100 SXM5 80GB, per card, for the roofline
+# dense bf16 tensor-core peak (NVIDIA H100 Tensor Core GPU data sheet:
+# 1,979 TFLOP/s with sparsity, half of it dense)
+PEAK_FLOPS_BF16 = 989e12         # FLOP/s
+# HBM3 bandwidth (the same data sheet)
+HBM_BW = 3.35e12                 # bytes/s
+# NVLink 4: 900 GB/s a GPU both directions (the same data sheet), 450e9
+# a direction.  It joins the 8 cards of one node; a model axis wider
+# than 8 crosses nodes over InfiniBand (400 Gb/s a card), far slower,
+# so the collective term of a 16-wide model axis is a lower bound
+COLL_BW = 450e9                  # bytes/s a direction per card
+# a pod: 32 nodes of 8 cards (the JAX package's 256-chip pod)
+CHIPS_PER_POD = 256
+# 80 GB of HBM3 (the same data sheet), taken as 80 GiB
+HBM_PER_CHIP = 80 * 2 ** 30
+
+
 __all__ = ["FLEET_AXIS", "FleetMesh", "make_fleet_mesh", "TRAIN_AXES",
-           "TrainMesh", "make_train_mesh"]
+           "TrainMesh", "make_train_mesh", "make_production_mesh",
+           "make_debug_mesh", "PEAK_FLOPS_BF16", "HBM_BW", "COLL_BW",
+           "CHIPS_PER_POD", "HBM_PER_CHIP"]

@@ -13,6 +13,13 @@ JAX package's partitioner inserts them.  The training loop reduces the
 gradients over the batch axes.  The port takes the explicit
 expert-parallel route whatever ``auto_moe`` says: it has no partitioner
 to defer to (ROADMAP.md, deliberate differences).
+
+In serving, ``kv_seq_shard`` puts the KV caches' sequence over the batch
+axes (the JAX package's ``cache_pspecs(kv_seq_shard=True)``, which a
+batch that the batch axes do not divide also takes): every batch rank
+holds all B rows of the batch and of the caches, its slice of each KV
+cache's sequence, and decode combines the slices' partial attention
+over the sequence's group (``models.cache_layout``).
 """
 from __future__ import annotations
 
@@ -29,6 +36,9 @@ class DistContext:
     # of the explicit dispatch; the port has no partitioner and takes the
     # explicit route either way
     auto_moe: bool = False
+    # serving: the KV caches' sequence over the batch axes, every batch
+    # rank on all rows
+    kv_seq_shard: bool = False
 
     @property
     def manual_moe(self) -> bool:
@@ -58,6 +68,14 @@ class DistContext:
         if self.tp == 1:
             return 0
         return self.mesh.index(self.model_axis)
+
+    @property
+    def batch_rank(self) -> int:
+        """This rank's row-major index over the batch axes (0 without
+        any)."""
+        if self.dp == 1:
+            return 0
+        return self.mesh.index(self.batch_axes)
 
     def batch_group(self):
         """The process group of the batch axes (a mesh's only)."""

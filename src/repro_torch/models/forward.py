@@ -13,7 +13,9 @@ the cross-entropy and the logits (gathered whole), its experts, and
 RWKV6's heads; the collectives are ``distributed.tensor_parallel``'s.
 In prefill and decode each rank holds its shard of the KV caches: its
 KV heads, or where KH % tp != 0 its slice of the sequence, attended
-through flash decoding (``cache_layout``, ``_attn_tp``).
+through flash decoding (``cache_layout``, ``_attn_tp``); under
+``kv_seq_shard`` its slice of the sequence over the batch axes too,
+every batch rank on all rows.
 
 Modes: ``train`` (the whole sequence, no caches; with ``remat`` each
 block the JAX package wraps in ``jax.checkpoint`` is recomputed in the
@@ -43,10 +45,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.tensor_parallel import (copy_to, gather_last,
-                                                     max_from, reduce_from,
+                                                     reduce_from, reduce_over,
                                                      split_dim, tp_size)
 from repro_torch.models import layers as L
-from repro_torch.models.cache_layout import KVSlice, kv_layout
+from repro_torch.models.cache_layout import KVLayout, KVSlice, kv_layout
 from repro_torch.models.dist import DistContext
 from repro_torch.models.moe import moe_layer
 from repro_torch.models.rwkv import RWKVState, rwkv6_block
@@ -238,13 +240,13 @@ def _write_prompt(cache, k, v, sl: KVSlice, window: int) -> None:
 
 
 def _decode(q, k, v, cache, pos, window: int, cfg: ModelConfig,
-            sl: KVSlice, dist=None):
+            sl: KVSlice, dist=None, lay: Optional[KVLayout] = None):
     """Decode against a rank's slots (``sl``) of a cache: each row writes
     its token's k, v (B, 1, KH, Dh) at slot ``pos`` (a ring's pos mod
     window) where the rank holds it, and q (B, 1, H, Dh) attends the
     slots below the row's length -- over a slice of the sequence
     through ``L.flash_decode``, every rank's partial stats combined over
-    the model group.  Returns (B, 1, H, Dh)."""
+    the sequence's axes (``lay.axes``).  Returns (B, 1, H, Dh)."""
     k_cache, v_cache = cache
     B, n = q.shape[0], k_cache.shape[1]
     pos = torch.as_tensor(pos, device=q.device).reshape(-1).expand(B)
@@ -271,8 +273,9 @@ def _decode(q, k, v, cache, pos, window: int, cfg: ModelConfig,
         return L.flash_decode(
             q, k_cache, v_cache, clen, offset=sl.offset, window=win,
             softcap=cfg.logit_softcap, grouped=cfg.decode_grouped_attn,
-            all_max=functools.partial(max_from, ctx=dist),
-            all_sum=functools.partial(reduce_from, ctx=dist))
+            all_max=functools.partial(reduce_over, ctx=dist, axes=lay.axes,
+                                      op="max"),
+            all_sum=functools.partial(reduce_over, ctx=dist, axes=lay.axes))
     k_cache[rows, at] = k[:, 0].to(k_cache.dtype)
     v_cache[rows, at] = v[:, 0].to(v_cache.dtype)
     if cfg.decode_grouped_attn:
@@ -284,24 +287,49 @@ def _decode(q, k, v, cache, pos, window: int, cfg: ModelConfig,
         window=win, softcap=cfg.logit_softcap)
 
 
+def _heads_whole(lp: Dict, cfg: ModelConfig, dist, prefix: str = ""
+                 ) -> Dict:
+    """``lp`` with the attention's projections gathered whole over the
+    model group -- ``wq``, ``wk``, ``wv`` and their biases on their
+    columns, ``wo`` on its rows -- for a group whose column split of
+    ``wq`` cuts heads (whisper-small's 12 over 16): every rank then runs
+    the attention whole, as where ``wq`` is not split, and the gathers'
+    backward keeps each rank's slice of the gradients."""
+    out = dict(lp)
+    for name in ("wq", "wk", "wv", "bq", "bv"):
+        w = lp.get(prefix + name)
+        full = cfg.q_dim if name[1] == "q" else cfg.kv_dim
+        if w is not None and split_dim(w.shape[-1], full, dist):
+            out[prefix + name] = gather_last(w, dist)
+    wo = lp[prefix + "wo"]
+    if split_dim(wo.shape[0], cfg.q_dim, dist):
+        out[prefix + "wo"] = gather_last(wo.transpose(0, 1),
+                                         dist).transpose(0, 1)
+    return out
+
+
 def _attn_tp(x, lp: Dict, cfg: ModelConfig, dist, *, window, rope_sincos,
              mode, cache, pos, causal, kv_src, positions, causal_skip,
              prefix):
-    """``attn_sublayer`` over a model group.  A rank whose ``wq`` is
-    column-split runs its H/tp query heads (``qnorm`` per head) and its
-    rows of the row-split ``wo``, all-reduced.  Its K and V: its own KV
-    heads where the split of ``wk``/``wv`` keeps them whole, else K and V
-    gathered whole (or projected whole, where they are not split) and the
-    KV heads its query heads map to taken from them.  Where ``wq`` is not
-    split the attention runs whole on every rank.
+    """``attn_sublayer`` over a model group, or over a sequence split.  A
+    rank whose ``wq`` is column-split runs its H/tp query heads
+    (``qnorm`` per head) and its rows of the row-split ``wo``,
+    all-reduced.  Its K and V: its own KV heads where the split of
+    ``wk``/``wv`` keeps them whole, else K and V gathered whole (or
+    projected whole, where they are not split) and the KV heads its
+    query heads map to taken from them.  Where ``wq`` is not split, or
+    its split cuts heads (``_heads_whole``), the attention runs whole on
+    every rank.
 
     The cache follows ``cache_layout.kv_layout``: the rank's own KV
     heads, which prefill and decode write and decode attends as on one
-    rank; or, under the sequence split, the rank's slots of every KV
-    head, into which prefill writes the gathered K and V and decode the
-    token on the slot's owner, and which decode attends with q gathered
-    whole (``_decode``), each rank then taking its own query heads' rows
-    into ``wo``."""
+    rank, or all KV heads where KH % tp != 0, into which prefill writes
+    the gathered K and V, and which decode attends with q gathered whole,
+    each rank then taking its own query heads' rows into ``wo``.  Under a
+    sequence split (over the model axis where KH % tp != 0, over the
+    batch axes under ``kv_seq_shard``) the rank holds its slots of them:
+    prefill writes the rows of its slots, decode the token on the slot's
+    owner and combines the slices (``_decode``)."""
     B, S, _ = x.shape
     H, KH, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G, tp = H // KH, dist.tp
@@ -310,12 +338,14 @@ def _attn_tp(x, lp: Dict, cfg: ModelConfig, dist, *, window, rope_sincos,
     q_split = split_dim(lp[prefix + "wq"].shape[-1], cfg.q_dim, dist)
     kv_split = split_dim(lp[prefix + "wk"].shape[-1], cfg.kv_dim, dist)
     if q_split and H % tp:
-        raise NotImplementedError(
-            f"{H} query heads over a model group of {tp}: the column split "
-            f"of wq cuts heads")
+        return _attn_tp(x, _heads_whole(lp, cfg, dist, prefix), cfg, dist,
+                        window=window, rope_sincos=rope_sincos, mode=mode,
+                        cache=cache, pos=pos, causal=causal, kv_src=kv_src,
+                        positions=positions, causal_skip=causal_skip,
+                        prefix=prefix)
     Hl = H // tp if q_split else H
     lay = kv_layout(cfg, dist)
-    own_kv = kv_split and not lay.seq     # the split keeps KV heads whole
+    own_kv = kv_split and lay.heads < KH  # the split keeps KV heads whole
 
     def proj(name, inp):
         y = L.mm(inp, lp[prefix + "w" + name])
@@ -342,12 +372,12 @@ def _attn_tp(x, lp: Dict, cfg: ModelConfig, dist, *, window, rope_sincos,
     sl = None if cache is None else lay.slice(cache[0].shape[1], window)
     if mode == "decode":
         if own_kv:
-            o = _decode(q, k, v, cache, pos, window, cfg, sl)
+            o = _decode(q, k, v, cache, pos, window, cfg, sl, dist, lay)
         else:
             h0 = dist.model_rank * Hl
             qa = gather_last(q.reshape(B, 1, Hl * Dh), dist).reshape(
                 B, 1, H, Dh) if q_split else q
-            o = _decode(qa, k, v, cache, pos, window, cfg, sl, dist)
+            o = _decode(qa, k, v, cache, pos, window, cfg, sl, dist, lay)
             o = o[:, :, h0:h0 + Hl] if q_split else o
     elif mode in ("prefill", "train"):       # train writes no cache
         if mode == "prefill" and cache is not None:
@@ -385,10 +415,12 @@ def attn_sublayer(x, lp: Dict, cfg: ModelConfig, *, window: int = 0,
     cache written, ``causal_skip`` passed to ``blockwise_attention``.
     Prefill and train attention is causal unless ``causal`` is False;
     with ``kv_src`` (B, S_kv, D) k and v are its projections
-    (cross-attention).  Over a model axis above 1 (``dist``) the rank
-    runs ``_attn_tp`` on its shard of the parameters and of the cache
+    (cross-attention).  Over a model axis above 1 (``dist``), or a
+    sequence split of the cache over the batch axes, the rank runs
+    ``_attn_tp`` on its shard of the parameters and of the cache
     (``cache_layout.kv_layout``)."""
-    if tp_size(dist) > 1:
+    if tp_size(dist) > 1 or (cache is not None
+                             and kv_layout(cfg, dist).seq):
         return _attn_tp(x, lp, cfg, dist, window=window,
                         rope_sincos=rope_sincos, mode=mode, cache=cache,
                         pos=pos, causal=causal, kv_src=kv_src,
@@ -712,7 +744,7 @@ def cross_kv(params, cfg: ModelConfig, memory, dist=None):
     xs = _sub(params, "x_")
     B, S, _ = memory.shape
     split = split_dim(xs["wk"].shape[-1], cfg.kv_dim, dist)
-    whole = split and kv_layout(cfg, dist).seq
+    whole = split and kv_layout(cfg, dist).heads == cfg.num_kv_heads
 
     def heads(y):
         y = gather_last(y, dist) if whole else y
@@ -788,14 +820,18 @@ def _cross_cached(h, xp, cfg: ModelConfig, ck, cv, mode: str, dist=None):
     group whose ranks hold ``wq`` column-split: the rank's query heads
     against its KV heads (or, where the layout holds all KV heads, the
     one each query head maps to), its rows of the row-split ``wo``,
-    all-reduced."""
+    all-reduced; where that split cuts heads, ``wq`` and ``wo`` gathered
+    whole (``_heads_whole``)."""
     B, T, _ = h.shape
     H, Dh = cfg.num_heads, cfg.head_dim
     G = H // cfg.num_kv_heads
     q_split = split_dim(xp["wq"].shape[-1], cfg.q_dim, dist)
+    if q_split and H % dist.tp:
+        xp = _heads_whole(xp, cfg, dist)
+        q_split = False
     Hl = H // dist.tp if q_split else H
     q = (L.mm(h, xp["wq"]) + xp["bq"]).reshape(B, T, Hl, Dh)
-    if Hl == H or not kv_layout(cfg, dist).seq:
+    if Hl == H or kv_layout(cfg, dist).heads < cfg.num_kv_heads:
         xk, xv = L.repeat_kv(ck, G), L.repeat_kv(cv, G)
     else:                   # the KV head of each of this rank's query heads
         h0 = dist.model_rank * Hl

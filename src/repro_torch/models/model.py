@@ -25,7 +25,10 @@ Every entry point runs under a ``DistContext`` over a model axis above
 parameters, ``Placement.shard`` of ``param_pspecs``' tp mode):
 ``init_cache`` gives the rank's shard of the caches, ``prefill`` and
 ``decode_step`` take the rank's batch rows and its cache shard, and
-every rank returns the whole logits.
+every rank returns the whole logits.  Under ``kv_seq_shard`` (a serving
+batch that the batch axes do not divide, or the long-context cell) the
+rank's batch rows are all of them and its caches hold its slice of the
+sequence over the batch axes (``models.cache_layout``).
 """
 from __future__ import annotations
 
@@ -220,7 +223,11 @@ def init_cache(cfg: ModelConfig, B: int, max_seq: int, device=None,
     where KH % tp == 0, else its slice of the sequence (max_seq rounded
     up to a multiple of tp), whisper's cross K/V by its KV heads or
     whole, rwkv6's wkv state by its heads, its shifts and zamba2's
-    states whole."""
+    states whole.  Under ``dist.kv_seq_shard`` every tensor has all B
+    rows and each KV cache the rank's slice of its sequence over the
+    batch axes, joined with the model axis where KH % tp != 0 (max_seq
+    rounded up to a multiple of the slices); a ``B`` that the batch axes
+    do not divide needs it."""
     _families(cfg)
     dt = getattr(torch, cfg.kv_cache_dtype)
     device = resolve_device(device)
@@ -282,8 +289,9 @@ def prefill(params, cfg: ModelConfig, batch, caches, *, positions=None,
     memory's cross K/V into ``caches["cross"]`` (a new pair in a new
     dict; the self caches are written in place), then the decoder over
     ``batch["tokens"]`` from position 0 and the last row's logits.
-    Under a ``dist`` ``batch`` and ``caches`` are this rank's rows and
-    shard (``init_cache``); the logits are whole on every rank."""
+    Under a ``dist`` ``batch`` and ``caches`` are this rank's rows (all
+    of them under ``kv_seq_shard``) and shard (``init_cache``); the
+    logits are whole on every rank."""
     _families(cfg)
     if cfg.family == "encdec":
         memory = F.encoder_trunk(params, cfg, batch["frames"], dist=dist)

@@ -32,7 +32,9 @@ each rank serves on its model shard of the parameters and of the ring
 (``model.init_cache``), and every rank runs the same requests and
 returns the same tokens.  The batch axes split nothing: the JAX engine
 places nothing on them, so each batch rank serves the whole group, the
-ring's batch rows whole (only the model split cuts the ring).
+ring's batch rows whole (only the model split cuts the ring) -- but
+under ``kv_seq_shard``, where the ring's sequence lies over the batch
+axes too (``models.cache_layout``).
 """
 from __future__ import annotations
 
@@ -125,8 +127,9 @@ class ServingEngine:
         self.scfg = scfg
         self.params = params
         # every batch rank serves the whole group: no batch axis splits
+        # its rows, only the sequence under kv_seq_shard
         self.dist = None if dist is None or dist.mesh is None \
-            else replace(dist, batch_axes=())
+            else dist if dist.kv_seq_shard else replace(dist, batch_axes=())
         self.device = params["embed"].device
         # the persistent group cache ring: ``init_cache``'s tree at batch
         # G, one batch row a request, reused across flushes.  Stale KV rows

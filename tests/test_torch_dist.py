@@ -145,7 +145,8 @@ def test_model_axis_raises_and_names_a6d():
     """A model axis above 1 no longer raises in ``DistContext`` or
     ``make_dist`` (tensor and expert parallelism, A6d), nor in serving
     (A6e: the cache holds the rank's KV heads); a serving batch that does
-    not divide over the batch axes raises and names A6c; dp_only joins
+    not divide over the batch axes asks for the sequence split over them
+    (``kv_seq_shard``, A6c); dp_only joins
     the model axis to the batch axes; ``ElasticMesh`` shapes as the JAX
     package's."""
     mesh = SimpleNamespace(shape={"data": 1, "model": 2})
@@ -155,7 +156,7 @@ def test_model_axis_raises_and_names_a6d():
     cfg = get_config(ARCH, smoke=True)
     k, _ = TM.init_cache(cfg, 1, 8, "cpu", dist=d)["blocks"]
     assert k.shape[2:4] == (8, cfg.num_kv_heads // 2)
-    with pytest.raises(NotImplementedError, match="A6c"):
+    with pytest.raises(ValueError, match="kv_seq_shard"):
         TM.init_cache(cfg, 1, 8, "cpu", dist=TS.make_dist(SimpleNamespace(
             shape={"data": 2, "model": 2})))
     d = TS.make_dist(mesh, dp_only=True)

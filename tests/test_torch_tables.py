@@ -146,7 +146,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.distributed.fault",
             "repro_torch.distributed.compression",
             "repro_torch.distributed.tensor_parallel", "repro_torch.train",
-            "repro_torch.train.loop", "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.train.loop", "repro_torch.launch.train",
+            "repro_torch.launch.counter", "repro_torch.launch.steps",
+            "repro_torch.launch.memory", "repro_torch.launch.roofline",
+            "repro_torch.launch.dryrun", "repro_torch.launch.roofline_run",
+            "repro_torch.launch.perf"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'"

@@ -111,7 +111,8 @@ def test_kv_layout_slots_and_slices(spec, want):
     from repro_torch.models.cache_layout import kv_layout
     KH, tp, window, max_seq = spec
     cfg = SimpleNamespace(num_kv_heads=KH)
-    d = SimpleNamespace(tp=tp, model_rank=1)
+    d = SimpleNamespace(tp=tp, model_rank=1, model_axis="model",
+                        kv_seq_shard=False)
     lay = kv_layout(cfg, d)
     slots = lay.slots(max_seq, window)
     assert (slots, tuple(lay.slice(slots, window))) == want

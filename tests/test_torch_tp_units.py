@@ -2,7 +2,8 @@
 of ``distributed.tensor_parallel`` on 2 and 4 gloo ranks (and the
 identity on one), two-dim ``Placement``s against the JAX package's
 ``param_pspecs`` for every arch and mode, the serving entry points
-over a model axis and their one raise (A6c), an indivisible vocabulary
+over a model axis and the sequence split over the batch axes (A6c), an
+indivisible vocabulary
 at tp 4, and an elastic restore from a (2, 2) fsdp checkpoint onto a
 (1, 4) tp mesh.  The multi-rank
 cases run through ``tests/torch_dist_worker.py``; the bars of the route
@@ -159,10 +160,10 @@ def test_serving_entry_points_raise_naming_a6e():
     ``ServingEngine`` builds, its group replicated over the batch axes;
     at tp 4 with KH 2 the cache holds a quarter of the sequence, max_seq
     rounded up to a multiple of 4; a model axis of 1 serves as one
-    device.  The one
-    raise left is the sequence split over the batch axes, which names
-    A6c: a serving batch that does not divide over them, and
-    ``cache_placements`` under ``kv_seq_shard``."""
+    device.  The sequence split over the batch axes (A6c) no longer
+    raises either: a serving batch that does not divide over them asks
+    for ``kv_seq_shard``, under which every batch rank holds all rows
+    and its slice of the sequence, as ``cache_placements`` cuts it."""
     from repro_torch.models.cache_layout import kv_layout
     cfg = get_config("h2o-danube3-4b", smoke=True)
     L, Dh = cfg.num_layers, cfg.head_dim
@@ -186,11 +187,16 @@ def test_serving_entry_points_raise_naming_a6e():
     assert logits.shape == (1, 1, cfg.vocab_size)
     mesh = _Mesh({"data": 2, "model": 2}, {"data": 1, "model": 1})
     dp2 = DistContext(mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A6c"):
+    with pytest.raises(ValueError, match="kv_seq_shard"):
         TM.init_cache(cfg, 3, 8, "cpu", dist=dp2)
+    seq = DistContext(mesh=mesh, kv_seq_shard=True)
+    k, _ = TM.init_cache(cfg, 3, 8, "cpu", dist=seq)["blocks"]
+    assert k.shape == (L, 3, 4, 1, Dh)
+    assert kv_layout(cfg, seq).slice(4) == (4, 8, False, True)
     whole = TM.init_cache(cfg, 2, 8, "cpu")
-    with pytest.raises(NotImplementedError, match="A6c"):
-        TS.cache_placements(cfg, whole, mesh, kv_seq_shard=True)
+    pl = TS.cache_placements(cfg, whole, mesh, kv_seq_shard=True)
+    assert pl["blocks"][0].shard(whole["blocks"][0]).shape == \
+        TM.init_cache(cfg, 2, 8, "cpu", dist=seq)["blocks"][0].shape
     pl = TS.cache_placements(cfg, whole, mesh)["blocks"][0]
     assert pl.shard(whole["blocks"][0]).shape == \
         TM.init_cache(cfg, 2, 8, "cpu", dist=dp2)["blocks"][0].shape

@@ -16,8 +16,10 @@ also through ``train()``), ``int8`` (``int8_allreduce_mean`` of per-rank inputs)
 then restored onto another through an injected fault), ``model_axis``
 (a (1, world) mesh: ``tp`` and ``dp_only`` one step each), ``ep`` (the
 expert-parallel ``moe_layer`` forward), ``collectives`` (the autograd
-collectives of ``distributed.tensor_parallel``) and ``serve`` (serving
-over a model axis, ``tests/torch_tp_serve_cases.py``).  Imports no JAX.
+collectives of ``distributed.tensor_parallel``), ``serve`` (serving
+over a model axis, ``tests/torch_tp_serve_cases.py``) and ``seq_serve``
+(the sequence split over the batch axes,
+``tests/torch_seq_serve_cases.py``).  Imports no JAX.
 """
 import datetime
 import json
@@ -252,9 +254,20 @@ def _serve(rank, world, a, out):
         torch.save(every, out)
 
 
+def _seq_serve(rank, world, a, out):
+    """The sequence split over the batch axes:
+    ``torch_seq_serve_cases.seq_ranks``, every rank's results."""
+    from torch_seq_serve_cases import seq_ranks
+    every = [None] * world
+    dist.all_gather_object(every, seq_ranks(rank, world, a))
+    if rank == 0:
+        torch.save(every, out)
+
+
 CASES = {"route": _route, "variants": _variants, "int8": _int8,
          "train": _train, "elastic": _elastic, "model_axis": _model_axis,
-         "ep": _ep, "collectives": _collectives, "serve": _serve}
+         "ep": _ep, "collectives": _collectives, "serve": _serve,
+         "seq_serve": _seq_serve}
 
 
 def _rank(rank, world, case, out_dir, a):

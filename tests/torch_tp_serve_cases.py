@@ -46,6 +46,10 @@ CASES = {
     "rwkv6-7b": dict(prompt=20, max_seq=32),
     "zamba2-2.7b": dict(prompt=20, max_seq=32),
     "whisper-small": dict(prompt=8, max_seq=24),
+    # one query head of 16: a model axis of 2 cuts it (whisper-small's
+    # 12 heads over the production mesh's 16)
+    "whisper-small:one_head": dict(
+        prompt=8, max_seq=24, overrides={"num_heads": 1, "num_kv_heads": 1}),
 }
 PACK_BLOCK = 16          # the vlm prompt's RoI packing block
 
@@ -267,11 +271,11 @@ class StandIn:
         return i
 
 
-def placements(cfg, cache, mesh):
+def placements(cfg, cache, mesh, **kw):
     """Each leaf's ``Placement`` (flat, as ``_leaves``), from
-    ``cache_placements``."""
+    ``cache_placements`` (given ``kw``)."""
     from repro_torch.distributed.shardings import cache_placements
-    return _leaves(cache_placements(cfg, cache, mesh), lambda p: p)
+    return _leaves(cache_placements(cfg, cache, mesh, **kw), lambda p: p)
 
 
 _REFS = {}
